@@ -1,0 +1,9 @@
+"""PyTorch / CUDA port of the MELINOE reproduction (``src/repro`` is the
+JAX reference it is held against).
+
+Layout mirrors ``repro``: ``configs`` (copied), ``kernels`` (hand-written
+Hopper kernels + their plain PyTorch versions), ``models``, ``core``
+(expert cache + slab offload engine), ``bridge`` (JAX parameter trees <->
+torch dicts) and ``launch.serve``. Entry points run on ``cuda`` unless the
+caller passes ``device="cpu"``.
+"""

@@ -1,0 +1,68 @@
+"""Weight bridge between the JAX parameter tree and the port's dicts.
+
+The JAX ``init_params`` tree (``groups/g{gi}/p{pi}`` leaves stacked over
+``repeats``, plus ``embed``, ``lm_head``, ``final_norm``) maps key for
+key onto the port's dict. The bridge takes and returns numpy arrays
+only, so it needs neither JAX nor its bf16 type: a JAX bfloat16 array
+(an ``ml_dtypes`` dtype named ``"bfloat16"``) crosses as float32, which
+holds every bf16 value exactly.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .configs.base import ModelConfig
+from .models.common import cdtype
+
+
+def _check_layout(tree: dict, cfg: ModelConfig) -> None:
+    want = {"embed", "final_norm", "groups"} | (
+        set() if cfg.tie_embeddings else {"lm_head"})
+    missing = want - set(tree)
+    if missing:
+        raise KeyError(f"parameter tree lacks {sorted(missing)}")
+    for gi, g in enumerate(cfg.layout):
+        for pi, _ in enumerate(g.pattern):
+            if f"p{pi}" not in tree["groups"].get(f"g{gi}", {}):
+                raise KeyError(f"parameter tree lacks groups/g{gi}/p{pi}")
+
+
+def _to_torch(a: np.ndarray, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.tensor(a)  # a copy: JAX hands out read-only buffers
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(tree, cfg: ModelConfig, *, dtype=None, device="cpu"):
+    """Numpy tree (``jax.tree.map(np.asarray, params)``) -> torch dict.
+
+    ``dtype``: cast floating leaves to it (the fp32 router excepted, as in
+    the JAX init); ``None`` keeps each leaf's dtype."""
+    _check_layout(tree, cfg)
+    dt = cdtype(dtype) if dtype is not None else None
+
+    def walk(node, key=""):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return _to_torch(node, None if key == "router" else dt, device)
+
+    return walk(tree)
+
+
+def params_to_numpy(params) -> dict:
+    """Torch dict -> numpy tree (bf16 leaves come back as float32)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        t = node.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    return walk(params)

@@ -1,0 +1,93 @@
+"""Per-op kernel-backend resolution for the port.
+
+Every op resolves a spec string ``"ref" | "hopper" | "auto"``, optionally
+per op (``"auto,flash_attn=ref"``). The environment variable
+``REPRO_TORCH_KERNEL_BACKEND`` merges over the caller's spec per key.
+
+Resolution against the tensor the op is given:
+
+  * ``auto``   -> the Hopper kernel for a CUDA tensor, the plain PyTorch
+                  version for a CPU tensor;
+  * ``hopper`` -> the same, except that a CPU tensor raises;
+  * ``ref``    -> the plain version on any device (on a CUDA tensor only
+                  as an explicit request, e.g. to compare with the kernel).
+
+Each wrapper counts its kernel launches in :data:`LAUNCHES`, one per
+launch and nowhere else, so a run can show that its path went through
+the kernels.
+"""
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+# Every kernel family of the repo; unknown names are an error.
+OPS = ("flash_attn", "int4_matmul", "moe_gmm", "ssd_scan")
+
+BACKENDS = ("ref", "hopper", "auto")
+
+ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
+
+# kernel launches per op since the last reset_launches()
+LAUNCHES = {op: 0 for op in OPS}
+
+
+def count_launch(op: str) -> None:
+    LAUNCHES[op] += 1
+
+
+def reset_launches() -> None:
+    for op in LAUNCHES:
+        LAUNCHES[op] = 0
+
+
+def parse_spec(spec: Optional[str]) -> dict:
+    """``"auto"`` / ``"ref,moe_gmm=hopper"`` -> {"*": ..., op: ...}.
+
+    A bare backend name sets the global default ("*"); ``op=backend``
+    entries override per op. Unknown ops/backends raise."""
+    out: dict = {}
+    if not spec:
+        return out
+    for part in str(spec).split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" in part:
+            op, _, backend = part.partition("=")
+            op, backend = op.strip(), backend.strip()
+            if op not in OPS:
+                raise ValueError(f"unknown kernel op {op!r} (known: {OPS})")
+        else:
+            op, backend = "*", part
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"unknown kernel backend {backend!r} (known: {BACKENDS})")
+        out[op] = backend
+    return out
+
+
+def op_backend(op: str, spec: Optional[str]) -> str:
+    """The configured backend for ``op`` under ``spec`` after the env
+    override (env entries win per key; default "auto")."""
+    if op not in OPS:
+        raise ValueError(f"unknown kernel op {op!r} (known: {OPS})")
+    table = parse_spec(spec)
+    env = os.environ.get(ENV_VAR)
+    if env:
+        table.update(parse_spec(env))
+    return table.get(op, table.get("*", "auto"))
+
+
+def use_kernel(op: str, spec: Optional[str], device) -> bool:
+    """True when ``op`` must launch its Hopper kernel for a tensor on
+    ``device``; False for the plain version. ``hopper`` on a CPU tensor
+    raises — there is no quiet fallback."""
+    backend = op_backend(op, spec)
+    if backend == "ref":
+        return False
+    on_cuda = getattr(device, "type", device) == "cuda"
+    if backend == "hopper" and not on_cuda:
+        raise RuntimeError(
+            f"{op}: backend 'hopper' needs a CUDA tensor, got one on {device}")
+    return on_cuda

@@ -1,0 +1,94 @@
+"""Port entry points on the CPU: the serve launcher at smoke size, the
+CUDA default (which raises without a card), and the port's isolation
+from JAX and from the JAX package."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.offload_engine import OffloadedMoEEngine  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.model import init_params  # noqa: E402
+from repro_torch.models.runtime import resolve_device  # noqa: E402
+
+pytestmark = pytest.mark.torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_run_on_cpu_at_smoke_size(capsys):
+    rep = serve.main(["--arch", "granite-moe-1b-a400m-smoke", "--device", "cpu",
+                      "--capacity", "2", "--batch", "2", "--prompt-len", "8",
+                      "--max-new", "4", "--dtype", "float32"])
+    assert rep["tokens"].shape == (2, 4)
+    assert rep["prefill_logits"].shape == (2, 512)
+    assert torch.isfinite(rep["prefill_logits"]).all()
+    assert rep["decode_tokens"] == 4 and rep["transfers"] > 0
+    assert rep["hits"] + rep["misses"] > 0
+    assert rep["modeled_time_overlapped_s"] <= rep["modeled_time_s"]
+    assert rep["hw"] == "h100-pcie5" and rep["device"] == "cpu"
+    assert "transfers=" in capsys.readouterr().out
+    # the same seed gives the same tokens; the plain backend is the same path
+    again = serve.run("granite-moe-1b-a400m-smoke", capacity=2, batch=2,
+                      prompt_len=8, max_new=4, dtype="float32", device="cpu",
+                      kernel_backend="ref")
+    np.testing.assert_array_equal(again["tokens"], rep["tokens"])
+
+
+def test_prompts_match_the_jax_launcher():
+    from repro.data.synthetic import ClusterLM, SyntheticConfig
+
+    lm = ClusterLM(SyntheticConfig(vocab=4096, seq_len=20, seed=3))
+    rng = np.random.default_rng(0)
+    want = np.stack([lm.sample_sequence(rng)[0] for _ in range(3)]).astype(np.int32)
+    np.testing.assert_array_equal(serve.make_prompts(4096, 3, 20), want)
+
+
+def test_default_device_is_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    cfg = get_config("granite-moe-1b-a400m-smoke")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         dtype=torch.float32, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        OffloadedMoEEngine(cfg, params, capacity=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run("granite-moe-1b-a400m-smoke", max_new=2)
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _port_files():
+    return sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+    bad = {str(p.relative_to(ROOT)): pat.findall(p.read_text()) for p in _port_files()}
+    assert not {k: v for k, v in bad.items() if v}
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+            for p in _port_files()[:-1]]
+    mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    code = (
+        "import importlib, sys\n"
+        f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+        f"for m in {mods!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
