@@ -14,7 +14,13 @@ From the root of a checkout, with CUDA available:
    launch counters set to 0 just before, asserts that both kernels were
    launched on that path, and holds the prefill logits against a run of
    the same prompts through the plain versions (``kernel_backend="ref"``);
-5. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+5. serves the same batch again with HQQ INT4 experts (``quantized=True``,
+   paper Sec 3.2), counters set to 0 just before, asserts that
+   ``int4_matmul``, ``moe_gmm`` and ``flash_attn`` were all launched, and
+   holds its prefill logits against a plain run on the same INT4 codes;
+   the INT4-vs-bf16 logits difference is printed, not gated (it is the
+   quantization error);
+6. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -155,6 +161,55 @@ def flash_cases(gen):
     return cases
 
 
+def int4_cases(gen):
+    from repro_torch.kernels.int4_matmul import (dequant_ref, int4_matmul_hopper,
+                                                 int4_matmul_ref, quantize_matmul_weight)
+
+    cases = []
+    g = 32
+    shapes = [(M, K, N) for M in (1, 4, 512) for K, N in ((2048, 1024), (1024, 2048))]
+    shapes.append((7, 2048, 1000))  # ragged: M and N tails of both tiles
+    for dtype in (torch.bfloat16, torch.float32):
+        for M, K, N in shapes:
+            x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+            w = torch.randn(K, N, generator=gen, device="cuda") * K**-0.5
+            p, sc, z, _ = quantize_matmul_weight(w, g)
+            label = f"int4 {str(dtype)[6:]} x({M},{K}) w({K},{N}) g{g}"
+            out = int4_matmul_hopper(x, p, sc, z, g)
+            ref = int4_matmul_ref(x, p, sc, z, g)
+            torch.cuda.synchronize()
+            err = check(label, out, ref, dtype)
+            it = x.element_size()
+            nbytes = M * K * it + p.numel() + 4 * (sc.numel() + z.numel()) + M * N * it
+            t_bound, by = bound(nbytes, 2.0 * M * K * N, dtype)
+            w_deq = dequant_ref(p, sc, z, g).to(dtype)  # for the matmul-only yardstick
+            cases.append({
+                "case": label, "max_abs_err": err, "tol": TOL[dtype],
+                "ms": time_ms(lambda: int4_matmul_hopper(x, p, sc, z, g)),
+                "plain_ms": time_ms(lambda: int4_matmul_ref(x, p, sc, z, g)),
+                "library_ms": time_ms(lambda: torch.matmul(x, w_deq)),
+                "library": "torch.matmul on a pre-dequantized weight (matmul only, "
+                           "no dequant)",
+                "bound_ms": t_bound, "bound_by": by})
+    return cases
+
+
+def slab_dequant_ms(gen, C=16, d=2048, f=1024, g=32) -> float:
+    """The INT4 slab step's plain dequant of C slots for wg, wu and wd into
+    bf16 (what one MoE layer-step computes before its gmm calls)."""
+    from repro_torch.kernels.int4_matmul import dequant_ref
+
+    mats = []
+    for K, N in ((d, f), (d, f), (f, d)):
+        p = torch.randint(0, 256, (C, K // 2, N), generator=gen, device="cuda",
+                          dtype=torch.uint8)
+        s = torch.rand(C, K // g, N, generator=gen, device="cuda") * 1e-3
+        z = torch.rand(C, K // g, N, generator=gen, device="cuda") * 15
+        mats.append((p, s, z))
+    return time_ms(lambda: [dequant_ref(p, s, z, g).to(torch.bfloat16)
+                            for p, s, z in mats], reps=5, warmup=1)
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it."""
@@ -190,7 +245,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     g_cases = gmm_cases(gen)
     f_cases = flash_cases(gen)
-    for c in g_cases + f_cases:
+    i_cases = int4_cases(gen)
+    for c in g_cases + f_cases + i_cases:
         print(f"  {c['case']}: err {c['max_abs_err']:.3g} kernel {c['ms']:.4f} ms "
               f"plain {c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
               f"({c['bound_by']}) library {c['library_ms']}")
@@ -222,6 +278,42 @@ def main() -> int:
     if not (math.isfinite(rel) and rel <= LOGITS_REL_TOL):
         raise AssertionError(f"prefill logits disagree: rel {rel}")
 
+    # ---- the INT4 path (Sec 3.2): the same batch with HQQ INT4 experts
+    dispatch.reset_launches()
+    qrep = run("olmoe", max_new=32, quantized=True, keep_store=True, **serve_kw)
+    q_launches = dict(dispatch.LAUNCHES)
+    for op in ("int4_matmul", "moe_gmm", "flash_attn"):
+        if q_launches[op] <= 0:
+            raise AssertionError(f"INT4 path launched no {op} kernel: {q_launches}")
+    q_logits = qrep["prefill_logits"]
+    if qrep["tokens"].shape != (4, 32) or q_logits.shape != (4, 50_304):
+        raise AssertionError(f"INT4 shapes: tokens {qrep['tokens'].shape} "
+                             f"logits {q_logits.shape}")
+    if not torch.isfinite(q_logits).all():
+        raise AssertionError("non-finite INT4 prefill logits")
+    print("serve olmoe quantized:", json.dumps(
+        {k: v for k, v in qrep.items()
+         if k not in ("tokens", "prefill_logits", "quantized_experts")}))
+    print(f"launches on the INT4 path: {q_launches}")
+    print(f"slab dequant per MoE layer-step (16 slots x wg/wu/wd -> bf16, plain "
+          f"torch): {slab_dequant_ms(gen):.4f} ms")
+
+    qref = run("olmoe", max_new=1, kernel_backend="ref", quantized=True,
+               quantized_experts=qrep.pop("quantized_experts"), **serve_kw)
+    qdiff = (q_logits - qref["prefill_logits"]).float()
+    qrel = (qdiff.norm() / qref["prefill_logits"].float().norm()).item()
+    qtop1 = (q_logits.argmax(-1) == qref["prefill_logits"].argmax(-1)
+             ).float().mean().item()
+    print(f"INT4 prefill logits kernel vs plain (same codes): rel {qrel:.3g} "
+          f"(tol {LOGITS_REL_TOL}), max abs {qdiff.abs().max().item():.3g}, "
+          f"top-1 agreement {qtop1:.2f}")
+    if not (math.isfinite(qrel) and qrel <= LOGITS_REL_TOL):
+        raise AssertionError(f"INT4 prefill logits disagree: rel {qrel}")
+    vs_bf16 = (q_logits - logits).float()
+    print(f"INT4 vs bf16 prefill logits (quantization error, not a gate): rel "
+          f"{(vs_bf16.norm() / logits.float().norm()).item():.3g}, top-1 "
+          f"agreement {(q_logits.argmax(-1) == logits.argmax(-1)).float().mean().item():.2f}")
+
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
@@ -230,7 +322,15 @@ def main() -> int:
                      "src/repro/kernels/flash_attn/kernel.py:80", f_cases,
                      "flash bfloat16 B4 T128 Hkv16 G1 hd128 softcap=None window=None",
                      launches["flash_attn"]),
+        kernel_entry("int4_matmul",
+                     "src/repro_torch/kernels/int4_matmul/csrc/int4_matmul.cu",
+                     "src/repro/kernels/int4_matmul/kernel.py:55", i_cases,
+                     "int4 bfloat16 x(4,2048) w(2048,1024) g32",
+                     q_launches["int4_matmul"]),
     ]
+    for k in kernels:  # launches of each path, each counted from 0
+        k["launches_by_path"] = {"bf16": launches[k["name"]],
+                                 "int4": q_launches[k["name"]]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,12 @@ key onto the port's dict. The bridge takes and returns numpy arrays
 only, so it needs neither JAX nor its bf16 type: a JAX bfloat16 array
 (an ``ml_dtypes`` dtype named ``"bfloat16"``) crosses as float32, which
 holds every bf16 value exactly.
+
+INT4 weights cross the same way: :func:`qtensor_from_jax` takes a numpy
+copy of a JAX ``QTensor`` (``repro.core.quant``), and
+:func:`quantized_experts_from_jax` turns a JAX quantized engine's host
+store into the port engine's ``quantized_experts`` argument, so that the
+two packages compute on the same codes.
 """
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .core.quant import QTensor, matmul_layout
+from .kernels.int4_matmul.ops import MatmulQWeight
 from .models.common import cdtype
 
 
@@ -66,3 +74,34 @@ def params_to_numpy(params) -> dict:
         return t.numpy()
 
     return walk(params)
+
+
+def qtensor_from_jax(qt) -> QTensor:
+    """A numpy copy of a JAX ``QTensor`` (any 5-field sequence: packed,
+    scale, zero, shape, group; shape and group may be 0-d arrays) -> the
+    port's QTensor, bit for bit."""
+    packed, scale, zero, shape, group = qt
+    return QTensor(torch.tensor(np.asarray(packed)),
+                   torch.tensor(np.asarray(scale)), torch.tensor(np.asarray(zero)),
+                   tuple(int(s) for s in shape), int(group))
+
+
+def qtensor_to_numpy(qt: QTensor) -> tuple:
+    """Port QTensor -> (packed, scale, zero, shape, group) with numpy leaves."""
+    return (qt.packed.cpu().numpy(), qt.scale.cpu().numpy(), qt.zero.cpu().numpy(),
+            tuple(qt.shape), int(qt.group))
+
+
+def quantized_experts_from_jax(host_store) -> list:
+    """A JAX quantized engine's ``host_store`` (per MoE layer, expert id ->
+    ``{"q": {k: QTensor}}``) -> per layer ``{k: MatmulQWeight}`` of
+    ``(E, ...)`` leaves in the matmul layout (``OffloadedMoEEngine(...,
+    quantized_experts=...)``)."""
+    out = []
+    for store in host_store:
+        per_e = [{k: matmul_layout(qtensor_from_jax(q))
+                  for k, q in store[e]["q"].items()} for e in sorted(store)]
+        out.append({k: MatmulQWeight(*(torch.stack([m[k][i] for m in per_e])
+                                       for i in range(3)), per_e[0][k].group)
+                    for k in per_e[0]})
+    return out

@@ -12,6 +12,18 @@ Eq. 3; counterpart of ``repro/core/offload_engine.py`` with
                     engine's donated ``.at[slot].set``), counted and
                     costed by Eq. 3.
 
+With ``quantized=True`` (paper Sec 3.2) every expert is held in HQQ
+INT4: ``wg/wu/wd`` quantized with ``quantize_linear(..., iters=4)`` and
+stored in the matmul layout (packed ``(K//2, N)`` bytes, fp32 scale and
+zero ``(K//group, N)``), one expert's nine leaves contiguous in a pinned
+``(E, expert_bytes)`` byte buffer per layer, so a miss is ONE copy of
+``expert_bytes_q`` bytes into a byte slab. The slab mirrors the cache
+manager's resident set (``_sync_slab``, as the JAX quantized engine);
+each step dequantizes the slots it uses into the activation dtype and
+runs the same grouped ``moe_gmm``, and the experts the slab cannot hold
+run one by one through ``qmatmul`` -> ``int4_matmul`` with fp32
+gate-mass accumulation (the JAX ``_per_expert_contrib``).
+
 Per MoE layer and step: attention + router, then the vectorized host
 cache accounting (``LayerExpertCache.access_batch``), then one grouped
 ``moe_gmm`` per projection over the C slots (tokens sorted into
@@ -34,6 +46,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels.int4_matmul.ops import MatmulQWeight
+from ..kernels.int4_matmul.ref import dequant_ref
 from ..kernels.moe_gmm import ops as gmm_ops
 from ..models.attention import attend_full, cache_from_prefill, decode_attend
 from ..models.common import rms_norm, silu
@@ -43,6 +57,7 @@ from ..models.moe import (Dispatch, combine_tokens, dispatch_tokens,
                           router_probs, top_k_route)
 from ..models.runtime import Runtime, resolve_device
 from .expert_cache import ModelExpertCache
+from .quant import matmul_layout, qmatmul, quantize_linear
 
 _EXPERT_KEYS = ("wg", "wu", "wd")
 
@@ -190,6 +205,40 @@ class ExpertSlab:
 # ---------------------------------------------------------------------------
 
 
+class QuantLayout:
+    """Byte layout of one INT4 expert: for each of wg/wu/wd (a (K, N)
+    matmul weight) its packed ``(K//2, N)`` uint8, scale and zero
+    ``(K//group, N)`` fp32, back to back. ``nbytes`` equals the JAX
+    engine's ``expert_bytes_q`` (the sum of ``quant_bytes``)."""
+
+    def __init__(self, shapes: Dict[str, tuple], group: int):
+        self.group = group
+        self.fields = []  # (key, leaf, offset, nbytes, dtype, shape)
+        off = 0
+        for k, (K, N) in shapes.items():
+            if K % group or group % 2:
+                raise ValueError(f"{k}: K={K} is not a multiple of the even "
+                                 f"group {group}")
+            for leaf, dt, shp in (("packed", torch.uint8, (K // 2, N)),
+                                  ("scale", torch.float32, (K // group, N)),
+                                  ("zero", torch.float32, (K // group, N))):
+                n = shp[0] * shp[1] * dt.itemsize
+                if off % 4:  # fp32 views need 4-byte offsets
+                    raise ValueError(f"{k}.{leaf}: offset {off} is not 4-aligned")
+                self.fields.append((k, leaf, off, n, dt, shp))
+                off += n
+        self.nbytes = off
+
+    def views(self, buf: torch.Tensor) -> Dict[str, MatmulQWeight]:
+        """(n, nbytes) uint8 -> {k: MatmulQWeight of (n, ...) views}."""
+        leaves: Dict[str, dict] = {}
+        for k, leaf, off, n, dt, shp in self.fields:
+            v = buf[:, off:off + n].view(dt).unflatten(1, shp)
+            leaves.setdefault(k, {})[leaf] = v
+        return {k: MatmulQWeight(v["packed"], v["scale"], v["zero"], self.group)
+                for k, v in leaves.items()}
+
+
 def _tree_map(fn, tree):
     return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
@@ -200,10 +249,19 @@ class OffloadedMoEEngine:
 
     def __init__(self, cfg: ModelConfig, params, *, capacity: int,
                  policy: str = "lfu", gamma: float = 0.9,
+                 quantized: bool = False, quant_group: int = 32,
+                 quantized_experts: Optional[List[Dict[str, MatmulQWeight]]] = None,
                  hw: HardwareProfile = HardwareProfile(),
                  kernel_backend: str = "auto", device=None):
+        """``quantized_experts`` (with ``quantized``): per MoE layer, the
+        INT4 experts already in the matmul layout (``{k: MatmulQWeight}``
+        of ``(E, ...)`` leaves, e.g. from :meth:`quantized_experts` or
+        ``bridge.quantized_experts_from_jax``), stored as given instead of
+        quantizing ``params``' experts."""
         assert cfg.has_router, "offload engine needs an MoE architecture"
         self.cfg = cfg
+        self.quantized = quantized
+        self.quant_group = quant_group
         self.device = resolve_device(device)
         self.rt = Runtime(kernel_backend=kernel_backend, device=self.device)
         self.hw = hw
@@ -212,6 +270,10 @@ class OffloadedMoEEngine:
         E, d, f = self.moe_spec.num_experts, cfg.d_model, self.moe_spec.d_ff
         dev = self.device
         pin = dev.type == "cuda"
+        self._qlayout = (QuantLayout({"wg": (d, f), "wu": (d, f), "wd": (f, d)},
+                                     quant_group) if quantized else None)
+        self.quantize_s = 0.0  # seconds spent building the INT4 store
+        self.host_store_bytes = 0  # pinned host memory of the expert store
 
         # ---- unstack the scanned groups into a flat per-layer list; the
         # expert weights go to the pinned host store, the rest to the device
@@ -234,15 +296,22 @@ class OffloadedMoEEngine:
                     lp["ffn"] = _tree_map(
                         lambda a: a[r].to(dev),
                         {k: v for k, v in ffn.items() if k not in _EXPERT_KEYS})
-                    self._add_host_experts({k: ffn[k][r] for k in _EXPERT_KEYS},
-                                           pin)
+                    w = {k: ffn[k][r] for k in _EXPERT_KEYS}
+                    if quantized:
+                        t0 = time.perf_counter()
+                        self._add_host_qexperts(
+                            w, quantized_experts, len(self.moe_layer_ids), pin)
+                        self.quantize_s += time.perf_counter() - t0
+                    else:
+                        self._add_host_experts(w, pin)
                     self.moe_layer_ids.append(len(self.layers))
                     self.layers.append({"spec": b, "params": lp,
                                         "moe_idx": len(self.moe_layer_ids) - 1})
         self.params_top = {k: v.to(dev) for k, v in params.items()
                            if k in ("embed", "lm_head", "final_norm")}
-        wg0 = self.host_store[0]["wg"]
-        self.expert_bytes = 3 * d * f * wg0.element_size()
+        leaf0 = next(iter(self.host_store[0].values()))
+        self.expert_bytes = (self._qlayout.nbytes if quantized
+                             else 3 * d * f * leaf0.element_size())
 
         self.cache = ModelExpertCache(len(self.moe_layer_ids), E, capacity,
                                       policy=policy, gamma=gamma)
@@ -251,11 +320,16 @@ class OffloadedMoEEngine:
         # zero-filled slabs (never-written slots hold finite values)
         self._slabs = [
             ExpertSlab(E, capacity, {
-                k: torch.zeros((capacity,) + tuple(v.shape[1:]), dtype=wg0.dtype,
+                k: torch.zeros((capacity,) + tuple(v.shape[1:]), dtype=v.dtype,
                                device=dev)
                 for k, v in self.host_store[0].items()})
             for _ in self.moe_layer_ids
         ]
+        self.slab_bytes = sum(b.nbytes for s in self._slabs
+                              for b in s.buffers.values())
+        # INT4 leaves of each slab, viewed in place
+        self._slab_q = ([self._qlayout.views(s.buffers["q"]) for s in self._slabs]
+                        if quantized else None)
         self._overflow: Optional[Dict[str, torch.Tensor]] = None
 
     # ------------------------------------------------------------------
@@ -272,18 +346,47 @@ class OffloadedMoEEngine:
             buf[:, i].copy_(w[k].reshape(E, -1))
             views[k] = buf[:, i].unflatten(1, tuple(w[k].shape[1:]))
         self.host_store.append(views)
+        self.host_store_bytes += buf.nbytes
+
+    def _add_host_qexperts(self, w: Dict[str, torch.Tensor], given, moe_idx: int,
+                           pin: bool) -> None:
+        """One layer's experts into a pinned ``(E, expert_bytes)`` INT4
+        buffer: quantized here on the engine's device (the whole layer at
+        once; groups are independent), or taken from ``given``."""
+        if given is not None:
+            mq = given[moe_idx]
+        else:
+            mq = {k: matmul_layout(quantize_linear(v.to(self.device), iters=4,
+                                                   group=self.quant_group))
+                  for k, v in w.items()}
+        E = w["wg"].shape[0]
+        buf = torch.empty((E, self._qlayout.nbytes), dtype=torch.uint8,
+                          pin_memory=pin)
+        for k, dst in self._qlayout.views(buf).items():
+            for leaf in ("packed", "scale", "zero"):
+                getattr(dst, leaf).copy_(getattr(mq[k], leaf))
+        self.host_store.append({"q": buf})
+        self.host_store_bytes += buf.nbytes
+
+    def quantized_experts(self) -> List[Dict[str, MatmulQWeight]]:
+        """The INT4 store as ``{k: MatmulQWeight}`` of ``(E, ...)`` views of
+        the pinned host buffers (no copy), one dict per MoE layer — the
+        ``quantized_experts`` argument of another engine."""
+        return [self._qlayout.views(s["q"]) for s in self.host_store]
 
     def _load(self, moe_idx: int, e: int, dst: Dict[str, torch.Tensor],
               slot: int) -> None:
         """Host -> device copy of expert ``e`` into ``dst[k][slot]`` (async
-        from pinned memory, ordered on the current stream)."""
+        from pinned memory, ordered on the current stream): three copies
+        for fp experts, one of ``expert_bytes`` for INT4."""
         for k, v in self.host_store[moe_idx].items():
             dst[k][slot].copy_(v[e], non_blocking=True)
 
     def _overflow_buffers(self, n: int) -> Dict[str, torch.Tensor]:
         """Device buffers for ``n`` transient experts (grown on demand,
         reused by every layer: copies and kernels are stream-ordered)."""
-        if self._overflow is None or self._overflow["wg"].shape[0] < n:
+        have = 0 if self._overflow is None else len(next(iter(self._overflow.values())))
+        if have < n:
             self._overflow = {
                 k: torch.empty((n,) + tuple(v.shape[1:]), dtype=v.dtype,
                                device=self.device)
@@ -376,19 +479,82 @@ class OffloadedMoEEngine:
         if missed:
             self.metrics.add_demand_transfers(moe_idx, len(missed),
                                               len(missed) * self.expert_bytes)
-        return self._ensure_resident(moe_idx, sorted(set(eids_np.ravel().tolist())))
+        needed = sorted(set(eids_np.ravel().tolist()))
+        if self.quantized:  # the slab mirrors the manager's resident set
+            if missed:
+                self._sync_slab(moe_idx)
+            residents = self._slabs[moe_idx].residents
+            return [e for e in needed if e not in residents]
+        return self._ensure_resident(moe_idx, needed)
 
-    def _finish_moe(self, layer: dict, h2f, gates, eids_np, missing):
+    def _finish_moe(self, layer: dict, h2f, gates, eids, eids_np, missing):
         """Device half: grouped compute over the slab (+ the shared expert)
         and the overflow group. h2f (N, d) -> (N, d)."""
-        slab = self._slabs[layer["moe_idx"]]
-        y = self._group_core(slab.buffers, slab.slot_of_expert[eids_np], h2f, gates)
+        moe_idx = layer["moe_idx"]
+        slab = self._slabs[moe_idx]
+        if self.quantized:
+            y = self._quant_slab_group(moe_idx, h2f, gates, eids_np)
+        else:
+            y = self._group_core(slab.buffers, slab.slot_of_expert[eids_np], h2f,
+                                 gates)
         if self.moe_spec.shared_d_ff:
             y = y + apply_mlp(layer["params"]["ffn"]["shared"], h2f)
         if missing:  # |needed| > C spillover / degenerate C < K
-            y = y + self._overflow_group(layer["moe_idx"], h2f, gates, eids_np,
-                                         missing)
+            if self.quantized:
+                extra = self._quant_spillover(moe_idx, h2f, gates, eids, missing)
+                y = y + extra.to(y.dtype)
+            else:
+                y = y + self._overflow_group(moe_idx, h2f, gates, eids_np, missing)
         return y
+
+    def _quant_slab_group(self, moe_idx: int, h2f, gates, eids_np):
+        """Grouped compute over the INT4 slab: the slots this step uses are
+        dequantized into the activation dtype (``dequant_ref`` batched over
+        slots, the JAX ``_dequant_slab_mat``; an unused slot would only
+        meet zero rows) and renumbered 0..G-1 for one ``moe_gmm`` per
+        projection."""
+        slab = self._slabs[moe_idx]
+        slots = slab.slot_of_expert[eids_np]
+        # never empty: the manager admits every miss, so the step's last
+        # routed expert is resident
+        used = np.unique(slots[slots < slab.C])
+        remap = np.full(slab.C + 1, used.size, np.int64)
+        remap[used] = np.arange(used.size)
+        w = self._dequant_slots(moe_idx, used, h2f.dtype)
+        return self._group_core(w, remap[slots], h2f, gates)
+
+    def _dequant_slots(self, moe_idx: int, used: np.ndarray, dtype):
+        """{k: (G, K, N)} weights of the slab slots ``used``, in ``dtype``."""
+        idx = torch.as_tensor(used).to(self.device)
+        return {k: dequant_ref(mq.packed[idx], mq.scale[idx], mq.zero[idx],
+                               mq.group).to(dtype)
+                for k, mq in self._slab_q[moe_idx].items()}
+
+    def _quant_spillover(self, moe_idx: int, h2f, gates, eids, missing):
+        """The experts the INT4 slab could not hold, one by one (the JAX
+        ``_per_expert_contrib``): a copy into a reused INT4 buffer, then
+        three ``qmatmul`` calls (the ``int4_matmul`` kernel on the card),
+        with gate-massed fp32 accumulation. Returns (N, d) fp32."""
+        buf = self._overflow_buffers(len(missing))
+        for i, e in enumerate(missing):
+            self._load(moe_idx, e, buf, i)
+        ws = self._qlayout.views(buf["q"])
+        # gate mass per (token, expert): an expert appears at most once in a
+        # token's top-k, so this is the where(eids == e, gates, 0).sum(-1)
+        # of the reference exactly
+        mass = torch.zeros((h2f.shape[0], self.moe_spec.num_experts),
+                           dtype=torch.float32, device=self.device)
+        mass.scatter_add_(1, eids.long(), gates.float())
+        be = self.rt.kernel_backend
+        out = torch.zeros(h2f.shape, dtype=torch.float32, device=self.device)
+        for i, e in enumerate(missing):
+            w = {k: MatmulQWeight(v.packed[i], v.scale[i], v.zero[i], v.group)
+                 for k, v in ws.items()}
+            h_act = (silu(qmatmul(h2f, w["wg"], backend=be))
+                     * qmatmul(h2f, w["wu"], backend=be))
+            ye = qmatmul(h_act, w["wd"], backend=be)
+            out = out + mass[:, e:e + 1] * ye.float()
+        return out
 
     def _overflow_group(self, moe_idx: int, h2f, gates, eids_np, missing):
         """Grouped compute over a transient stack of the experts the slab
@@ -423,7 +589,7 @@ class OffloadedMoEEngine:
             gates, eids = top_k_route(probs, b.moe.top_k)
             eids_np = eids.cpu().numpy()  # the host cache manager needs the ids
             missing = self._prep_moe(layer["moe_idx"], eids_np)
-            y = self._finish_moe(layer, h2f, gates, eids_np, missing)
+            y = self._finish_moe(layer, h2f, gates, eids, eids_np, missing)
             x = xa + y.reshape(B, T, dm)
         return x
 

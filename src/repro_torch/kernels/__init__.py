@@ -5,11 +5,13 @@ PyTorch version and a launch counter:
                (replaces repro/kernels/moe_gmm, Pallas TPU)
   flash_attn — causal GQA flash attention forward, streamed K/V
                (replaces repro/kernels/flash_attn, Pallas TPU)
+  int4_matmul — fused INT4-dequant matmul, HQQ group affine
+               (replaces repro/kernels/int4_matmul, Pallas TPU)
 
 ``dispatch`` owns backend selection (ref | hopper | auto) and the launch
 counters; ``_build`` compiles ``*/csrc/*.cu`` with nvcc at first use.
-``int4_matmul`` and ``ssd_scan`` are not ported yet (ROADMAP.md).
+``ssd_scan`` is not ported yet (ROADMAP.md).
 """
-from . import dispatch, flash_attn, moe_gmm
+from . import dispatch, flash_attn, int4_matmul, moe_gmm
 
-__all__ = ["dispatch", "flash_attn", "moe_gmm"]
+__all__ = ["dispatch", "flash_attn", "int4_matmul", "moe_gmm"]

@@ -1,14 +1,18 @@
 """Offloaded serving launcher (post-deployment stage, Sec 3.2), PyTorch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe \
-        --capacity 16 --policy gamma --batch 4 --prompt-len 128 --max-new 32
+        --capacity 16 --policy gamma --batch 4 --prompt-len 128 --max-new 32 \
+        [--quantized]
 
 Random weights from ``--seed`` (no checkpoint loader yet), the slab
 offload engine with the cache policy and capacity C, batched greedy
 generation, then a report of transfers, hit rate, both Eq.-3 modeled
-clocks and the measured prefill seconds and decode tokens/s. Runs on
-``cuda`` unless ``--device cpu``. Counterpart of ``repro.launch.serve``
-without ``--predictor``, ``--quantized`` and ``--ckpt``.
+clocks and the measured prefill seconds and decode tokens/s.
+``--quantized`` keeps every expert in HQQ INT4 (paper Sec 3.2, group
+32); the report then also gives ``quantize_s``, the seconds spent
+building the INT4 store (not part of ``prefill_s``). Runs on ``cuda``
+unless ``--device cpu``. Counterpart of ``repro.launch.serve`` without
+``--predictor`` and ``--ckpt``.
 """
 from __future__ import annotations
 
@@ -37,10 +41,16 @@ def make_prompts(vocab: int, batch: int, prompt_len: int) -> np.ndarray:
 
 def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         prompt_len: int = 32, max_new: int = 64, dtype=None, device=None,
-        seed: int = 0, kernel_backend: str = "auto") -> dict:
+        seed: int = 0, kernel_backend: str = "auto", quantized: bool = False,
+        quantized_experts=None, keep_store: bool = False) -> dict:
     """Build a random-init model, serve one batch through the offloaded
     engine, and return the report (scalars, plus ``tokens`` and the last
-    prompt position's ``prefill_logits``)."""
+    prompt position's ``prefill_logits``).
+
+    With ``quantized``: ``quantized_experts`` (the ``quantized_experts``
+    of an earlier report) serves those INT4 codes instead of quantizing
+    again, and ``keep_store`` puts the engine's INT4 store into the report
+    under ``quantized_experts`` (views of pinned host memory)."""
     cfg = get_config(arch)
     if not cfg.has_router:
         raise ValueError("offloaded serving applies to MoE architectures")
@@ -52,6 +62,8 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
                          expert_device="cpu")
     capacity = capacity or cfg.melinoe_cache_capacity()
     engine = OffloadedMoEEngine(cfg, params, capacity=capacity, policy=policy,
+                                quantized=quantized,
+                                quantized_experts=quantized_experts,
                                 hw=HardwareProfile(), kernel_backend=kernel_backend,
                                 device=dev)
     del params  # the engine holds the experts in its pinned store
@@ -62,13 +74,16 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         torch.cuda.reset_peak_memory_stats(dev)
     res = engine.generate(prompts, max_new_tokens=max_new)
     m, st = res["metrics"], res["cache_stats"]
-    return {
+    rep = {
         "arch": arch, "device": str(dev),
         "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "dtype": str(dt).replace("torch.", ""), "capacity": capacity,
         "policy": policy, "batch": batch, "prompt_len": prompt_len,
         "max_new": max_new, "kernel_backend": kernel_backend,
+        "quantized": quantized, "expert_bytes": engine.expert_bytes,
+        "quantize_s": engine.quantize_s,
         "decode_tokens": m.decode_tokens, "transfers": m.transfers,
+        "transfer_bytes": m.transfer_bytes,
         "transfers_per_layer": res["transfers_per_layer"],
         "prefetch_transfers": m.prefetch_transfers,
         "hits": st.hits, "misses": st.misses, "evictions": st.evictions,
@@ -81,9 +96,13 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         "wall_s": m.wall_time,
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None),
+        "slab_bytes": engine.slab_bytes, "host_store_bytes": engine.host_store_bytes,
         "tokens": res["tokens"].cpu().numpy(),
         "prefill_logits": res["prefill_logits"].cpu(),
     }
+    if keep_store and quantized:
+        rep["quantized_experts"] = engine.quantized_experts()
+    return rep
 
 
 def main(argv=None):
@@ -97,15 +116,21 @@ def main(argv=None):
     ap.add_argument("--dtype", default=None, help="default: the config's dtype")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--quantized", action="store_true",
+                    help="HQQ INT4 experts (Sec 3.2)")
     args = ap.parse_args(argv)
     rep = run(args.arch, capacity=args.capacity, policy=args.policy,
               batch=args.batch, prompt_len=args.prompt_len, max_new=args.max_new,
-              dtype=args.dtype, device=args.device, seed=args.seed)
+              dtype=args.dtype, device=args.device, seed=args.seed,
+              quantized=args.quantized)
     print(f"generated {rep['decode_tokens']} tokens x batch {args.batch} "
           f"on {rep['device_name']}")
     print(f"transfers={rep['transfers']} ({rep['transfers_per_layer']:.1f}/layer), "
           f"prefetch={rep['prefetch_transfers']}")
     print(f"hit rate={rep['hit_rate']:.3f}")
+    if rep["quantized"]:
+        print(f"INT4 experts: {rep['expert_bytes']} bytes each, store built in "
+              f"{rep['quantize_s']:.2f} s")
     print(f"modeled throughput={rep['modeled_tok_s']:.2f} tok/s serial, "
           f"{rep['modeled_overlapped_tok_s']:.2f} overlapped (hw={rep['hw']}, Eq. 3)")
     print(f"measured prefill={rep['prefill_s']:.4f} s, "

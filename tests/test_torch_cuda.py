@@ -18,6 +18,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash  # noqa: E402
+from repro_torch.kernels.int4_matmul import (int4_matmul, int4_matmul_ref,  # noqa: E402
+                                             quantize_matmul_weight)
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 
@@ -94,6 +96,70 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, T, Hkv, G, hd, cap, win):
     assert dispatch.LAUNCHES["flash_attn"] == n0 + 1
     ref = attention_ref(q, k, v, softcap=cap, window=win)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def _int4_inputs(M, K, N, group, dtype, device):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((K, N)) * 0.05).astype(np.float32))
+    q = quantize_matmul_weight(w, group)
+    return x.to(device, dtype), [t.to(device) for t in q[:3]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,group", [
+    (1, 2048, 1024, 32),  # decode shapes, small-M tile
+    (4, 1024, 2048, 32),
+    (5, 192, 50, 64),  # N tail, K a multiple of the group but not of the slice
+    (17, 2048, 1000, 32),  # just past the small-M tile, N tail
+    (130, 320, 96, 64),  # M tail on the large tile
+    (512, 1024, 2048, 32),  # prefill shape
+    (3, 96, 40, 2),  # smallest group
+])
+def test_int4_kernel_matches_plain(cuda, dtype, M, K, N, group):
+    x, (p, s, z) = _int4_inputs(M, K, N, group, dtype, cuda)
+    n0 = dispatch.LAUNCHES["int4_matmul"]
+    out = int4_matmul(x, p, s, z, group=group)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["int4_matmul"] == n0 + 1
+    assert out.dtype == dtype and out.shape == (M, N)
+    ref = int4_matmul_ref(x, p, s, z, group)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+def test_int4_kernel_rejects_what_it_does_not_take(cuda):
+    x, (p, s, z) = _int4_inputs(4, 64, 16, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="group"):
+        int4_matmul(x, p, s, z, group=48)  # K % group
+    with pytest.raises(ValueError, match="group"):
+        int4_matmul(x, p, s, z, group=5)  # odd group
+    with pytest.raises(ValueError, match="fit"):
+        int4_matmul(x[:, :32], p, s, z, group=32)  # packed rows != K/2
+    with pytest.raises(TypeError):
+        int4_matmul(x.double(), p, s, z, group=32)
+    with pytest.raises(TypeError):
+        int4_matmul(x, p, s.half(), z, group=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_matmul(x, p.t().contiguous().t(), s, z, group=32)
+    with pytest.raises(RuntimeError, match="hopper"):
+        int4_matmul(x.cpu(), p.cpu(), s.cpu(), z.cpu(), group=32, backend="hopper")
+
+
+def test_quantized_serve_through_kernels_matches_plain(cuda):
+    """The INT4 slice end to end at a small size in fp32, on one set of
+    codes: the kernel run and the plain run give the same tokens."""
+    kw = dict(capacity=4, batch=2, prompt_len=16, max_new=6, dtype="float32",
+              device="cuda", seed=0, quantized=True)
+    dispatch.reset_launches()
+    hop = serve.run("olmoe-mini", keep_store=True, **kw)
+    assert all(dispatch.LAUNCHES[op] > 0
+               for op in ("int4_matmul", "moe_gmm", "flash_attn")), dispatch.LAUNCHES
+    ref = serve.run("olmoe-mini", kernel_backend="ref",
+                    quantized_experts=hop["quantized_experts"], **kw)
+    np.testing.assert_array_equal(hop["tokens"], ref["tokens"])
+    torch.testing.assert_close(hop["prefill_logits"], ref["prefill_logits"],
+                               rtol=1e-3, atol=1e-3)
+    assert (hop["transfers"], hop["hits"]) == (ref["transfers"], ref["hits"])
 
 
 def test_serve_through_kernels_matches_plain(cuda):

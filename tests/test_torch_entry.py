@@ -41,6 +41,30 @@ def test_run_on_cpu_at_smoke_size(capsys):
     np.testing.assert_array_equal(again["tokens"], rep["tokens"])
 
 
+def test_quantized_run_on_cpu_at_smoke_size(capsys):
+    rep = serve.main(["--arch", "granite-moe-1b-a400m-smoke", "--device", "cpu",
+                      "--capacity", "2", "--batch", "2", "--prompt-len", "8",
+                      "--max-new", "4", "--dtype", "float32", "--quantized"])
+    cfg = get_config("granite-moe-1b-a400m-smoke")
+    d, f = cfg.d_model, cfg.moe_spec.d_ff
+    # packed codes plus fp32 scale and zero per group of 32, for wg/wu/wd
+    assert rep["quantized"]
+    assert rep["expert_bytes"] == 3 * (d * f // 2 + 2 * 4 * d * f // 32)
+    assert rep["quantize_s"] > 0 and rep["transfers"] > 0
+    assert rep["tokens"].shape == (2, 4) and torch.isfinite(rep["prefill_logits"]).all()
+    assert "INT4 experts" in capsys.readouterr().out
+    # the same codes served again through the plain backend give the same tokens
+    kept = serve.run("granite-moe-1b-a400m-smoke", capacity=2, batch=2, prompt_len=8,
+                     max_new=4, dtype="float32", device="cpu", quantized=True,
+                     keep_store=True)
+    again = serve.run("granite-moe-1b-a400m-smoke", capacity=2, batch=2, prompt_len=8,
+                      max_new=4, dtype="float32", device="cpu", quantized=True,
+                      kernel_backend="ref", quantized_experts=kept["quantized_experts"])
+    np.testing.assert_array_equal(kept["tokens"], rep["tokens"])
+    np.testing.assert_array_equal(again["tokens"], rep["tokens"])
+    assert again["transfers"] == rep["transfers"]
+
+
 def test_prompts_match_the_jax_launcher():
     from repro.data.synthetic import ClusterLM, SyntheticConfig
 
@@ -79,6 +103,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     mods = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
             for p in _port_files()[:-1]]
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+    assert {"repro_torch.core.quant", "repro_torch.kernels.int4_matmul.ops",
+            "repro_torch.kernels.int4_matmul.ref", "repro_torch.bridge"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
