@@ -20,13 +20,25 @@ From the root of a checkout, with CUDA available:
    holds its prefill logits against a plain run on the same INT4 codes;
    the INT4-vs-bf16 logits difference is printed, not gated (it is the
    quantization error);
-6. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+6. frees the OLMoE runs, then serves full-width zamba2-7b and mamba2-130m
+   (bf16, random weights from seed 0) through the full-model path,
+   ``repro_torch.launch.serve.run_full``: 4 x (512 + 32) tokens each,
+   prefill and the decode loop timed to a device synchronize, counters
+   set to 0 just before each model. It asserts the launches of one prefill
+   (zamba2: 68 ``ssd_scan`` and 13 ``flash_attn``; mamba2: 24
+   ``ssd_scan``; decode none), that ``ServingEngine.generate_batch``
+   gives the same tokens, and holds the prefill logits against plain
+   prefills on the same weights (``kernel_backend="ref"``): in fp32 first,
+   then in bf16 within a fixed limit per model and against the plain
+   path's own bf16 round-off (see ``FP32_LOGITS_REL_TOL``);
+7. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -34,6 +46,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -48,11 +61,34 @@ PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}  # fp32: no tensor c
 # (8-bit mantissa), so the two may differ by about one ulp (2^-7 relative).
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2**-7, atol=1.6e-2)}
+# ssd_scan against its plain version, the sequential recurrence: the
+# chunked form takes each decay as exp(sum) instead of a product of exps,
+# a few ulp per step, carried through the state (the tolerance of the
+# JAX package's chunked-vs-sequential test). y in bf16 as for TOL; the
+# final state is fp32 at any input type.
+TOL_SSD = {torch.float32: dict(rtol=1e-3, atol=5e-4),
+           torch.bfloat16: TOL[torch.bfloat16]}
 # prefill logits of the kernel run vs the plain run, both bf16 end to end:
 # ||delta|| / ||plain|| over the (B, V) logits. bf16 activations round at
 # every layer (2^-8 relative) and the sums run in another order, through
 # 16 layers with residual adds.
 LOGITS_REL_TOL = 2e-2
+# The full-model phase (81 and 24 layers, random weights) is held first in
+# fp32 at full width, kernel run vs plain run: only the summation order
+# differs, through every layer.
+FP32_LOGITS_REL_TOL = 1e-4
+# In bf16 any change of summation order, by either kernel alone, moves
+# these logits about as far as bf16 round-off itself does, so 2e-2 cannot
+# hold for zamba2's 81 layers. Fixed per model, between the sound kernels'
+# readings on the H100 (zamba2 0.0418, mamba2 0.0190) and what a wrong
+# rounding gives (zamba2: the plain bf16 run is 0.0503 from fp32 on the
+# same weights; rounding y before the D skip moved it 0.0519 in
+# tools/roundoff.py).
+BF16_FULL_LOGITS_REL_TOL = {"zamba2-7b": 4.5e-2, "mamba2-130m": LOGITS_REL_TOL}
+# bf16 accuracy: the kernel run no farther from fp32 than the plain bf16
+# run, up to this factor (a second rounding inside a kernel, as of y
+# before the D skip, would add its own round-off and exceed it).
+ACCURACY_RATIO = 1.25
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -77,9 +113,9 @@ def bound(nbytes: float, ops: float, dtype) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check(name, out, ref, dtype) -> float:
+def check(name, out, ref, tol) -> float:
     err = (out.float() - ref.float()).abs().max().item()
-    if not torch.allclose(out.float(), ref.float(), **TOL[dtype]):
+    if not torch.allclose(out.float(), ref.float(), **tol):
         raise AssertionError(f"{name}: kernel disagrees with plain, max abs err {err}")
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
@@ -106,7 +142,7 @@ def gmm_cases(gen):
                 out = gmm_hopper(a, b, sizes)
                 ref = gmm_ref(a, b)
                 torch.cuda.synchronize()
-                err = check(label, out, ref, dtype)
+                err = check(label, out, ref, TOL[dtype])
                 for e, s in enumerate(sizes.tolist()):  # zero tails exactly zero
                     if out[e, s:].any():
                         raise AssertionError(f"{label}: group {e} tail not zero")
@@ -130,7 +166,8 @@ def flash_cases(gen):
 
     cases = []
     shapes = [(4, 128, 16, 1, 128, None, None), (4, 100, 16, 1, 128, None, None),
-              (4, 128, 8, 2, 64, None, None), (4, 128, 16, 1, 128, 50.0, 32)]
+              (4, 128, 8, 2, 64, None, None), (4, 128, 16, 1, 128, 50.0, 32),
+              (4, 512, 32, 1, 112, None, None)]  # zamba2-7b's shared attention
     for dtype in (torch.bfloat16, torch.float32):
         for B, T, Hkv, G, hd, cap, win in shapes:
             q = torch.randn(B, T, Hkv, G, hd, generator=gen, device="cuda").to(dtype)
@@ -141,7 +178,7 @@ def flash_cases(gen):
             out = flash_hopper(q, k, v, softcap=cap, window=win)
             ref = attention_ref(q, k, v, softcap=cap, window=win)
             torch.cuda.synchronize()
-            err = check(label, out, ref, dtype)
+            err = check(label, out, ref, TOL[dtype])
             t = torch.arange(T)
             pairs = int(torch.minimum(t + 1, torch.tensor(win or T)).sum())
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
@@ -178,7 +215,7 @@ def int4_cases(gen):
             out = int4_matmul_hopper(x, p, sc, z, g)
             ref = int4_matmul_ref(x, p, sc, z, g)
             torch.cuda.synchronize()
-            err = check(label, out, ref, dtype)
+            err = check(label, out, ref, TOL[dtype])
             it = x.element_size()
             nbytes = M * K * it + p.numel() + 4 * (sc.numel() + z.numel()) + M * N * it
             t_bound, by = bound(nbytes, 2.0 * M * K * N, dtype)
@@ -192,6 +229,169 @@ def int4_cases(gen):
                            "no dequant)",
                 "bound_ms": t_bound, "bound_by": by})
     return cases
+
+
+def ssd_cases(gen):
+    """ssd_scan against the sequential recurrence at the serve shapes of
+    both models, a T tail, two groups and a non-zero initial state.
+    Inputs are model-like: dt = softplus(N(-4.6, 0.5)) (about 0.01, the
+    init's dt_bias), A = -(1..16) as the init's A_log, so the state
+    carries across chunks."""
+    from repro_torch.configs.base import SSMSpec
+    from repro_torch.kernels.ssd_scan import ssd_hopper, ssd_scan_ref
+    from repro_torch.models.mamba2 import ssd_chunked
+
+    cases = []
+    shapes = [  # name, B, T, H, P, N, G, init, D (the fused skip, as the model passes)
+        ("zamba2", 4, 512, 112, 64, 64, 1, False, True),
+        ("mamba2", 4, 512, 24, 64, 128, 1, False, True),
+        ("T tail", 4, 100, 112, 64, 64, 1, False, False),
+        ("G2", 4, 512, 112, 64, 64, 2, False, False),
+        ("init", 4, 512, 24, 64, 128, 1, True, True),
+    ]
+    chunk = 128
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, B, T, H, P, N, G, with_init, with_d in shapes:
+            x = torch.randn(B, T, H, P, generator=gen, device="cuda").to(dtype)
+            dt = torch.nn.functional.softplus(
+                torch.randn(B, T, H, generator=gen, device="cuda") * 0.5 - 4.6)
+            A = -torch.linspace(1.0, 16.0, H, device="cuda")
+            Bm = torch.randn(B, T, G, N, generator=gen, device="cuda").to(dtype)
+            Cm = torch.randn(B, T, G, N, generator=gen, device="cuda").to(dtype)
+            init = (torch.randn(B, H, P, N, generator=gen, device="cuda") * 0.5
+                    if with_init else None)
+            D = (1.0 + 0.1 * torch.randn(H, generator=gen, device="cuda")
+                 if with_d else None)
+            label = (f"ssd {str(dtype)[6:]} {name} x({B},{T},{H},{P}) N{N} G{G} "
+                     f"init={with_init} D={with_d}")
+            y, fin = ssd_hopper(x, dt, A, Bm, Cm, init, D=D, chunk=chunk)
+            yr, fr = ssd_scan_ref(x, dt, A, Bm, Cm, init, D=D)
+            torch.cuda.synchronize()
+            err = check(label, y, yr, TOL_SSD[dtype])
+            err_state = check(label + " state", fin, fr, TOL_SSD[torch.float32])
+            # bytes: inputs once, outputs once; ops: the chunked algorithm on
+            # this run's rows (C.B^T once per group, causal half of each chunk)
+            it = x.element_size()
+            nbytes = (2 * x.numel() + 2 * Bm.numel()) * it + 4 * (
+                dt.numel() + A.numel() + fin.numel() + (init.numel() if with_init else 0)
+                + (H if with_d else 0))
+            rows = [min(chunk, T - c) for c in range(0, T, chunk)]
+            tri = sum(r * (r + 1) // 2 for r in rows)
+            macs = B * G * tri * N + B * H * tri * P + 2 * B * H * T * P * N
+            t_bound, by = bound(nbytes, 2.0 * macs, dtype)
+            spec = SSMSpec(N, head_dim=P, chunk=chunk, n_groups=G)
+            cases.append({
+                "case": label, "max_abs_err": max(err, err_state),
+                "max_abs_err_y": err, "max_abs_err_state": err_state,
+                "tol": TOL_SSD[dtype], "tol_state": TOL_SSD[torch.float32],
+                "ms": time_ms(lambda: ssd_hopper(x, dt, A, Bm, Cm, init, D=D,
+                                                 chunk=chunk)),
+                "plain_ms": time_ms(lambda: ssd_scan_ref(x, dt, A, Bm, Cm, init, D=D),
+                                    reps=5),
+                "plain_chunked_ms": time_ms(
+                    lambda: ssd_chunked(x, dt, A, Bm, Cm, spec, init), reps=5),
+                "library_ms": None, "library": "none: no single PyTorch call computes SSD",
+                "bound_ms": t_bound, "bound_by": by})
+    return cases
+
+
+def serve_full(arch: str, n_ssd: int, n_flash: int) -> dict:
+    """Serve 4 x (512 + 32) tokens of ``arch`` through the full-model path
+    (counters set to 0 just before), check launches, shapes and the serving
+    engine's tokens, and hold the prefill logits against a plain prefill
+    on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.inference import Request, ServingEngine
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import make_prompts, run_full
+    from repro_torch.models.model import prefill
+    from repro_torch.models.runtime import Runtime
+
+    cfg = get_config(arch)
+    B, T, new = 4, 512, 32
+    dispatch.reset_launches()
+    rep = run_full(arch, batch=B, prompt_len=T, max_new=new, dtype=torch.bfloat16,
+                   device="cuda", seed=0, keep_params=True)
+    launches = dict(dispatch.LAUNCHES)
+    params = rep.pop("params")
+    want = {"ssd_scan": n_ssd, "flash_attn": n_flash}
+    got = {op: rep["launches"]["prefill"][op] for op in want}
+    if got != want or any(rep["launches"]["decode"].values()):
+        raise AssertionError(f"{arch}: launches {rep['launches']}, want {want} per "
+                             "prefill and none in decode")
+    if any(launches[op] != rep["launches"]["prefill"][op] for op in launches):
+        raise AssertionError(f"{arch}: counters {launches} vs report {rep['launches']}")
+    tokens, logits = rep.pop("tokens"), rep.pop("prefill_logits")
+    if tokens.shape != (B, new) or logits.shape != (B, cfg.vocab):
+        raise AssertionError(f"{arch} shapes: tokens {tokens.shape} logits {logits.shape}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch}: non-finite prefill logits")
+    print(f"serve {arch}:", json.dumps(rep))
+
+    prompts = make_prompts(cfg.vocab, B, T)
+    rt = Runtime(device=torch.device("cuda"))
+    comps = ServingEngine(cfg, params, rt=rt, max_batch=B).generate_batch(
+        [Request(p, new) for p in prompts])
+    eng = torch.as_tensor(np.stack([c.tokens for c in comps]))
+    same = bool((eng == torch.as_tensor(tokens)).all())
+    print(f"{arch}: ServingEngine.generate_batch tokens equal the timed loop's: {same}")
+    if not same:
+        raise AssertionError(f"{arch}: generate_batch gave other tokens")
+
+    toks = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+
+    def last_logits(p, backend):
+        with torch.inference_mode():
+            lg, _ = prefill(p, cfg, toks, Runtime(kernel_backend=backend,
+                                                  device=torch.device("cuda")),
+                            n_slots=T + new)
+        return lg[:, -1].float().cpu()
+
+    def rel_top1(a, b):
+        r = ((a - b).norm() / b.norm()).item()
+        return r, (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+
+    ref = last_logits(params, "ref")
+    # the same (bf16-valued) weights in fp32: the plain path's own round-off
+    p32 = _tree_float(params)
+    k32, r32 = last_logits(p32, "auto"), last_logits(p32, "ref")
+    del p32
+    rel, top1 = rel_top1(logits, ref)
+    rel32, top32 = rel_top1(k32, r32)
+    floor, _ = rel_top1(ref, r32)
+    acc, _ = rel_top1(logits, r32)
+    tol = BF16_FULL_LOGITS_REL_TOL[arch]
+    print(f"{arch} prefill logits kernel vs plain: fp32 rel {rel32:.3g} (tol "
+          f"{FP32_LOGITS_REL_TOL}), top-1 {top32:.2f}; bf16 rel {rel:.4g} (tol {tol}), "
+          f"max abs {(logits - ref).abs().max().item():.3g}, top-1 agreement "
+          f"{top1:.2f}; plain bf16 vs fp32 rel {floor:.4g}, bf16 kernel run vs fp32 "
+          f"rel {acc:.4g} (tol {ACCURACY_RATIO} x {floor:.4g})")
+    if not (math.isfinite(rel32) and rel32 <= FP32_LOGITS_REL_TOL):
+        raise AssertionError(f"{arch}: fp32 prefill logits disagree: rel {rel32}")
+    if not (math.isfinite(rel) and rel <= tol):
+        raise AssertionError(f"{arch}: bf16 prefill logits disagree: rel {rel}")
+    if not (math.isfinite(acc) and acc <= ACCURACY_RATIO * floor):
+        raise AssertionError(f"{arch}: bf16 kernel run rel {acc} from fp32, plain "
+                             f"run {floor}")
+    by_kernel = {}  # one kernel at a time, the other op plain (printed, not gated)
+    if n_flash:
+        for only, spec in (("ssd_scan", "auto,flash_attn=ref"),
+                           ("flash_attn", "auto,ssd_scan=ref")):
+            by_kernel[only] = rel_top1(last_logits(params, spec), ref)[0]
+        print(f"{arch} bf16 rel vs plain with one kernel only: {by_kernel}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep.update(launches_total=launches, logits_rel=rel, top1=top1, logits_tol=tol,
+               fp32_logits_rel=rel32, bf16_roundoff_rel=floor, kernel_vs_fp32_rel=acc,
+               rel_one_kernel_only=by_kernel)
+    return rep
+
+
+def _tree_float(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    return tree.float()
 
 
 def slab_dequant_ms(gen, C=16, d=2048, f=1024, g=32) -> float:
@@ -246,10 +446,13 @@ def main() -> int:
     g_cases = gmm_cases(gen)
     f_cases = flash_cases(gen)
     i_cases = int4_cases(gen)
-    for c in g_cases + f_cases + i_cases:
+    s_cases = ssd_cases(gen)
+    for c in g_cases + f_cases + i_cases + s_cases:
         print(f"  {c['case']}: err {c['max_abs_err']:.3g} kernel {c['ms']:.4f} ms "
               f"plain {c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
-              f"({c['bound_by']}) library {c['library_ms']}")
+              f"({c['bound_by']}) library {c['library_ms']}"
+              + (f" plain chunked {c['plain_chunked_ms']:.4f} ms"
+                 if "plain_chunked_ms" in c else ""))
 
     # ---- the main path: full-width olmoe through the port's serve entry
     serve_kw = dict(capacity=16, policy="gamma", batch=4, prompt_len=128,
@@ -314,6 +517,13 @@ def main() -> int:
           f"{(vs_bf16.norm() / logits.float().norm()).item():.3g}, top-1 "
           f"agreement {(q_logits.argmax(-1) == logits.argmax(-1)).float().mean().item():.2f}")
 
+    # ---- the full-model path: mamba2/zamba2 through ssd_scan and flash_attn
+    del rep, ref, qrep, qref
+    gc.collect()
+    torch.cuda.empty_cache()
+    z_rep = serve_full("zamba2-7b", n_ssd=68, n_flash=13)
+    m_rep = serve_full("mamba2-130m", n_ssd=24, n_flash=0)
+
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
@@ -327,10 +537,16 @@ def main() -> int:
                      "src/repro/kernels/int4_matmul/kernel.py:55", i_cases,
                      "int4 bfloat16 x(4,2048) w(2048,1024) g32",
                      q_launches["int4_matmul"]),
+        kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:76", s_cases,
+                     "ssd bfloat16 zamba2 x(4,512,112,64) N64 G1 init=False D=True",
+                     z_rep["launches_total"]["ssd_scan"]
+                     + m_rep["launches_total"]["ssd_scan"]),
     ]
+    paths = {"bf16": launches, "int4": q_launches,
+             "zamba2-7b": z_rep["launches_total"], "mamba2-130m": m_rep["launches_total"]}
     for k in kernels:  # launches of each path, each counted from 0
-        k["launches_by_path"] = {"bf16": launches[k["name"]],
-                                 "int4": q_launches[k["name"]]}
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 """Weight bridge between the JAX parameter tree and the port's dicts.
 
 The JAX ``init_params`` tree (``groups/g{gi}/p{pi}`` leaves stacked over
-``repeats``, plus ``embed``, ``lm_head``, ``final_norm``) maps key for
-key onto the port's dict. The bridge takes and returns numpy arrays
-only, so it needs neither JAX nor its bf16 type: a JAX bfloat16 array
+``repeats``, plus ``embed``, ``lm_head``, ``final_norm`` and, for a model
+with a shared-attention block, ``shared``) maps key for key onto the
+port's dict. A ``shared_attn`` position has no ``p{pi}`` entry: its
+weights live once, under ``shared``. The bridge takes and returns numpy
+arrays only, so it needs neither JAX nor its bf16 type: a JAX bfloat16 array
 (an ``ml_dtypes`` dtype named ``"bfloat16"``) crosses as float32, which
 holds every bf16 value exactly.
 
@@ -24,14 +26,21 @@ from .kernels.int4_matmul.ops import MatmulQWeight
 from .models.common import cdtype
 
 
+# leaves kept in fp32 at any model dtype, as the JAX init keeps them
+FP32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias"})
+
+
 def _check_layout(tree: dict, cfg: ModelConfig) -> None:
+    shared = any(b.kind == "shared_attn" for b in cfg.block_defs.values())
     want = {"embed", "final_norm", "groups"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+        set() if cfg.tie_embeddings else {"lm_head"}) | ({"shared"} if shared else set())
     missing = want - set(tree)
     if missing:
         raise KeyError(f"parameter tree lacks {sorted(missing)}")
     for gi, g in enumerate(cfg.layout):
-        for pi, _ in enumerate(g.pattern):
+        for pi, bname in enumerate(g.pattern):
+            if cfg.block_defs[bname].kind == "shared_attn":
+                continue  # weights live under "shared"
             if f"p{pi}" not in tree["groups"].get(f"g{gi}", {}):
                 raise KeyError(f"parameter tree lacks groups/g{gi}/p{pi}")
 
@@ -50,15 +59,16 @@ def _to_torch(a: np.ndarray, dtype, device) -> torch.Tensor:
 def params_from_jax(tree, cfg: ModelConfig, *, dtype=None, device="cpu"):
     """Numpy tree (``jax.tree.map(np.asarray, params)``) -> torch dict.
 
-    ``dtype``: cast floating leaves to it (the fp32 router excepted, as in
-    the JAX init); ``None`` keeps each leaf's dtype."""
+    ``dtype``: cast floating leaves to it, except the fp32 leaves of
+    :data:`FP32_LEAVES` (router, and the SSM's A_log, D, dt_bias), as in
+    the JAX init; ``None`` keeps each leaf's dtype."""
     _check_layout(tree, cfg)
     dt = cdtype(dtype) if dtype is not None else None
 
     def walk(node, key=""):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
-        return _to_torch(node, None if key == "router" else dt, device)
+        return _to_torch(node, None if key in FP32_LEAVES else dt, device)
 
     return walk(tree)
 

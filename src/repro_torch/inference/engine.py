@@ -1,0 +1,99 @@
+"""Batched serving engine over the full model (fits-in-memory path),
+counterpart of ``repro/inference/engine.py``: static batching, left
+padding, one prefill, then greedy decode steps.
+
+The memory-constrained path is ``core.offload_engine.OffloadedMoEEngine``.
+Temperature sampling and router-probe collection (``collect_probs``)
+raise for now: the reference samples with ``jax.random``, and router
+probes need the ``attn_moe`` blocks of the full-model path.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..models.model import decode_step, prefill
+from ..models.runtime import Runtime
+from .sampling import greedy
+
+
+@dataclass
+class Request:
+    prompt: np.ndarray  # (T,) int32
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    stop_tokens: tuple = ()  # token ids that terminate the completion
+
+
+@dataclass
+class Completion:
+    tokens: np.ndarray
+    router_probs: Optional[np.ndarray] = None  # (L, T_gen, E); not collected yet
+    finish_reason: str = "length"  # "stop" | "length"
+
+
+def truncate_at_stop(tokens: np.ndarray, stop_tokens) -> tuple:
+    """Cut ``tokens`` at the first stop token (inclusive). Returns
+    (tokens, finish_reason)."""
+    toks = np.asarray(tokens)
+    if stop_tokens:
+        hit = np.isin(toks, list(stop_tokens))
+        if hit.any():
+            return toks[: int(np.argmax(hit)) + 1], "stop"
+    return toks, "length"
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, *, rt: Optional[Runtime] = None,
+                 lora=None, max_batch: int = 8, window_override: Optional[int] = None):
+        if lora is not None:
+            raise NotImplementedError("ServingEngine: LoRA is not ported yet")
+        self.cfg = cfg
+        self.params = params
+        self.device = params["embed"].device
+        self.rt = rt or Runtime(device=self.device)
+        self.max_batch = max_batch
+        self.window_override = window_override
+
+    @torch.inference_mode()
+    def generate_batch(self, requests: Sequence[Request], *,
+                       collect_probs: bool = False, seed: int = 0) -> List[Completion]:
+        """Static batching: left-pad prompts to a common length (with token
+        0, unmasked, as the reference does), prefill once, decode to the
+        max requested length. ``seed`` is unused until sampling is ported."""
+        if collect_probs:
+            raise NotImplementedError("generate_batch: collect_probs needs attn_moe "
+                                      "in the full-model path")
+        if any(r.temperature > 0 for r in requests):
+            raise NotImplementedError("generate_batch: temperature sampling is not "
+                                      "ported yet (greedy only)")
+        assert len(requests) <= self.max_batch
+        B = len(requests)
+        lens = [len(r.prompt) for r in requests]
+        T = max(lens)
+        toks = np.zeros((B, T), np.int64)
+        for i, r in enumerate(requests):
+            toks[i, T - lens[i]:] = r.prompt  # left padding
+        max_new = max(r.max_new_tokens for r in requests)
+        n_slots = T + max_new
+
+        logits, cache = prefill(self.params, self.cfg,
+                                torch.as_tensor(toks, device=self.device), self.rt,
+                                n_slots=n_slots, window_override=self.window_override)
+        cur = greedy(logits)
+        outs = [cur]
+        for _ in range(max_new - 1):
+            logits, cache, _ = decode_step(self.params, self.cfg, cur, cache, self.rt,
+                                           window_override=self.window_override)
+            cur = greedy(logits)
+            outs.append(cur)
+        gen = torch.cat(outs, dim=1).cpu().numpy().astype(np.int32)  # (B, max_new)
+        completions = []
+        for i, r in enumerate(requests):
+            toks_i, reason = truncate_at_stop(gen[i, : r.max_new_tokens], r.stop_tokens)
+            completions.append(Completion(tokens=toks_i, finish_reason=reason))
+        return completions

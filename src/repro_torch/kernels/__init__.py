@@ -7,11 +7,12 @@ PyTorch version and a launch counter:
                (replaces repro/kernels/flash_attn, Pallas TPU)
   int4_matmul — fused INT4-dequant matmul, HQQ group affine
                (replaces repro/kernels/int4_matmul, Pallas TPU)
+  ssd_scan   — Mamba2 SSD chunked scan, state carried on chip across
+               chunks (replaces repro/kernels/ssd_scan, Pallas TPU)
 
 ``dispatch`` owns backend selection (ref | hopper | auto) and the launch
 counters; ``_build`` compiles ``*/csrc/*.cu`` with nvcc at first use.
-``ssd_scan`` is not ported yet (ROADMAP.md).
 """
-from . import dispatch, flash_attn, int4_matmul, moe_gmm
+from . import dispatch, flash_attn, int4_matmul, moe_gmm, ssd_scan
 
-__all__ = ["dispatch", "flash_attn", "int4_matmul", "moe_gmm"]
+__all__ = ["dispatch", "flash_attn", "int4_matmul", "moe_gmm", "ssd_scan"]

@@ -175,6 +175,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, 
     case 16: return launch_hd<T, 16>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
     case 32: return launch_hd<T, 32>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
     case 64: return launch_hd<T, 64>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
+    case 112: return launch_hd<T, 112>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);  // zamba2-7b
     case 128: return launch_hd<T, 128>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,7 +15,7 @@ from .ref import attention_ref
 
 _DTYPES = {torch.float32: "flash_attn_fwd_f32",
            torch.bfloat16: "flash_attn_fwd_bf16"}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128)
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 

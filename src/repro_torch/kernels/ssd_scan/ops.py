@@ -1,0 +1,84 @@
+"""Dispatching wrapper for the Mamba2 SSD chunked scan: the Hopper kernel
+(``csrc/ssd_scan.cu``) for a CUDA tensor, the plain chunked form
+(``ref.ssd_chunked``) for a CPU tensor (see ``kernels/dispatch.py``). Unlike the JAX wrapper,
+which halves the chunk until it divides T, the kernel masks the T tail."""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from .. import _build, dispatch
+from .ref import ssd_chunked
+
+_DTYPES = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
+# (head_dim P, d_state N) pairs the kernel is instantiated for: the smoke
+# configs, zamba2-7b and mamba2-130m
+SHAPES = ((32, 16), (64, 64), (64, 128))
+MAX_CHUNK = 128
+_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def ssd(x, dt, A, Bm, Cm, *, init=None, D=None, chunk: int = 128,
+        backend: Optional[str] = None):
+    """x (B,T,H,P), dt (B,T,H), A (H,), Bm/Cm (B,T,N) shared or (B,T,G,N)
+    per group, ``init`` (B,H,P,N) optional initial state, ``D`` (H,)
+    optional skip (y += D x in fp32 before y is rounded)
+    -> (y in x's dtype, final state fp32)."""
+    if not dispatch.use_kernel("ssd_scan", backend, x.device):
+        y, fin = ssd_chunked(x, dt, A, Bm, Cm, chunk, init)
+        if D is not None:
+            y = y + D.float()[None, None, :, None] * x.float()
+        return y.to(x.dtype), fin
+    return ssd_hopper(x, dt, A, Bm, Cm, init, D=D, chunk=chunk)
+
+
+def ssd_hopper(x, dt, A, Bm, Cm, init=None, *, D=None, chunk: int = 128):
+    """Launch the Hopper kernel (raises on what it does not take). The
+    chunk is min(chunk, T) rows; the last chunk's tail is masked."""
+    if Bm.dim() == 3:  # shared across heads == one group
+        Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+    if x.dim() != 4 or Bm.dim() != 4:
+        raise ValueError(f"ssd: want x (B,T,H,P), Bm/Cm (B,T,G,N); got "
+                         f"{tuple(x.shape)}, {tuple(Bm.shape)}")
+    B, T, H, P = x.shape
+    G, N = Bm.shape[-2:]
+    if Bm.shape[:2] != (B, T) or Cm.shape != Bm.shape or dt.shape != (B, T, H) \
+            or A.shape != (H,) or H % G:
+        raise ValueError(f"ssd: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, Bm {tuple(Bm.shape)}, "
+                         f"Cm {tuple(Cm.shape)} do not fit")
+    if init is not None and init.shape != (B, H, P, N):
+        raise ValueError(f"ssd: init {tuple(init.shape)}, want {(B, H, P, N)}")
+    if D is not None and D.shape != (H,):
+        raise ValueError(f"ssd: D {tuple(D.shape)}, want {(H,)}")
+    if (P, N) not in SHAPES:
+        raise ValueError(f"ssd: (head_dim, d_state) {(P, N)} not in {SHAPES}")
+    if chunk < 1:
+        raise ValueError(f"ssd: chunk {chunk} must be positive")
+    L = min(chunk, T)
+    if L > MAX_CHUNK:
+        raise ValueError(f"ssd: chunk {L} above {MAX_CHUNK}")
+    fp32 = [dt, A] + [t for t in (init, D) if t is not None]
+    tensors = [x, Bm, Cm] + fp32
+    if not (x.is_cuda and all(t.device == x.device for t in tensors)):
+        raise ValueError("ssd: the kernel takes CUDA tensors on one device")
+    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype \
+            or any(t.dtype != torch.float32 for t in fp32):
+        raise TypeError(f"ssd: dtypes x {x.dtype}, Bm {Bm.dtype}, Cm {Cm.dtype}, "
+                        f"dt/A/init/D {[t.dtype for t in fp32]} (want x/Bm/Cm fp32 "
+                        "or bf16, dt/A/init/D fp32)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ssd: the kernel takes contiguous tensors")
+    y = torch.empty_like(x)
+    fin = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    fn = _build.entry(_DTYPES[x.dtype], _ARGS)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _build.check(fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                    Cm.data_ptr(), init.data_ptr() if init is not None else None,
+                    D.data_ptr() if D is not None else None, y.data_ptr(),
+                    fin.data_ptr(), B, T, H, G, P, N, L, stream),
+                 "ssd_scan")
+    dispatch.count_launch("ssd_scan")
+    return y, fin

@@ -1,8 +1,18 @@
-"""Offloaded serving launcher (post-deployment stage, Sec 3.2), PyTorch.
+"""Serving launcher, PyTorch: offloaded MoE serving (post-deployment
+stage, Sec 3.2), or the full-model path for a model without a router.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe \
         --capacity 16 --policy gamma --batch 4 --prompt-len 128 --max-new 32 \
         [--quantized]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --batch 4 --prompt-len 512 --max-new 32
+
+A MoE architecture goes through ``run`` (below); an SSM, hybrid or dense
+one through ``run_full``: random weights from ``--seed`` resident on the
+device, one prefill (``models.model.prefill``, where the Mamba2 layers
+launch the ``ssd_scan`` kernel and attention the ``flash_attn`` kernel)
+and a greedy ``decode_step`` loop, each timed to a device synchronize,
+with the launches of each phase and the peak device memory.
 
 Random weights from ``--seed`` (no checkpoint loader yet), the slab
 offload engine with the cache policy and capacity C, batched greedy
@@ -18,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 import torch
@@ -25,10 +36,11 @@ import torch
 from ..configs import get_config
 from ..core.offload_engine import HardwareProfile, OffloadedMoEEngine
 from ..data.synthetic import ClusterLM, SyntheticConfig
-from ..kernels import _build
+from ..inference.sampling import greedy
+from ..kernels import _build, dispatch
 from ..models.common import cdtype
-from ..models.model import init_params
-from ..models.runtime import resolve_device
+from ..models.model import decode_step, init_params, prefill
+from ..models.runtime import Runtime, resolve_device
 
 
 def make_prompts(vocab: int, batch: int, prompt_len: int) -> np.ndarray:
@@ -105,6 +117,79 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
     return rep
 
 
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_full(arch: str, *, batch: int = 2, prompt_len: int = 32, max_new: int = 64,
+             dtype=None, device=None, seed: int = 0, kernel_backend: str = "auto",
+             keep_params: bool = False) -> dict:
+    """Serve one batch of a model without a router through the full-model
+    path and return the report (scalars, the launches of each phase,
+    ``tokens`` (B, max_new) and the last prompt position's
+    ``prefill_logits`` (B, V)). ``keep_params`` puts the weights into the
+    report under ``params``."""
+    cfg = get_config(arch)
+    if cfg.has_router:
+        raise ValueError("a MoE architecture is served offloaded (run)")
+    dev = resolve_device(device)
+    dt = cdtype(dtype or cfg.dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = init_params(cfg, generator=gen, dtype=dt, device=dev)
+    rt = Runtime(kernel_backend=kernel_backend, device=dev)
+    if dev.type == "cuda":
+        _build.lib()  # build the kernels now, not inside the timed prefill
+        torch.cuda.reset_peak_memory_stats(dev)
+    toks = torch.as_tensor(make_prompts(cfg.vocab, batch, prompt_len), dtype=torch.long,
+                           device=dev)
+    with torch.inference_mode():
+        _sync(dev)
+        before = dict(dispatch.LAUNCHES)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, toks, rt, n_slots=prompt_len + max_new)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        mid = dict(dispatch.LAUNCHES)
+        cur = greedy(logits)
+        outs = [cur]
+        t1 = time.perf_counter()
+        for _ in range(max_new - 1):
+            logits_d, cache, _ = decode_step(params, cfg, cur, cache, rt)
+            cur = greedy(logits_d)
+            outs.append(cur)
+        _sync(dev)
+        decode_s = time.perf_counter() - t1
+    after = dict(dispatch.LAUNCHES)
+    rep = {
+        "arch": arch, "path": "full", "device": str(dev),
+        "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+        "dtype": str(dt).replace("torch.", ""), "batch": batch,
+        "prompt_len": prompt_len, "max_new": max_new, "kernel_backend": kernel_backend,
+        "param_bytes": sum(t.numel() * t.element_size()
+                           for t in _leaves(params)),
+        "prefill_s": prefill_s, "decode_s": decode_s,
+        "decode_tok_s": batch * (max_new - 1) / decode_s if decode_s > 0 else None,
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                 if dev.type == "cuda" else None),
+        "launches": {"prefill": {k: mid[k] - before[k] for k in mid},
+                     "decode": {k: after[k] - mid[k] for k in mid}},
+        "tokens": torch.cat(outs, dim=1).cpu().numpy(),
+        "prefill_logits": logits[:, -1].float().cpu(),
+    }
+    if keep_params:
+        rep["params"] = params
+    return rep
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmoe-mini")
@@ -119,6 +204,18 @@ def main(argv=None):
     ap.add_argument("--quantized", action="store_true",
                     help="HQQ INT4 experts (Sec 3.2)")
     args = ap.parse_args(argv)
+    if not get_config(args.arch).has_router:
+        if args.quantized:
+            ap.error("--quantized applies to the offloaded MoE path")
+        rep = run_full(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                       max_new=args.max_new, dtype=args.dtype, device=args.device,
+                       seed=args.seed)
+        print(f"full-model path: {args.max_new} tokens x batch {args.batch} on "
+              f"{rep['device_name']}; prefill={rep['prefill_s']:.4f} s, "
+              f"decode={rep['decode_tok_s']:.2f} tok/s, launches {rep['launches']}")
+        print(json.dumps({k: v for k, v in rep.items()
+                          if k not in ("tokens", "prefill_logits")}))
+        return rep
     rep = run(args.arch, capacity=args.capacity, policy=args.policy,
               batch=args.batch, prompt_len=args.prompt_len, max_new=args.max_new,
               dtype=args.dtype, device=args.device, seed=args.seed,

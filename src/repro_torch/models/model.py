@@ -1,35 +1,35 @@
-"""Parameter init, embeddings and logits (counterpart of
-``repro/models/model.py``, unsharded; the scanned full-model forward
-waits — the offload engine walks the layers itself).
+"""Model assembly: parameter init, embeddings, logits, and the
+full-model (fits-in-memory) path — ``apply_model``, ``prefill``,
+``init_cache`` and ``decode_step`` (counterpart of
+``repro/models/model.py``, single device). A Python loop over each
+group's ``repeats`` takes the place of ``lax.scan``: it indexes the
+stacked leaves (views, no copies).
 
 Parameter dict, keyed as the JAX tree:
   params = {
     "embed": (V, d),
     "lm_head": (d, V)           # absent when tie_embeddings
     "final_norm": (d,),
+    "shared": {block params}    # zamba2 shared-attention weights, not stacked
     "groups": {"g0": {"p0": block params stacked over repeats (R, ...)}},
   }
+A ``shared_attn`` position has no entry under its group: every
+occurrence uses ``params["shared"]``.
+
+Cache dict (``init_cache``/``prefill``): ``{"pos": int, "g0": {"p0":
+KVCache or MambaState with leaves stacked over repeats}}``. Unlike the
+JAX version, ``decode_step`` updates the cache in place and returns it.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..configs.base import BlockSpec, ModelConfig
-from .attention import init_attn
+from ..configs.base import ModelConfig
+from .blocks import apply_block_decode, apply_block_full, init_block, init_block_cache
 from .common import cdtype, dense_init, embed_init, rms_norm, rms_norm_init, softcap
-from .moe import init_moe
-
-
-def init_block(cfg: ModelConfig, b: BlockSpec, dtype, *, generator, device,
-               lead=(), expert_device=None):
-    if b.kind != "attn_moe":
-        raise NotImplementedError(f"block kind {b.kind!r} is not ported yet")
-    kw = dict(generator=generator, device=device, lead=lead)
-    p = {"ln1": rms_norm_init(cfg.d_model, dtype, device=device, lead=lead),
-         "mixer": init_attn(cfg.d_model, b.attn, dtype, **kw),
-         "ln2": rms_norm_init(cfg.d_model, dtype, device=device, lead=lead)}
-    p["ffn"] = init_moe(cfg.d_model, b.moe, dtype, expert_device=expert_device, **kw)
-    return p
+from .runtime import Runtime, resolve_device
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator, dtype=None,
@@ -49,6 +49,10 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, dtype=None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(cfg.d_model, cfg.vocab, dtype, **kw)
+    shared = [n for n, b in cfg.block_defs.items() if b.kind == "shared_attn"]
+    if shared:
+        (sname,) = shared
+        params["shared"] = init_block(cfg, cfg.block_defs[sname], dtype, **kw)
     groups = {}
     for gi, g in enumerate(cfg.layout):
         groups[f"g{gi}"] = {
@@ -56,6 +60,7 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, dtype=None,
                                  lead=(g.repeats,), expert_device=expert_device,
                                  **kw)
             for pi, bname in enumerate(g.pattern)
+            if cfg.block_defs[bname].kind != "shared_attn"
         }
     params["groups"] = groups
     return params
@@ -73,3 +78,124 @@ def compute_logits(params, cfg: ModelConfig, x):
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return softcap((x @ head).float(), cfg.logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward (prefill)
+# ---------------------------------------------------------------------------
+
+
+def _index(tree, r: int):
+    """Repeat ``r`` of a stacked subtree (dict / NamedTuple of tensors)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, r) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_index(v, r) for v in tree))
+    return tree[r]
+
+
+def _stack(caches: list):
+    """Per-repeat caches (NamedTuples) -> one with leaves stacked on dim 0."""
+    return type(caches[0])(*(torch.stack(leaves) for leaves in zip(*caches)))
+
+
+def _block_params(params, gparams, b, pi: int, r: int):
+    if b.kind == "shared_attn":
+        return params["shared"]
+    return _index(gparams[f"p{pi}"], r)
+
+
+def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=None,
+                melinoe=None, collect_probs: bool = False, want_cache: bool = False,
+                cache_slots: int = 0, window_override: Optional[int] = None,
+                lora=None, remat: bool = False):
+    """tokens (B, T) -> (logits (B, T, V) fp32, aux); ``aux["cache"]``
+    holds the per-group stacked block caches when ``want_cache``.
+
+    Tokens only: ``prefix_embed``, ``melinoe``, ``collect_probs``,
+    ``lora`` and ``remat`` raise until their slices are ported."""
+    unported = {"prefix_embed": prefix_embed is not None, "melinoe": melinoe is not None,
+                "collect_probs": collect_probs, "lora": lora is not None, "remat": remat}
+    if any(unported.values()):
+        raise NotImplementedError(
+            f"apply_model: {[k for k, v in unported.items() if v]} not ported yet")
+    x = embed_tokens(params, cfg, tokens)
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    cache = {}
+    for gi, g in enumerate(cfg.layout):
+        gparams = params["groups"][f"g{gi}"]
+        kv = [[] for _ in g.pattern]
+        for r in range(g.repeats):
+            for pi, bname in enumerate(g.pattern):
+                b = cfg.block_defs[bname]
+                x, aux = apply_block_full(
+                    _block_params(params, gparams, b, pi, r), cfg, b, x, positions, rt,
+                    window_override=window_override, want_cache=want_cache,
+                    cache_slots=cache_slots)
+                if want_cache:
+                    kv[pi].append(aux["kv"])
+        if want_cache:
+            cache[f"g{gi}"] = {f"p{pi}": _stack(c) for pi, c in enumerate(kv)}
+    logits = compute_logits(params, cfg, x)
+    aux = {}
+    if want_cache:
+        cache["pos"] = T
+        aux["cache"] = cache
+    return logits, aux
+
+
+def prefill(params, cfg: ModelConfig, tokens, rt: Runtime, *,
+            n_slots: Optional[int] = None, window_override: Optional[int] = None):
+    """Process the prompt, returning (last-position logits (B,1,V), cache)."""
+    logits, aux = apply_model(params, cfg, tokens, rt, want_cache=True,
+                              cache_slots=n_slots or tokens.shape[1],
+                              window_override=window_override)
+    return logits[:, -1:], aux["cache"]
+
+
+# ---------------------------------------------------------------------------
+# KV/SSM cache init + single-token decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, n_slots: int, dtype=None,
+               window_override: Optional[int] = None, device=None):
+    """Empty caches in prefill's layout, on ``device`` (None: cuda)."""
+    dtype = cdtype(dtype or cfg.dtype)
+    device = resolve_device(device)
+    cache: dict = {"pos": 0}
+    for gi, g in enumerate(cfg.layout):
+        cache[f"g{gi}"] = {
+            f"p{pi}": _stack([init_block_cache(cfg, cfg.block_defs[bname], batch,
+                                               n_slots, window_override, dtype,
+                                               device)] * g.repeats)
+            for pi, bname in enumerate(g.pattern)
+        }
+    return cache
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache, rt: Runtime, *,
+                window_override: Optional[int] = None, collect_probs: bool = False,
+                lora=None):
+    """One autoregressive step. tokens (B, 1). Returns (logits (B,1,V),
+    cache, aux); the cache is updated in place."""
+    if collect_probs or lora is not None:
+        raise NotImplementedError("decode_step: collect_probs and lora are not "
+                                  "ported yet")
+    pos = cache["pos"]
+    x = embed_tokens(params, cfg, tokens)
+    for gi, g in enumerate(cfg.layout):
+        gparams, gcache = params["groups"][f"g{gi}"], cache[f"g{gi}"]
+        for r in range(g.repeats):
+            for pi, bname in enumerate(g.pattern):
+                b = cfg.block_defs[bname]
+                c = _index(gcache[f"p{pi}"], r)  # views into the stacked cache
+                x, new_c, _ = apply_block_decode(
+                    _block_params(params, gparams, b, pi, r), cfg, b, x, c, pos, rt,
+                    window_override=window_override)
+                for dst, src in zip(c, new_c):
+                    if src.data_ptr() != dst.data_ptr():
+                        dst.copy_(src)
+    cache["pos"] = pos + 1
+    return compute_logits(params, cfg, x), cache, {}

@@ -16,17 +16,25 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs.base import SSMSpec  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash  # noqa: E402
 from repro_torch.kernels.int4_matmul import (int4_matmul, int4_matmul_ref,  # noqa: E402
                                              quantize_matmul_weight)
 from repro_torch.kernels.moe_gmm import gmm, gmm_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd, ssd_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.mamba2 import ssd_chunked  # noqa: E402
 
 pytestmark = [pytest.mark.torch, pytest.mark.cuda]
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2**-7, atol=1.6e-2)}
+# ssd_scan against the sequential recurrence: the chunked form computes
+# each decay as exp(sum) instead of a product of exps, a few ulp per step
+# (the tolerance of tests/test_kernels.py::test_ssd_vs_sequential_ref);
+# the final state is fp32 at any input type
+TOL_SSD = {torch.float32: dict(rtol=1e-3, atol=5e-4), torch.bfloat16: TOL[torch.bfloat16]}
 
 
 @pytest.fixture
@@ -84,6 +92,7 @@ def test_gmm_kernel_rejects_what_it_does_not_take(cuda):
     (1, 64, 2, 2, 16, 30.0, 24),
     (4, 100, 16, 1, 128, None, None),  # olmoe heads, ragged T
     (2, 77, 8, 2, 64, None, None),
+    (2, 100, 4, 2, 112, None, None),  # zamba2-7b's head dim, ragged T
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, T, Hkv, G, hd, cap, win):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -175,3 +184,91 @@ def test_serve_through_kernels_matches_plain(cuda):
     torch.testing.assert_close(hop["prefill_logits"], ref["prefill_logits"],
                                rtol=1e-3, atol=1e-3)
     assert (hop["transfers"], hop["hits"]) == (ref["transfers"], ref["hits"])
+
+
+def _ssd_inputs(B, T, H, P, N, G, with_init, dtype, device):
+    """Model-like inputs: dt = softplus(N(-4.6, 0.5)) (about 0.01, the
+    init's dt_bias) and A = -(1..16), so the state carries across chunks;
+    D about 1 (the skip)."""
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(B, T, H, P, generator=g, device=device).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn(B, T, H, generator=g, device=device) * 0.5 - 4.6)
+    A = -torch.linspace(1.0, 16.0, H, device=device)
+    Bm = torch.randn(B, T, G, N, generator=g, device=device).to(dtype)
+    Cm = torch.randn(B, T, G, N, generator=g, device=device).to(dtype)
+    init = (torch.randn(B, H, P, N, generator=g, device=device) * 0.5
+            if with_init else None)
+    D = 1.0 + 0.1 * torch.randn(H, generator=g, device=device)
+    return x, dt, A, Bm, Cm, init, D
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,P,N,G,chunk,with_init,with_d", [
+    (2, 70, 8, 32, 16, 1, 32, True, True),  # smoke shapes, ragged T
+    (2, 300, 16, 64, 64, 1, 128, False, False),  # zamba2-7b's P, N; ragged T
+    (1, 260, 8, 64, 128, 1, 128, True, True),  # mamba2-130m's P, N
+    (2, 130, 8, 64, 64, 2, 128, True, False),  # two groups
+    (1, 20, 4, 64, 64, 4, 128, False, True),  # T below the chunk, 4 groups
+    (4, 512, 112, 64, 64, 1, 128, False, True),  # zamba2-7b serve shape
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, B, T, H, P, N, G, chunk, with_init,
+                                  with_d):
+    x, dt, A, Bm, Cm, init, D = _ssd_inputs(B, T, H, P, N, G, with_init, dtype, cuda)
+    D = D if with_d else None
+    n0 = dispatch.LAUNCHES["ssd_scan"]
+    y, fin = ssd(x, dt, A, Bm, Cm, init=init, D=D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["ssd_scan"] == n0 + 1
+    assert y.dtype == dtype and y.shape == x.shape and fin.dtype == torch.float32
+    yr, fr = ssd_scan_ref(x, dt, A, Bm, Cm, init, D=D)
+    torch.testing.assert_close(y.float(), yr.float(), **TOL_SSD[dtype])
+    torch.testing.assert_close(fin, fr, **TOL_SSD[torch.float32])
+    if dtype == torch.float32:  # the same chunked algorithm, summation order only
+        spec = SSMSpec(N, head_dim=P, chunk=chunk, n_groups=G)
+        yc, fc = ssd_chunked(x, dt, A, Bm, Cm, spec, init)
+        if D is not None:
+            yc = yc + D[None, None, :, None] * x
+        torch.testing.assert_close(y, yc, **TOL[dtype])
+        torch.testing.assert_close(fin, fc, **TOL[dtype])
+
+
+def test_ssd_kernel_rejects_what_it_does_not_take(cuda):
+    x, dt, A, Bm, Cm, _, D = _ssd_inputs(1, 16, 4, 64, 64, 1, False, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, Bm, Cm)
+    with pytest.raises(TypeError):
+        ssd(x, dt.bfloat16(), A, Bm, Cm)
+    with pytest.raises(TypeError):
+        ssd(x.bfloat16(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd(x[..., :48].contiguous(), dt, A, Bm, Cm)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd(x, dt, A, Bm, Cm, chunk=0)
+    with pytest.raises(ValueError, match="D"):
+        ssd(x, dt, A, Bm, Cm, D=D[:2])
+    with pytest.raises(TypeError):
+        ssd(x, dt, A, Bm, Cm, D=D.bfloat16())
+    with pytest.raises(RuntimeError, match="hopper"):
+        ssd(x.cpu(), dt.cpu(), A.cpu(), Bm.cpu(), Cm.cpu(), backend="hopper")
+
+
+@pytest.mark.parametrize("arch,per_prefill", [
+    ("zamba2-7b-smoke", {"ssd_scan": 1, "flash_attn": 1}),
+    ("mamba2-130m-smoke", {"ssd_scan": 2, "flash_attn": 0}),
+])
+def test_full_path_serve_through_kernels_matches_plain(cuda, arch, per_prefill):
+    """The SSM/hybrid slice end to end at smoke size in fp32: the kernel
+    run and the plain run give the same tokens and close prefill logits;
+    decode launches no kernel."""
+    kw = dict(batch=2, prompt_len=150, max_new=6, dtype="float32", device="cuda",
+              seed=0)
+    hop = serve.run_full(arch, **kw)
+    for op, n in per_prefill.items():
+        assert hop["launches"]["prefill"][op] == n, hop["launches"]
+    assert not any(hop["launches"]["decode"].values()), hop["launches"]
+    ref = serve.run_full(arch, kernel_backend="ref", **kw)
+    assert not any(ref["launches"]["prefill"].values())
+    np.testing.assert_array_equal(hop["tokens"], ref["tokens"])
+    torch.testing.assert_close(hop["prefill_logits"], ref["prefill_logits"],
+                               rtol=1e-3, atol=1e-3)

@@ -104,7 +104,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             for p in _port_files()[:-1]]
     mods = [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
     assert {"repro_torch.core.quant", "repro_torch.kernels.int4_matmul.ops",
-            "repro_torch.kernels.int4_matmul.ref", "repro_torch.bridge"} <= set(mods)
+            "repro_torch.kernels.int4_matmul.ref", "repro_torch.bridge",
+            "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref",
+            "repro_torch.models.mamba2", "repro_torch.models.blocks",
+            "repro_torch.inference.engine", "repro_torch.inference.sampling"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
