@@ -9,15 +9,20 @@ From the root of a checkout, with CUDA available:
 3. holds each kernel against its plain PyTorch version on the card at
    the main path's shapes, in bf16 and fp32, and times kernel, plain
    version and one library call (a yardstick the port never calls);
+   kernels and library calls are timed as CUDA graphs (device time),
+   plain versions and ``eager_ms`` eagerly. ``moe_gmm`` and ``flash_attn``
+   report the route each case took and, where that is a tensor-core
+   route, the kept CUDA-core kernel's time at the same case (``fma_ms``);
 4. serves 4 x (128 + 32) tokens of full-width OLMoE-1B-7B (random
    weights from a seed) through ``repro_torch.launch.serve.run`` with the
-   launch counters set to 0 just before, asserts that both kernels were
-   launched on that path, and holds the prefill logits against a run of
-   the same prompts through the plain versions (``kernel_backend="ref"``);
+   launch counters set to 0 just before, asserts the path's launch totals
+   (``PATH_LAUNCHES``) and that every ``moe_gmm`` and ``flash_attn`` launch
+   took a tensor-core route (``FAST_ROUTES``), and holds the prefill
+   logits against a run of the same prompts through the plain versions
+   (``kernel_backend="ref"``);
 5. serves the same batch again with HQQ INT4 experts (``quantized=True``,
-   paper Sec 3.2), counters set to 0 just before, asserts that
-   ``int4_matmul``, ``moe_gmm`` and ``flash_attn`` were all launched, and
-   holds its prefill logits against a plain run on the same INT4 codes;
+   paper Sec 3.2), counters set to 0 just before, asserts its launch
+   totals and routes as for step 4, and holds its prefill logits against a plain run on the same INT4 codes;
    the INT4-vs-bf16 logits difference is printed, not gated (it is the
    quantization error);
 6. frees the OLMoE runs, then serves full-width zamba2-7b and mamba2-130m
@@ -26,7 +31,8 @@ From the root of a checkout, with CUDA available:
    prefill and the decode loop timed to a device synchronize, counters
    set to 0 just before each model. It asserts the launches of one prefill
    (zamba2: 68 ``ssd_scan`` and 13 ``flash_attn``; mamba2: 24
-   ``ssd_scan``; decode none), that ``ServingEngine.generate_batch``
+   ``ssd_scan``; decode none; zamba2's flash on the tensor-core route),
+   that ``ServingEngine.generate_batch``
    gives the same tokens, and holds the prefill logits against plain
    prefills on the same weights (``kernel_backend="ref"``): in fp32 first,
    then in bf16 within a fixed limit per model and against the plain
@@ -89,19 +95,68 @@ BF16_FULL_LOGITS_REL_TOL = {"zamba2-7b": 4.5e-2, "mamba2-130m": LOGITS_REL_TOL}
 # run, up to this factor (a second rounding inside a kernel, as of y
 # before the D skip, would add its own round-off and exceed it).
 ACCURACY_RATIO = 1.25
+# Kernel launches of each serve path, counted from 0 just before it, and
+# the routes that the bf16 launches of moe_gmm and flash_attn must take:
+# the tensor-core ones. Every total but one is fixed by the path's shape
+# (per layer-step: 3 gmm for the slab group and 3 for the overflow group;
+# one flash per attention layer of the prefill). The INT4 path's
+# int4_matmul total (None) is 3 per spilled expert, and which experts
+# spill follows the random model's routing, which moves with any change
+# of rounding in the kernels before it (17,682 with the CUDA-core bf16
+# kernels); it must be a positive multiple of 3.
+PATH_LAUNCHES = {
+    "bf16": {"moe_gmm": 3072, "flash_attn": 16, "int4_matmul": 0},
+    "int4": {"moe_gmm": 1536, "flash_attn": 16, "int4_matmul": None},
+    "zamba2-7b": {"ssd_scan": 68, "flash_attn": 13},
+    "mamba2-130m": {"ssd_scan": 24, "flash_attn": 0},
+}
+FAST_ROUTES = {"moe_gmm": ("stream", "tc"), "flash_attn": ("tc",)}
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device milliseconds per call (CUDA events around ``reps``)."""
+def check_path(path: str, launches: dict, routes: dict) -> None:
+    """Launch totals of a serve path as PATH_LAUNCHES says, every bf16
+    launch of moe_gmm and flash_attn on a tensor-core route."""
+    want = PATH_LAUNCHES[path]
+    got = {op: launches[op] for op in want}
+    if any(got[op] != n if n is not None else got[op] <= 0 or got[op] % 3
+           for op, n in want.items()):
+        raise AssertionError(f"{path}: launches {got}, want {want}")
+    for op, fast in FAST_ROUTES.items():
+        off = {r: n for r, n in routes[op].items() if r not in fast}
+        if off or sum(routes[op].values()) != launches[op]:
+            raise AssertionError(f"{path}: {op} launches {launches[op]} by route "
+                                 f"{routes[op]}, want all on {fast}")
+    print(f"{path}: launches {got}, routes {routes}")
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3, graph: bool = True) -> float:
+    """Mean device milliseconds per call. With ``graph`` the ``reps`` calls
+    are captured once into a CUDA graph, which is replayed between two
+    events: the device's time alone. The launch cost of a Python wrapper
+    (tens of microseconds, and it moves with the host's CPU from machine
+    to machine) is not in it. Without ``graph``: ``reps`` back-to-back eager
+    calls between two events, the host's dispatch included wherever it is
+    slower than the device (the plain versions, and ``eager_ms``)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -120,6 +175,17 @@ def check(name, out, ref, tol) -> float:
     if not torch.isfinite(out).all():
         raise AssertionError(f"{name}: non-finite output")
     return err
+
+
+def route_of(op, fn):
+    """Call ``fn`` once and return the route its one launch took."""
+    from repro_torch.kernels import dispatch
+
+    before = dict(dispatch.ROUTE_LAUNCHES[op])
+    fn()
+    after = dispatch.ROUTE_LAUNCHES[op]
+    (which,) = [r for r in after if after[r] != before.get(r, 0)]
+    return which
 
 
 def gmm_cases(gen):
@@ -146,15 +212,26 @@ def gmm_cases(gen):
                 for e, s in enumerate(sizes.tolist()):  # zero tails exactly zero
                     if out[e, s:].any():
                         raise AssertionError(f"{label}: group {e} tail not zero")
+                if not torch.equal(out, gmm_hopper(a, b, sizes)):
+                    raise AssertionError(f"{label}: a repeated run gave other bits")
+                which = route_of("moe_gmm", lambda: gmm_hopper(a, b, sizes))
+                fma = {}
+                if which != "fma":  # the kept CUDA-core kernel at the same case
+                    err_fma = check(label + " fma", gmm_hopper(a, b, sizes, force_route="fma"),
+                                    ref, TOL[dtype])
+                    fma = {"fma_ms": time_ms(lambda: gmm_hopper(a, b, sizes,
+                                                                force_route="fma")),
+                           "max_abs_err_fma": err_fma}
                 active = sizes > 0
                 rows = int(sizes.sum())
                 it = a.element_size()
                 nbytes = (rows * K + int(active.sum()) * K * F + E * N * F) * it
                 t_bound, by = bound(nbytes, 2.0 * rows * K * F, dtype)
                 cases.append({
-                    "case": label, "max_abs_err": err, "tol": TOL[dtype],
-                    "ms": time_ms(lambda: gmm_hopper(a, b, sizes)),
-                    "plain_ms": time_ms(lambda: gmm_ref(a, b)),
+                    "case": label, "route": which, "max_abs_err": err, "tol": TOL[dtype],
+                    "ms": time_ms(lambda: gmm_hopper(a, b, sizes)), **fma,
+                    "eager_ms": time_ms(lambda: gmm_hopper(a, b, sizes), graph=False),
+                    "plain_ms": time_ms(lambda: gmm_ref(a, b), graph=False),
                     "library_ms": time_ms(lambda: torch.bmm(a, b)),
                     "bound_ms": t_bound, "bound_by": by})
     return cases
@@ -179,6 +256,14 @@ def flash_cases(gen):
             ref = attention_ref(q, k, v, softcap=cap, window=win)
             torch.cuda.synchronize()
             err = check(label, out, ref, TOL[dtype])
+            which = route_of("flash_attn",
+                             lambda: flash_hopper(q, k, v, softcap=cap, window=win))
+            fma = {}
+            if which != "fma":  # the kept CUDA-core kernel at the same case
+                fwd = lambda: flash_hopper(q, k, v, softcap=cap, window=win,  # noqa: E731
+                                           force_route="fma")
+                fma = {"fma_ms": time_ms(fwd),
+                       "max_abs_err_fma": check(label + " fma", fwd(), ref, TOL[dtype])}
             t = torch.arange(T)
             pairs = int(torch.minimum(t + 1, torch.tensor(win or T)).sum())
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
@@ -190,10 +275,13 @@ def flash_cases(gen):
                 vs = v.transpose(1, 2).repeat_interleave(G, dim=1).contiguous()
                 lib = time_ms(lambda: sdpa(qs, ks, vs, is_causal=True))
             cases.append({
-                "case": label, "max_abs_err": err, "tol": TOL[dtype],
+                "case": label, "route": which, "max_abs_err": err, "tol": TOL[dtype],
                 "ms": time_ms(lambda: flash_hopper(q, k, v, softcap=cap, window=win)),
+                "eager_ms": time_ms(lambda: flash_hopper(q, k, v, softcap=cap, window=win),
+                                    graph=False),
+                **fma,
                 "plain_ms": time_ms(lambda: attention_ref(q, k, v, softcap=cap,
-                                                          window=win)),
+                                                          window=win), graph=False),
                 "library_ms": lib, "bound_ms": t_bound, "bound_by": by})
     return cases
 
@@ -223,7 +311,9 @@ def int4_cases(gen):
             cases.append({
                 "case": label, "max_abs_err": err, "tol": TOL[dtype],
                 "ms": time_ms(lambda: int4_matmul_hopper(x, p, sc, z, g)),
-                "plain_ms": time_ms(lambda: int4_matmul_ref(x, p, sc, z, g)),
+                "eager_ms": time_ms(lambda: int4_matmul_hopper(x, p, sc, z, g),
+                                    graph=False),
+                "plain_ms": time_ms(lambda: int4_matmul_ref(x, p, sc, z, g), graph=False),
                 "library_ms": time_ms(lambda: torch.matmul(x, w_deq)),
                 "library": "torch.matmul on a pre-dequantized weight (matmul only, "
                            "no dequant)",
@@ -286,10 +376,13 @@ def ssd_cases(gen):
                 "tol": TOL_SSD[dtype], "tol_state": TOL_SSD[torch.float32],
                 "ms": time_ms(lambda: ssd_hopper(x, dt, A, Bm, Cm, init, D=D,
                                                  chunk=chunk)),
+                "eager_ms": time_ms(lambda: ssd_hopper(x, dt, A, Bm, Cm, init, D=D,
+                                                       chunk=chunk), graph=False),
                 "plain_ms": time_ms(lambda: ssd_scan_ref(x, dt, A, Bm, Cm, init, D=D),
-                                    reps=5),
+                                    reps=5, graph=False),
                 "plain_chunked_ms": time_ms(
-                    lambda: ssd_chunked(x, dt, A, Bm, Cm, spec, init), reps=5),
+                    lambda: ssd_chunked(x, dt, A, Bm, Cm, spec, init), reps=5,
+                    graph=False),
                 "library_ms": None, "library": "none: no single PyTorch call computes SSD",
                 "bound_ms": t_bound, "bound_by": by})
     return cases
@@ -313,6 +406,7 @@ def serve_full(arch: str, n_ssd: int, n_flash: int) -> dict:
     rep = run_full(arch, batch=B, prompt_len=T, max_new=new, dtype=torch.bfloat16,
                    device="cuda", seed=0, keep_params=True)
     launches = dict(dispatch.LAUNCHES)
+    routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
     params = rep.pop("params")
     want = {"ssd_scan": n_ssd, "flash_attn": n_flash}
     got = {op: rep["launches"]["prefill"][op] for op in want}
@@ -321,6 +415,7 @@ def serve_full(arch: str, n_ssd: int, n_flash: int) -> dict:
                              "prefill and none in decode")
     if any(launches[op] != rep["launches"]["prefill"][op] for op in launches):
         raise AssertionError(f"{arch}: counters {launches} vs report {rep['launches']}")
+    check_path(arch, launches, routes)
     tokens, logits = rep.pop("tokens"), rep.pop("prefill_logits")
     if tokens.shape != (B, new) or logits.shape != (B, cfg.vocab):
         raise AssertionError(f"{arch} shapes: tokens {tokens.shape} logits {logits.shape}")
@@ -382,7 +477,7 @@ def serve_full(arch: str, n_ssd: int, n_flash: int) -> dict:
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    rep.update(launches_total=launches, logits_rel=rel, top1=top1, logits_tol=tol,
+    rep.update(launches_total=launches, route_launches=routes, logits_rel=rel, top1=top1, logits_tol=tol,
                fp32_logits_rel=rel32, bf16_roundoff_rel=floor, kernel_vs_fp32_rel=acc,
                rel_one_kernel_only=by_kernel)
     return rep
@@ -407,19 +502,24 @@ def slab_dequant_ms(gen, C=16, d=2048, f=1024, g=32) -> float:
         z = torch.rand(C, K // g, N, generator=gen, device="cuda") * 15
         mats.append((p, s, z))
     return time_ms(lambda: [dequant_ref(p, s, z, g).to(torch.bfloat16)
-                            for p, s, z in mats], reps=5, warmup=1)
+                            for p, s, z in mats], reps=5, warmup=1, graph=False)
 
 
-def kernel_entry(name, source, replaces, cases, main_case, launches):
+def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
-    every case, and every case beside it."""
+    every case, and every case beside it. ``source`` is the kernel the
+    main-path case runs; ``fma_source`` the kept CUDA-core kernel (fp32,
+    and ``fma_ms``) where the op has routes."""
     head = next(c for c in cases if c["case"] == main_case)
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
             "tol": head["tol"], "case": main_case, "ms": head["ms"],
-            "kernel_ms": head["ms"], "plain_ms": head["plain_ms"],
+            "kernel_ms": head["ms"], "eager_ms": head["eager_ms"],
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-            "library_ms": head["library_ms"], "cases": cases}
+            "library_ms": head["library_ms"],
+            **({"fma_ms": head["fma_ms"], "fma_source": fma_source}
+               if fma_source else {}), "cases": cases}
 
 
 def main() -> int:
@@ -448,8 +548,11 @@ def main() -> int:
     i_cases = int4_cases(gen)
     s_cases = ssd_cases(gen)
     for c in g_cases + f_cases + i_cases + s_cases:
-        print(f"  {c['case']}: err {c['max_abs_err']:.3g} kernel {c['ms']:.4f} ms "
-              f"plain {c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
+        print(f"  {c['case']}: route {c.get('route', 'cuda')} err {c['max_abs_err']:.3g} "
+              f"kernel {c['ms']:.4f} ms"
+              + (f" (CUDA-core route {c['fma_ms']:.4f} ms)" if "fma_ms" in c else "")
+              + f" eager {c['eager_ms']:.4f} ms"
+              + f" plain {c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
               f"({c['bound_by']}) library {c['library_ms']}"
               + (f" plain chunked {c['plain_chunked_ms']:.4f} ms"
                  if "plain_chunked_ms" in c else ""))
@@ -460,9 +563,8 @@ def main() -> int:
     dispatch.reset_launches()
     rep = run("olmoe", max_new=32, **serve_kw)
     launches = dict(dispatch.LAUNCHES)
-    for op in ("moe_gmm", "flash_attn"):
-        if launches[op] <= 0:
-            raise AssertionError(f"main path launched no {op} kernel: {launches}")
+    routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    check_path("bf16", launches, routes)
     tokens, logits = rep["tokens"], rep["prefill_logits"]
     if tokens.shape != (4, 32) or logits.shape != (4, 50_304):
         raise AssertionError(f"shapes: tokens {tokens.shape} logits {logits.shape}")
@@ -485,9 +587,8 @@ def main() -> int:
     dispatch.reset_launches()
     qrep = run("olmoe", max_new=32, quantized=True, keep_store=True, **serve_kw)
     q_launches = dict(dispatch.LAUNCHES)
-    for op in ("int4_matmul", "moe_gmm", "flash_attn"):
-        if q_launches[op] <= 0:
-            raise AssertionError(f"INT4 path launched no {op} kernel: {q_launches}")
+    q_routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    check_path("int4", q_launches, q_routes)
     q_logits = qrep["prefill_logits"]
     if qrep["tokens"].shape != (4, 32) or q_logits.shape != (4, 50_304):
         raise AssertionError(f"INT4 shapes: tokens {qrep['tokens'].shape} "
@@ -525,13 +626,15 @@ def main() -> int:
     m_rep = serve_full("mamba2-130m", n_ssd=24, n_flash=0)
 
     kernels = [
-        kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm.cu",
+        kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
-                     "gmm bfloat16 a(16,4,2048) b(16,2048,1024)", launches["moe_gmm"]),
-        kernel_entry("flash_attn", "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+                     "gmm bfloat16 a(16,4,2048) b(16,2048,1024)", launches["moe_gmm"],
+                     fma_source="src/repro_torch/kernels/moe_gmm/csrc/gmm.cu"),
+        kernel_entry("flash_attn", "src/repro_torch/kernels/flash_attn/csrc/flash_attn_tc.cu",
                      "src/repro/kernels/flash_attn/kernel.py:80", f_cases,
                      "flash bfloat16 B4 T128 Hkv16 G1 hd128 softcap=None window=None",
-                     launches["flash_attn"]),
+                     launches["flash_attn"],
+                     fma_source="src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu"),
         kernel_entry("int4_matmul",
                      "src/repro_torch/kernels/int4_matmul/csrc/int4_matmul.cu",
                      "src/repro/kernels/int4_matmul/kernel.py:55", i_cases,
@@ -545,8 +648,12 @@ def main() -> int:
     ]
     paths = {"bf16": launches, "int4": q_launches,
              "zamba2-7b": z_rep["launches_total"], "mamba2-130m": m_rep["launches_total"]}
+    routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
+              "mamba2-130m": m_rep["route_launches"]}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+        if k["name"] in FAST_ROUTES:
+            k["routes_by_path"] = {p: r[k["name"]] for p, r in routes.items()}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

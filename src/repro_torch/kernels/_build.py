@@ -7,6 +7,9 @@ into one shared library with a plain C interface, loaded with
 builds (or reuses) the library, so the CPU tests can import every module
 without ``nvcc``.
 
+Shared headers live in ``kernels/common/`` (included by relative path);
+every ``*.cuh`` under ``kernels/`` goes into the hash below.
+
 The library lands in ``kernels/build/`` (listed in ``.gitignore``),
 named by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one is loaded as is. ``REPRO_TORCH_BUILD_DIR``
@@ -27,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lib: Optional[ctypes.CDLL] = None
+_entries: dict = {}
 
 
 def sources() -> List[Path]:
@@ -53,8 +57,9 @@ def _digest(srcs: List[Path]) -> str:
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
-        for hdr in sorted(s.parent.glob("*.cuh")):
-            h.update(hdr.read_bytes())
+    for hdr in sorted(KERNELS_DIR.glob("**/*.cuh")):
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -105,10 +110,14 @@ def lib() -> ctypes.CDLL:
 def entry(name: str, argtypes: list):
     """A C entry point of the library with its ``argtypes`` declared
     (pointers and the stream as ``c_void_p``, so none is cut to 32
-    bits) and ``int`` (the ``cudaError_t``) as its result."""
-    fn = getattr(lib(), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    bits) and ``int`` (the ``cudaError_t``) as its result. Looked up
+    once: a wrapper calls this on every launch."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(lib(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
     return fn
 
 

@@ -14,7 +14,10 @@ Resolution against the tensor the op is given:
 
 Each wrapper counts its kernel launches in :data:`LAUNCHES`, one per
 launch and nowhere else, so a run can show that its path went through
-the kernels.
+the kernels. An op with more than one kernel (``moe_gmm``, ``flash_attn``:
+a bf16 tensor-core route beside the CUDA-core one) also counts each
+launch under its route in :data:`ROUTE_LAUNCHES`, so a shape that leaves
+the fast route does so visibly.
 """
 from __future__ import annotations
 
@@ -28,17 +31,22 @@ BACKENDS = ("ref", "hopper", "auto")
 
 ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
 
-# kernel launches per op since the last reset_launches()
+# kernel launches per op, and per op and route, since the last
+# reset_launches()
 LAUNCHES = {op: 0 for op in OPS}
+ROUTE_LAUNCHES: dict = {op: {} for op in OPS}
 
 
-def count_launch(op: str) -> None:
+def count_launch(op: str, route: Optional[str] = None) -> None:
     LAUNCHES[op] += 1
+    if route is not None:
+        ROUTE_LAUNCHES[op][route] = ROUTE_LAUNCHES[op].get(route, 0) + 1
 
 
 def reset_launches() -> None:
     for op in LAUNCHES:
         LAUNCHES[op] = 0
+        ROUTE_LAUNCHES[op].clear()
 
 
 def parse_spec(spec: Optional[str]) -> dict:

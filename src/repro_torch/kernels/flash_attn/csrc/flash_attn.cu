@@ -1,8 +1,12 @@
-// Causal GQA flash attention (forward), Hopper (sm_90a).
+// Causal GQA flash attention (forward), CUDA-core route ("fma"), Hopper
+// (sm_90a).
 //
 // Replaces the Pallas TPU kernel
-// src/repro/kernels/flash_attn/kernel.py::flash_attention_fwd (_kernel):
-// online softmax with fp32 running max m, sum l and accumulator, masked
+// src/repro/kernels/flash_attn/kernel.py::flash_attention_fwd (_kernel)
+// for what the tensor-core route of flash_attn_tc.cu does not take: fp32
+// (TF32 would break its 1e-4 tolerance and the fp32 logits checks) and
+// bf16 at pointers that are not 16-byte aligned (ops.route decides).
+// Online softmax with fp32 running max m, sum l and accumulator, masked
 // scores set to -1e30, optional tanh score softcap and sliding window,
 // and only the causally visible KV tiles are visited.
 //
@@ -15,12 +19,12 @@
 // the window's lower bound up to the block's causal frontier, so any
 // sequence length fits. Ragged T and S are masked.
 //
-// What bounds it on this card: at prefill lengths of a few hundred
-// tokens the bytes of q, k, v and out; at long lengths the QK^T and PV
-// FLOPs. This first version computes both products with CUDA-core fp32
-// FMAs: 4 threads per query row, each owning hd/4 of the dimensions, the
-// partial dot products summed with two warp shuffles. Tensor-core
-// (wgmma) tiles and TMA loads come in a later change.
+// What bounds it on this card: the QK^T and PV FLOPs, here at the CUDA
+// cores' fp32 rate: 4 threads per query row, each owning hd/4 of the
+// dimensions, the partial dot products summed with two warp shuffles; K/V
+// staged by scalar loads. The bf16 serve paths do not run it (chip_smoke
+// asserts so); it is kept for fp32 and as the "before" that chip_smoke
+// times beside the tensor-core route.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

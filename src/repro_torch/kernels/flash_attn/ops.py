@@ -1,8 +1,14 @@
-"""Dispatching wrapper for causal flash attention: the Hopper kernel
-(``csrc/flash_attn.cu``) for a CUDA tensor, the plain version for a CPU
-tensor. The kernel streams K/V through shared memory, so the TPU
-kernel's VMEM envelope (``repro/kernels/flash_attn/ops.py::supported``)
-has no counterpart here."""
+"""Dispatching wrapper for causal flash attention: a Hopper kernel for a
+CUDA tensor, the plain version for a CPU tensor. Two kernels, chosen by
+:func:`route`:
+
+  tc  — bf16 with 16-byte aligned pointers: QK^T and PV on tensor cores
+        (``csrc/flash_attn_tc.cu``);
+  fma — everything else (fp32): the CUDA-core kernel (``csrc/flash_attn.cu``).
+
+Both stream K/V through shared memory, so the TPU kernel's VMEM envelope
+(``repro/kernels/flash_attn/ops.py::supported``) has no counterpart
+here."""
 from __future__ import annotations
 
 import ctypes
@@ -13,11 +19,36 @@ import torch
 from .. import _build, dispatch
 from .ref import attention_ref
 
-_DTYPES = {torch.float32: "flash_attn_fwd_f32",
-           torch.bfloat16: "flash_attn_fwd_bf16"}
+ROUTES = ("tc", "fma")
+_ENTRIES = {("fma", torch.float32): "flash_attn_fwd_f32",
+            ("fma", torch.bfloat16): "flash_attn_fwd_bf16",
+            ("tc", torch.bfloat16): "flash_attn_fwd_bf16_tc"}
 HEAD_DIMS = (16, 32, 64, 112, 128)
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def route(hd: int, dtype: torch.dtype, ptrs=(), force: Optional[str] = None) -> str:
+    """The kernel for head dim ``hd`` in ``dtype`` with data pointers
+    ``ptrs``: bf16 with 16-byte aligned pointers (every head dim here is a
+    multiple of 8, so every row is aligned too) runs on tensor cores,
+    "tc"; anything else on the CUDA-core kernel, "fma". ``force`` names a
+    route to take instead (to time one against another); it raises where
+    that route cannot take the call, as do a head dim or dtype no kernel
+    takes."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash: head_dim {hd} not in {HEAD_DIMS}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash: dtype {dtype} (want fp32 or bf16)")
+    which = "tc" if dtype == torch.bfloat16 and all(p % 16 == 0 for p in ptrs) else "fma"
+    if force is None:
+        return which
+    if force not in ROUTES:
+        raise ValueError(f"flash: route {force!r} not in {ROUTES}")
+    if force == "tc" and which != "tc":
+        raise ValueError(f"flash: route 'tc' does not take {dtype} at pointers "
+                         f"{[hex(p) for p in ptrs]}")
+    return force
 
 
 def flash(q, k, v, *, softcap: Optional[float] = None,
@@ -29,8 +60,10 @@ def flash(q, k, v, *, softcap: Optional[float] = None,
 
 
 def flash_hopper(q, k, v, *, softcap: Optional[float] = None,
-                 window: Optional[int] = None):
-    """Launch the Hopper kernel (raises on what it does not take)."""
+                 window: Optional[int] = None, force_route: Optional[str] = None):
+    """Launch the Hopper kernel that :func:`route` picks, or
+    ``force_route`` (to time one route against another; a route that
+    cannot take the inputs raises)."""
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash: want q (B,T,Hkv,G,hd), k/v (B,S,Hkv,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -38,24 +71,23 @@ def flash_hopper(q, k, v, *, softcap: Optional[float] = None,
     S = k.shape[1]
     if k.shape[0] != B or k.shape[2:] != (Hkv, hd):
         raise ValueError(f"flash: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash: head_dim {hd} not in {HEAD_DIMS}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash: the kernel takes CUDA tensors on one device")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window <= 0:
         raise ValueError(f"flash: window {window} must be positive")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    which = route(hd, q.dtype, (q.data_ptr(), k.data_ptr(), v.data_ptr()), force_route)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    fn = _build.entry(_DTYPES[q.dtype], _ARGS)
+    fn = _build.entry(_ENTRIES[which, q.dtype], _ARGS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     B, T, S, Hkv, G, hd, hd**-0.5,
                     float(softcap) if softcap is not None else 0.0,
                     int(window) if window is not None else 0, stream),
-                 "flash_attn")
-    dispatch.count_launch("flash_attn")
+                 f"flash_attn ({which})")
+    dispatch.count_launch("flash_attn", which)
     return out

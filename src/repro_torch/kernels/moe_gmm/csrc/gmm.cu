@@ -1,24 +1,26 @@
-// Grouped (per-expert) matmul for the offloaded MoE FFN, Hopper (sm_90a).
+// Grouped (per-expert) matmul, CUDA-core route ("fma"), Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/moe_gmm/kernel.py::gmm
-// (dense _kernel and ragged _kernel_ragged): y[e] = a[e] @ b[e], fp32
-// accumulation, output in the input type. With group_sizes, rows at or
-// past group_sizes[e] of a[e] are zero by contract and come out zero.
+// (dense _kernel and ragged _kernel_ragged) for what the tensor-core
+// routes of gmm_tc.cu do not take: fp32 (TF32 would break its 1e-4
+// tolerance), and bf16 whose K or N is not a multiple of 8 or whose
+// pointers are not 16-byte aligned (ops.route decides). y[e] = a[e] @
+// b[e], fp32 accumulation, output in the input type. With group_sizes,
+// rows at or past group_sizes[e] of a[e] are zero by contract and come
+// out zero.
 //
 // What bounds it on this card: in decode (a few rows per group) the
-// weight bytes of b -- 3 projections x 12.6 MB per active expert at
-// olmoe widths against 3.35 TB/s; in a large prefill the FLOPs. The
-// design point that matters for decode is the ragged skip: a block whose
-// M-tile starts at or past group_sizes[e] writes zeros and returns before
-// it reads one byte of b[e], so an empty cache slot costs no weight
-// traffic (on the TPU the BlockSpec still DMAs the weight tile and only
-// the MXU work is skipped). Tails in M, N and K are masked in the kernel
-// instead of shrinking tiles to divisors.
-//
-// This first version is plain CUDA-core fp32 FMA over shared-memory
-// tiles (16x16 threads, each owning a TM x 4 patch of the output); a
-// small-M tile (BM = 16) serves decode so that padded rows cost little.
-// wgmma / TMA pipelines come in a later change.
+// weight bytes of b; in a large prefill the FLOPs, here at the CUDA cores'
+// 67 TFLOP/s fp32 rate. What the design does: a block whose M-tile starts
+// at or past group_sizes[e] writes zeros and returns before it reads one
+// byte of b[e], so an empty cache slot costs no weight traffic; tails in
+// M, N and K are masked instead of shrinking tiles to divisors. It is
+// plain fp32 FMA over shared-memory tiles (16x16 threads, each owning a
+// TM x 4 patch of the output), a small-M tile (BM = 16) for decode,
+// synchronous scalar staging: about 4 KB in flight a block, far below what
+// hides HBM latency. The bf16 serve path does not run it (chip_smoke
+// asserts so); it is kept for fp32 and as the "before" that chip_smoke
+// times beside the tensor-core routes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

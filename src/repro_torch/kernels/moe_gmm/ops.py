@@ -1,6 +1,13 @@
-"""Dispatching wrapper for the grouped expert matmul: the Hopper kernel
-(``csrc/gmm.cu``) for a CUDA tensor, the plain version for a CPU tensor
-(see ``kernels/dispatch.py``)."""
+"""Dispatching wrapper for the grouped expert matmul: a Hopper kernel for
+a CUDA tensor, the plain version for a CPU tensor (see
+``kernels/dispatch.py``). Three kernels, chosen by :func:`route`:
+
+  stream — bf16, M <= 16 (decode): split-K weight stream on tensor cores
+           (``csrc/gmm_tc.cu``);
+  tc     — bf16, M > 16 (prefill): 128 x 128 tensor-core tiles
+           (``csrc/gmm_tc.cu``);
+  fma    — everything else (fp32, unaligned widths or pointers): the
+           CUDA-core kernel (``csrc/gmm.cu``)."""
 from __future__ import annotations
 
 import ctypes
@@ -11,7 +18,11 @@ import torch
 from .. import _build, dispatch
 from .ref import gmm_ref
 
-_DTYPES = {torch.float32: "moe_gmm_f32", torch.bfloat16: "moe_gmm_bf16"}
+ROUTES = ("stream", "tc", "fma")
+_ENTRIES = {("fma", torch.float32): "moe_gmm_f32", ("fma", torch.bfloat16): "moe_gmm_bf16",
+            ("tc", torch.bfloat16): "moe_gmm_bf16_tc",
+            ("stream", torch.bfloat16): "moe_gmm_bf16_stream"}
+STREAM_MAX_M = 16  # the decode rows, padded to one m16 tile
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -30,9 +41,37 @@ def gmm(a: torch.Tensor, b: torch.Tensor,
     return gmm_hopper(a, b, group_sizes)
 
 
+def route(M: int, K: int, N: int, dtype: torch.dtype, ptrs=(),
+          force: Optional[str] = None) -> str:
+    """The kernel for a (E, M, K) @ b (E, K, N) in ``dtype`` whose data
+    pointers are ``ptrs``: bf16 with 16-byte aligned pointers and rows (K
+    and N multiples of 8) runs on tensor cores, "stream" up to
+    ``STREAM_MAX_M`` rows and "tc" above; anything else on the CUDA-core
+    kernel, "fma". ``force`` names a route to take instead (to time one
+    against another); it raises where that route cannot take the call,
+    as does a dtype no kernel takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"gmm: dtype {dtype} (want fp32 or bf16)")
+    tensor_cores = dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0 \
+        and all(p % 16 == 0 for p in ptrs)
+    if force is None:
+        if not tensor_cores:
+            return "fma"
+        return "stream" if M <= STREAM_MAX_M else "tc"
+    if force not in ROUTES:
+        raise ValueError(f"gmm: route {force!r} not in {ROUTES}")
+    if force != "fma" and not (tensor_cores and (force == "tc" or M <= STREAM_MAX_M)):
+        raise ValueError(f"gmm: route {force!r} does not take {dtype} M={M} K={K} "
+                         f"N={N} at pointers {[hex(p) for p in ptrs]}")
+    return force
+
+
 def gmm_hopper(a: torch.Tensor, b: torch.Tensor,
-               group_sizes: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the Hopper kernel (raises on what it does not take)."""
+               group_sizes: Optional[torch.Tensor] = None, *,
+               force_route: Optional[str] = None) -> torch.Tensor:
+    """Launch the Hopper kernel that :func:`route` picks, or
+    ``force_route`` (to time one route against another; a route that
+    cannot take the inputs raises)."""
     if a.dim() != 3 or b.dim() != 3:
         raise ValueError(f"gmm: want a (E,M,K), b (E,K,N); got {a.shape}, {b.shape}")
     E, M, K = a.shape
@@ -40,11 +79,12 @@ def gmm_hopper(a: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"gmm: shape mismatch {tuple(a.shape)} @ {tuple(b.shape)}")
     if not (a.is_cuda and b.device == a.device):
         raise ValueError("gmm: the kernel takes CUDA tensors on one device")
-    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+    if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
         raise TypeError(f"gmm: dtypes {a.dtype}, {b.dtype} (want fp32 or bf16, equal)")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("gmm: the kernel takes contiguous a and b")
     N = b.shape[2]
+    which = route(M, K, N, a.dtype, (a.data_ptr(), b.data_ptr()), force_route)
     sizes_ptr = None
     if group_sizes is not None:
         group_sizes = group_sizes.to(device=a.device, dtype=torch.int32).contiguous()
@@ -54,9 +94,9 @@ def gmm_hopper(a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((E, M, N), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
-    fn = _build.entry(_DTYPES[a.dtype], _ARGS)
+    fn = _build.entry(_ENTRIES[which, a.dtype], _ARGS)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _build.check(fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), sizes_ptr,
-                    E, M, K, N, stream), "moe_gmm")
-    dispatch.count_launch("moe_gmm")
+                    E, M, K, N, stream), f"moe_gmm ({which})")
+    dispatch.count_launch("moe_gmm", which)
     return out

@@ -18,10 +18,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import SSMSpec  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
-from repro_torch.kernels.flash_attn import attention_ref, flash  # noqa: E402
+from repro_torch.kernels.flash_attn import attention_ref, flash, flash_hopper  # noqa: E402
 from repro_torch.kernels.int4_matmul import (int4_matmul, int4_matmul_ref,  # noqa: E402
                                              quantize_matmul_weight)
-from repro_torch.kernels.moe_gmm import gmm, gmm_ref  # noqa: E402
+from repro_torch.kernels.moe_gmm import gmm, gmm_hopper, gmm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd, ssd_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.mamba2 import ssd_chunked  # noqa: E402
@@ -74,6 +74,55 @@ def test_gmm_kernel_matches_plain(cuda, dtype, E, M, K, N, sizes):
         assert not out[e, s:].any()
 
 
+@pytest.mark.parametrize("K,N", [(2048, 1024), (1024, 2048),
+                                 (1032, 520)])  # aligned, not a tile multiple
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 64, 100, 512])
+def test_gmm_tensor_core_routes_match_plain(cuda, M, K, N):
+    """bf16 takes the decode route ("stream") up to 16 rows and the
+    prefill route ("tc") above; groups empty, full and ending inside a
+    tile; zero tails exact; repeated runs give equal bits."""
+    sizes = (0, M, (3 * M) // 5 + 1, 1)
+    a, b = _ragged(4, M, K, N, sizes, torch.bfloat16, cuda)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    want = "stream" if M <= 16 else "tc"
+    n0 = dispatch.ROUTE_LAUNCHES["moe_gmm"].get(want, 0)
+    out = gmm(a, b, gs)
+    dense = gmm(a, b)
+    again = gmm(a, b, gs)
+    torch.cuda.synchronize()
+    assert dispatch.ROUTE_LAUNCHES["moe_gmm"][want] == n0 + 3
+    ref = gmm_ref(a, b)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    torch.testing.assert_close(dense.float(), ref.float(), **TOL[torch.bfloat16])
+    assert torch.equal(out, again)
+    for e, s in enumerate(sizes):  # zero tails stay exactly zero
+        assert not out[e, s:].any()
+
+
+def test_gmm_cuda_core_route_takes_the_rest(cuda):
+    """fp32, unaligned widths and misaligned pointers stay on the CUDA-core
+    kernel; a forced route that cannot take its inputs raises."""
+    fma0 = dispatch.ROUTE_LAUNCHES["moe_gmm"].get("fma", 0)
+    a, b = _ragged(3, 100, 70, 50, (100, 37, 0), torch.bfloat16, cuda)
+    gmm(a, b)
+    a32, b32 = _ragged(2, 4, 64, 32, (4, 2), torch.float32, cuda)
+    gmm(a32, b32)
+    a, b = _ragged(2, 4, 64, 32, (4, 2), torch.bfloat16, cuda)
+    flat = torch.empty(a.numel() + 1, dtype=a.dtype, device=cuda)
+    shifted = flat[1:].view(a.shape)  # 2 bytes past a 16-byte boundary
+    shifted.copy_(a)
+    out = gmm(shifted, b)
+    torch.cuda.synchronize()
+    assert dispatch.ROUTE_LAUNCHES["moe_gmm"]["fma"] == fma0 + 3
+    torch.testing.assert_close(out.float(), gmm_ref(a, b).float(), **TOL[torch.bfloat16])
+    forced = gmm_hopper(a, b, force_route="fma")
+    torch.testing.assert_close(forced.float(), gmm_ref(a, b).float(), **TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="route"):
+        gmm_hopper(shifted, b, force_route="stream")
+    with pytest.raises(ValueError, match="route"):
+        gmm_hopper(a32, b32, force_route="tc")
+
+
 def test_gmm_kernel_rejects_what_it_does_not_take(cuda):
     a, b = _ragged(2, 4, 32, 16, (4, 4), torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -105,6 +154,55 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, T, Hkv, G, hd, cap, win):
     assert dispatch.LAUNCHES["flash_attn"] == n0 + 1
     ref = attention_ref(q, k, v, softcap=cap, window=win)
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("B,T,Hkv,G,hd,cap,win", [
+    (2, 100, 4, 1, 64, None, None),  # T not a multiple of the 64-row tile
+    (2, 77, 2, 2, 112, None, None),
+    (1, 130, 2, 4, 128, None, None),
+    (2, 200, 2, 2, 128, 50.0, None),  # softcap
+    (2, 150, 4, 1, 112, None, 48),  # window inside the walk
+    (1, 300, 2, 4, 64, 30.0, 100),  # both
+    (4, 512, 4, 1, 112, None, None),  # zamba2-7b's prefill length
+    # enough row blocks for the kernel's many-block configuration
+    (4, 512, 32, 1, 112, None, None),  # zamba2-7b's prefill, full width
+    (4, 300, 32, 1, 128, None, None),
+    (2, 600, 16, 4, 64, 30.0, 200),
+])
+def test_flash_tensor_core_route_matches_plain(cuda, B, T, Hkv, G, hd, cap, win):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(*shape, device=cuda, generator=g).to(torch.bfloat16)
+               for shape in ((B, T, Hkv, G, hd), (B, T, Hkv, hd), (B, T, Hkv, hd)))
+    n0 = dispatch.ROUTE_LAUNCHES["flash_attn"].get("tc", 0)
+    out = flash(q, k, v, softcap=cap, window=win)
+    torch.cuda.synchronize()
+    assert dispatch.ROUTE_LAUNCHES["flash_attn"]["tc"] == n0 + 1
+    ref = attention_ref(q, k, v, softcap=cap, window=win)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+
+
+def test_flash_cuda_core_route_takes_the_rest(cuda):
+    """fp32 and misaligned bf16 stay on the CUDA-core kernel; forcing the
+    tensor-core route on them raises."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(1, 40, 2, 2, 64, device=cuda, generator=g)
+    k = torch.randn(1, 40, 2, 64, device=cuda, generator=g)
+    v = torch.randn(1, 40, 2, 64, device=cuda, generator=g)
+    fma0 = dispatch.ROUTE_LAUNCHES["flash_attn"].get("fma", 0)
+    flash(q, k, v)
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    flat = torch.empty(qb.numel() + 1, dtype=qb.dtype, device=cuda)
+    shifted = flat[1:].view(qb.shape)  # 2 bytes past a 16-byte boundary
+    shifted.copy_(qb)
+    out = flash(shifted, kb, vb)
+    torch.cuda.synchronize()
+    assert dispatch.ROUTE_LAUNCHES["flash_attn"]["fma"] == fma0 + 2
+    torch.testing.assert_close(out.float(), attention_ref(qb, kb, vb).float(),
+                               **TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="route"):
+        flash_hopper(q, k, v, force_route="tc")
+    with pytest.raises(ValueError, match="route"):
+        flash_hopper(shifted, kb, vb, force_route="tc")
 
 
 def _int4_inputs(M, K, N, group, dtype, device):
