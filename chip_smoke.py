@@ -10,9 +10,12 @@ From the root of a checkout, with CUDA available:
    the main path's shapes, in bf16 and fp32, and times kernel, plain
    version and one library call (a yardstick the port never calls);
    kernels and library calls are timed as CUDA graphs (device time),
-   plain versions and ``eager_ms`` eagerly. ``moe_gmm`` and ``flash_attn``
-   report the route each case took and, where that is a tensor-core
-   route, the kept CUDA-core kernel's time at the same case (``fma_ms``);
+   plain versions and ``eager_ms`` eagerly. Every case reports the route it
+   took and, where that is a fast route (tensor cores, or ``int4_matmul``'s
+   split-K stream), the kept CUDA-core kernel's time at the same case
+   (``fma_ms``); a repeated run must give equal bits. ``int4_matmul`` is
+   also timed against ``torch._weight_int4pack_mm`` where the card's torch
+   has it (``library_int4pack_ms``, a time only);
 4. serves 4 x (128 + 32) tokens of full-width OLMoE-1B-7B (random
    weights from a seed) through ``repro_torch.launch.serve.run`` with the
    launch counters set to 0 just before, asserts the path's launch totals
@@ -22,7 +25,9 @@ From the root of a checkout, with CUDA available:
    (``kernel_backend="ref"``);
 5. serves the same batch again with HQQ INT4 experts (``quantized=True``,
    paper Sec 3.2), counters set to 0 just before, asserts its launch
-   totals and routes as for step 4, and holds its prefill logits against a plain run on the same INT4 codes;
+   totals and routes as for step 4 (``int4_matmul`` per phase too: "tc"
+   in prefill, "stream" in decode), and holds its prefill logits against a
+   plain run on the same INT4 codes;
    the INT4-vs-bf16 logits difference is printed, not gated (it is the
    quantization error);
 6. frees the OLMoE runs, then serves full-width zamba2-7b and mamba2-130m
@@ -31,7 +36,7 @@ From the root of a checkout, with CUDA available:
    prefill and the decode loop timed to a device synchronize, counters
    set to 0 just before each model. It asserts the launches of one prefill
    (zamba2: 68 ``ssd_scan`` and 13 ``flash_attn``; mamba2: 24
-   ``ssd_scan``; decode none; zamba2's flash on the tensor-core route),
+   ``ssd_scan``; decode none; both on the tensor-core routes),
    that ``ServingEngine.generate_batch``
    gives the same tokens, and holds the prefill logits against plain
    prefills on the same weights (``kernel_backend="ref"``): in fp32 first,
@@ -110,12 +115,16 @@ PATH_LAUNCHES = {
     "zamba2-7b": {"ssd_scan": 68, "flash_attn": 13},
     "mamba2-130m": {"ssd_scan": 24, "flash_attn": 0},
 }
-FAST_ROUTES = {"moe_gmm": ("stream", "tc"), "flash_attn": ("tc",)}
+FAST_ROUTES = {"moe_gmm": ("stream", "tc"), "flash_attn": ("tc",),
+               "int4_matmul": ("stream", "tc"), "ssd_scan": ("tc",)}
+# The INT4 path's int4_matmul launches by phase: prefill multiplies all
+# 512 prompt tokens ("tc"), decode the batch's 4 rows ("stream").
+INT4_PHASE_ROUTES = {"prefill": ("tc",), "decode": ("stream",)}
 
 
 def check_path(path: str, launches: dict, routes: dict) -> None:
     """Launch totals of a serve path as PATH_LAUNCHES says, every bf16
-    launch of moe_gmm and flash_attn on a tensor-core route."""
+    launch of each op on its fast route (FAST_ROUTES)."""
     want = PATH_LAUNCHES[path]
     got = {op: launches[op] for op in want}
     if any(got[op] != n if n is not None else got[op] <= 0 or got[op] % 3
@@ -304,21 +313,52 @@ def int4_cases(gen):
             ref = int4_matmul_ref(x, p, sc, z, g)
             torch.cuda.synchronize()
             err = check(label, out, ref, TOL[dtype])
+            if not torch.equal(out, int4_matmul_hopper(x, p, sc, z, g)):
+                raise AssertionError(f"{label}: a repeated run gave other bits")
+            which = route_of("int4_matmul", lambda: int4_matmul_hopper(x, p, sc, z, g))
+            fma = {}
+            if which != "fma":  # the kept CUDA-core kernel at the same case
+                fwd = lambda: int4_matmul_hopper(x, p, sc, z, g,  # noqa: E731
+                                                 force_route="fma")
+                fma = {"fma_ms": time_ms(fwd),
+                       "max_abs_err_fma": check(label + " fma", fwd(), ref, TOL[dtype])}
             it = x.element_size()
             nbytes = M * K * it + p.numel() + 4 * (sc.numel() + z.numel()) + M * N * it
             t_bound, by = bound(nbytes, 2.0 * M * K * N, dtype)
             w_deq = dequant_ref(p, sc, z, g).to(dtype)  # for the matmul-only yardstick
             cases.append({
-                "case": label, "max_abs_err": err, "tol": TOL[dtype],
-                "ms": time_ms(lambda: int4_matmul_hopper(x, p, sc, z, g)),
+                "case": label, "route": which, "max_abs_err": err, "tol": TOL[dtype],
+                "ms": time_ms(lambda: int4_matmul_hopper(x, p, sc, z, g)), **fma,
                 "eager_ms": time_ms(lambda: int4_matmul_hopper(x, p, sc, z, g),
                                     graph=False),
                 "plain_ms": time_ms(lambda: int4_matmul_ref(x, p, sc, z, g), graph=False),
                 "library_ms": time_ms(lambda: torch.matmul(x, w_deq)),
                 "library": "torch.matmul on a pre-dequantized weight (matmul only, "
                            "no dequant)",
+                **(int4pack_yardstick(x, p, sc, z, g, ref) if dtype == torch.bfloat16
+                   else {}),
                 "bound_ms": t_bound, "bound_by": by})
     return cases
+
+
+def int4pack_yardstick(x, packed, scale, zero, g, ref) -> dict:
+    """PyTorch's own INT4 kernel, ``torch._weight_int4pack_mm``, on the same
+    codes: a time only. Its scale and zero are bf16 and it computes
+    (q - 8) s + z', so HQQ's (q - z) s maps onto it with z' = (8 - z) s,
+    rounded to bf16; no correctness oracle (its error is printed). Where
+    the card's torch lacks it or rejects the shapes, the reason is kept."""
+    try:
+        q = torch.stack((packed & 0x0F, packed >> 4), dim=1).reshape(-1, packed.shape[1])
+        qt = q.t().contiguous().to(torch.int32)  # (N, K) codes
+        w_u8 = ((qt[:, ::2] << 4) | qt[:, 1::2]).to(torch.uint8)
+        w_pack = torch._convert_weight_to_int4pack(w_u8, 8)
+        sz = torch.stack((scale, (8.0 - zero) * scale), dim=-1).to(torch.bfloat16).contiguous()
+        fn = lambda: torch._weight_int4pack_mm(x, w_pack, g, sz)  # noqa: E731
+        err = (fn().float() - ref.float()).abs().max().item()
+        return {"library_int4pack_ms": time_ms(fn), "int4pack_max_abs_err": err}
+    except Exception as e:  # a yardstick only: the port never calls it
+        return {"library_int4pack_ms": None,
+                "int4pack_unavailable": f"{type(e).__name__}: {e}"[:200]}
 
 
 def ssd_cases(gen):
@@ -359,6 +399,17 @@ def ssd_cases(gen):
             torch.cuda.synchronize()
             err = check(label, y, yr, TOL_SSD[dtype])
             err_state = check(label + " state", fin, fr, TOL_SSD[torch.float32])
+            y2, fin2 = ssd_hopper(x, dt, A, Bm, Cm, init, D=D, chunk=chunk)
+            if not (torch.equal(y, y2) and torch.equal(fin, fin2)):
+                raise AssertionError(f"{label}: a repeated run gave other bits")
+            which = route_of("ssd_scan", lambda: ssd_hopper(x, dt, A, Bm, Cm, init, D=D,
+                                                            chunk=chunk))
+            fma = {}
+            if which != "fma":  # the kept CUDA-core kernel at the same case
+                fwd = lambda: ssd_hopper(x, dt, A, Bm, Cm, init, D=D,  # noqa: E731
+                                         chunk=chunk, force_route="fma")
+                fma = {"fma_ms": time_ms(fwd),
+                       "max_abs_err_fma": check(label + " fma", fwd()[0], yr, TOL_SSD[dtype])}
             # bytes: inputs once, outputs once; ops: the chunked algorithm on
             # this run's rows (C.B^T once per group, causal half of each chunk)
             it = x.element_size()
@@ -371,7 +422,7 @@ def ssd_cases(gen):
             t_bound, by = bound(nbytes, 2.0 * macs, dtype)
             spec = SSMSpec(N, head_dim=P, chunk=chunk, n_groups=G)
             cases.append({
-                "case": label, "max_abs_err": max(err, err_state),
+                "case": label, "route": which, "max_abs_err": max(err, err_state), **fma,
                 "max_abs_err_y": err, "max_abs_err_state": err_state,
                 "tol": TOL_SSD[dtype], "tol_state": TOL_SSD[torch.float32],
                 "ms": time_ms(lambda: ssd_hopper(x, dt, A, Bm, Cm, init, D=D,
@@ -555,7 +606,9 @@ def main() -> int:
               + f" plain {c['plain_ms']:.4f} ms bound {c['bound_ms']:.4f} ms "
               f"({c['bound_by']}) library {c['library_ms']}"
               + (f" plain chunked {c['plain_chunked_ms']:.4f} ms"
-                 if "plain_chunked_ms" in c else ""))
+                 if "plain_chunked_ms" in c else "")
+              + (f" int4pack {c['library_int4pack_ms']}" if "library_int4pack_ms" in c
+                 else ""))
 
     # ---- the main path: full-width olmoe through the port's serve entry
     serve_kw = dict(capacity=16, policy="gamma", batch=4, prompt_len=128,
@@ -599,6 +652,12 @@ def main() -> int:
         {k: v for k, v in qrep.items()
          if k not in ("tokens", "prefill_logits", "quantized_experts")}))
     print(f"launches on the INT4 path: {q_launches}")
+    int4_phases = {ph: r["int4_matmul"] for ph, r in qrep["route_launches"].items()}
+    print(f"INT4 path int4_matmul launches by phase and route: {int4_phases}")
+    if sum(n for r in int4_phases.values() for n in r.values()) != q_launches["int4_matmul"] \
+            or any(set(r) - set(INT4_PHASE_ROUTES[ph]) for ph, r in int4_phases.items()):
+        raise AssertionError(f"INT4 path: int4_matmul by phase {int4_phases}, want "
+                             f"{INT4_PHASE_ROUTES} summing to {q_launches['int4_matmul']}")
     print(f"slab dequant per MoE layer-step (16 slots x wg/wu/wd -> bf16, plain "
           f"torch): {slab_dequant_ms(gen):.4f} ms")
 
@@ -636,15 +695,17 @@ def main() -> int:
                      launches["flash_attn"],
                      fma_source="src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu"),
         kernel_entry("int4_matmul",
-                     "src/repro_torch/kernels/int4_matmul/csrc/int4_matmul.cu",
+                     "src/repro_torch/kernels/int4_matmul/csrc/int4_matmul_tc.cu",
                      "src/repro/kernels/int4_matmul/kernel.py:55", i_cases,
                      "int4 bfloat16 x(4,2048) w(2048,1024) g32",
-                     q_launches["int4_matmul"]),
-        kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+                     q_launches["int4_matmul"],
+                     fma_source="src/repro_torch/kernels/int4_matmul/csrc/int4_matmul.cu"),
+        kernel_entry("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan_tc.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:76", s_cases,
                      "ssd bfloat16 zamba2 x(4,512,112,64) N64 G1 init=False D=True",
                      z_rep["launches_total"]["ssd_scan"]
-                     + m_rep["launches_total"]["ssd_scan"]),
+                     + m_rep["launches_total"]["ssd_scan"],
+                     fma_source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"),
     ]
     paths = {"bf16": launches, "int4": q_launches,
              "zamba2-7b": z_rep["launches_total"], "mamba2-130m": m_rep["launches_total"]}
@@ -654,6 +715,8 @@ def main() -> int:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:
             k["routes_by_path"] = {p: r[k["name"]] for p, r in routes.items()}
+        if k["name"] == "int4_matmul":
+            k["int4_path_by_phase"] = int4_phases
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..kernels import dispatch
 from ..kernels.int4_matmul.ops import MatmulQWeight
 from ..kernels.int4_matmul.ref import dequant_ref
 from ..kernels.moe_gmm import ops as gmm_ops
@@ -601,8 +602,10 @@ class OffloadedMoEEngine:
     def generate(self, prompt_tokens, max_new_tokens: int) -> dict:
         """Greedy decoding. prompt_tokens (B, T) ints. Returns a dict with
         tokens (B, max_new_tokens) int32, the last prompt position's
-        logits, metrics, both Eq.-3 clocks and the measured times."""
+        logits, metrics, both Eq.-3 clocks, the measured times and the
+        kernel launches of each phase by op and route."""
         cfg = self.cfg
+        routes0 = dispatch.route_snapshot()
         t0 = time.perf_counter()
         toks = torch.as_tensor(prompt_tokens).to(self.device, torch.long)
         B, T = toks.shape
@@ -620,6 +623,7 @@ class OffloadedMoEEngine:
         self._sync()
         t_prefill = time.perf_counter()
         self.metrics.prefill_wall_time = t_prefill - t0
+        routes1 = dispatch.route_snapshot()
 
         out_tokens = [next_tok]
         pos = T
@@ -653,4 +657,7 @@ class OffloadedMoEEngine:
             "prefill_s": m.prefill_wall_time,
             "decode_tok_s": (B * decode_steps / m.decode_wall_time
                              if decode_steps and m.decode_wall_time > 0 else 0.0),
+            "route_launches": {
+                "prefill": dispatch.route_delta(routes0, routes1),
+                "decode": dispatch.route_delta(routes1, dispatch.route_snapshot())},
         }

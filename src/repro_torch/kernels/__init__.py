@@ -9,9 +9,12 @@ PyTorch version and a launch counter:
                (replaces repro/kernels/flash_attn, Pallas TPU); bf16 on
                tensor cores ("tc"), fp32 on CUDA cores ("fma")
   int4_matmul — fused INT4-dequant matmul, HQQ group affine
-               (replaces repro/kernels/int4_matmul, Pallas TPU)
-  ssd_scan   — Mamba2 SSD chunked scan, state carried on chip across
-               chunks (replaces repro/kernels/ssd_scan, Pallas TPU)
+               (replaces repro/kernels/int4_matmul, Pallas TPU); bf16
+               split-K weight stream for decode ("stream"), tensor cores
+               for prefill ("tc"), fp32 on CUDA cores ("fma")
+  ssd_scan   — Mamba2 SSD chunked scan (replaces repro/kernels/ssd_scan,
+               Pallas TPU); bf16 chunk-parallel on tensor cores ("tc"),
+               fp32 one block per (b, h) walking the chunks ("fma")
 
 ``dispatch`` owns backend selection (ref | hopper | auto) and the launch
 counters (per op, and per route); ``_build`` compiles ``*/csrc/*.cu``

@@ -2,7 +2,8 @@
 // bf16 kernels (sm_80 instructions, all available on sm_90a):
 //
 //   cp_async16   16-byte global -> shared copy (cp.async.cg), zero-filled
-//                when the source is out of range;
+//                when the source is out of range; cp_async8 the same for 8
+//                bytes (cp.async.ca: .cg takes 16 only);
 //   ldsm_x4[_t]  ldmatrix of four 8x8 bf16 matrices (.trans for an operand
 //                stored k-major, as V or a row-major B);
 //   mma_bf16     mma.sync.m16n8k16, bf16 in, fp32 accumulate in place.
@@ -25,6 +26,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Copies 8 bytes, or writes 8 zero bytes when !valid (src is not read).
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -62,6 +69,13 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A float as the sum of two bf16 (hi + lo, lo the rounding error of hi):
+// about 16 significant bits, for an fp32 operand of a bf16 product.
+__device__ __forceinline__ void split_bf16(float v, float& hi, float& lo) {
+  hi = __bfloat162float(__float2bfloat16(v));
+  lo = v - hi;
 }
 
 }  // namespace tc

@@ -14,10 +14,12 @@ Resolution against the tensor the op is given:
 
 Each wrapper counts its kernel launches in :data:`LAUNCHES`, one per
 launch and nowhere else, so a run can show that its path went through
-the kernels. An op with more than one kernel (``moe_gmm``, ``flash_attn``:
-a bf16 tensor-core route beside the CUDA-core one) also counts each
-launch under its route in :data:`ROUTE_LAUNCHES`, so a shape that leaves
-the fast route does so visibly.
+the kernels. Every op has more than one kernel (bf16 tensor-core or
+streaming routes beside the CUDA-core one, "fma"), and each launch also
+counts under its route in :data:`ROUTE_LAUNCHES`, so a shape that leaves
+the fast route does so visibly. A call that starts several kernels
+(``ssd_scan`` "tc", ``int4_matmul`` "stream" with its split reduction)
+counts once.
 """
 from __future__ import annotations
 
@@ -41,6 +43,25 @@ def count_launch(op: str, route: Optional[str] = None) -> None:
     LAUNCHES[op] += 1
     if route is not None:
         ROUTE_LAUNCHES[op][route] = ROUTE_LAUNCHES[op].get(route, 0) + 1
+
+
+def on_one_cuda_device(*tensors) -> bool:
+    """True when every tensor lies on one CUDA device (what a kernel
+    wrapper asks before it launches)."""
+    dev = tensors[0].device
+    return dev.type == "cuda" and all(t.device == dev for t in tensors)
+
+
+def route_snapshot() -> dict:
+    """{op: {route: launches}} as they stand (a copy)."""
+    return {op: dict(r) for op, r in ROUTE_LAUNCHES.items()}
+
+
+def route_delta(before: dict, after: dict) -> dict:
+    """Launches per op and route between two :func:`route_snapshot` s
+    (routes that did not launch left out)."""
+    return {op: {r: n - before[op].get(r, 0) for r, n in after[op].items()
+                 if n != before[op].get(r, 0)} for op in after}
 
 
 def reset_launches() -> None:

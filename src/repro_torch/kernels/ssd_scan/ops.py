@@ -1,7 +1,17 @@
-"""Dispatching wrapper for the Mamba2 SSD chunked scan: the Hopper kernel
-(``csrc/ssd_scan.cu``) for a CUDA tensor, the plain chunked form
-(``ref.ssd_chunked``) for a CPU tensor (see ``kernels/dispatch.py``). Unlike the JAX wrapper,
-which halves the chunk until it divides T, the kernel masks the T tail."""
+"""Dispatching wrapper for the Mamba2 SSD chunked scan: a Hopper kernel for
+a CUDA tensor, the plain chunked form (``ref.ssd_chunked``) for a CPU
+tensor (see ``kernels/dispatch.py``). Two kernels, chosen by :func:`route`:
+
+  tc  — bf16 with 16-byte aligned pointers: chunk-parallel, on tensor
+        cores, in two launches (each chunk's own state, then the state pass
+        across chunks by the last block of each (b, h); each chunk's output;
+        ``csrc/ssd_scan_tc.cu``);
+  fma — everything else (fp32): one block per (b, h) walking the chunks
+        on CUDA cores (``csrc/ssd_scan.cu``).
+
+A call is one op launch in ``dispatch.LAUNCHES`` whatever the number of
+kernels it starts. Unlike the JAX wrapper, which halves the chunk until
+it divides T, the kernels mask the T tail."""
 from __future__ import annotations
 
 import ctypes
@@ -12,12 +22,35 @@ import torch
 from .. import _build, dispatch
 from .ref import ssd_chunked
 
-_DTYPES = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
+ROUTES = ("tc", "fma")
+_ENTRIES = {("fma", torch.float32): "ssd_scan_f32", ("fma", torch.bfloat16): "ssd_scan_bf16",
+            ("tc", torch.bfloat16): "ssd_scan_bf16_tc"}
 # (head_dim P, d_state N) pairs the kernel is instantiated for: the smoke
 # configs, zamba2-7b and mamba2-130m
 SHAPES = ((32, 16), (64, 64), (64, 128))
 MAX_CHUNK = 128
 _ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_TC_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def route(dtype: torch.dtype, ptrs=(), force: Optional[str] = None) -> str:
+    """The kernel for inputs x/Bm/Cm in ``dtype`` with data pointers
+    ``ptrs``: bf16 with 16-byte aligned pointers (every (P, N) of
+    ``SHAPES`` gives 16-byte rows) runs chunk-parallel on tensor cores,
+    "tc"; anything else the CUDA-core kernel, "fma". ``force`` names a
+    route to take instead; it raises where that route cannot take the
+    call, as does a dtype no kernel takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ssd: dtype {dtype} (want fp32 or bf16)")
+    which = "tc" if dtype == torch.bfloat16 and all(p % 16 == 0 for p in ptrs) else "fma"
+    if force is None:
+        return which
+    if force not in ROUTES:
+        raise ValueError(f"ssd: route {force!r} not in {ROUTES}")
+    if force == "tc" and which != "tc":
+        raise ValueError(f"ssd: route 'tc' does not take {dtype} at pointers "
+                         f"{[hex(p) for p in ptrs]}")
+    return force
 
 
 def ssd(x, dt, A, Bm, Cm, *, init=None, D=None, chunk: int = 128,
@@ -34,8 +67,11 @@ def ssd(x, dt, A, Bm, Cm, *, init=None, D=None, chunk: int = 128,
     return ssd_hopper(x, dt, A, Bm, Cm, init, D=D, chunk=chunk)
 
 
-def ssd_hopper(x, dt, A, Bm, Cm, init=None, *, D=None, chunk: int = 128):
-    """Launch the Hopper kernel (raises on what it does not take). The
+def ssd_hopper(x, dt, A, Bm, Cm, init=None, *, D=None, chunk: int = 128,
+               force_route: Optional[str] = None):
+    """Launch the Hopper kernel that :func:`route` picks, or
+    ``force_route`` (to time one route against another; a route that
+    cannot take the inputs raises, as does anything no kernel takes). The
     chunk is min(chunk, T) rows; the last chunk's tail is masked."""
     if Bm.dim() == 3:  # shared across heads == one group
         Bm, Cm = Bm[:, :, None], Cm[:, :, None]
@@ -62,23 +98,34 @@ def ssd_hopper(x, dt, A, Bm, Cm, init=None, *, D=None, chunk: int = 128):
         raise ValueError(f"ssd: chunk {L} above {MAX_CHUNK}")
     fp32 = [dt, A] + [t for t in (init, D) if t is not None]
     tensors = [x, Bm, Cm] + fp32
-    if not (x.is_cuda and all(t.device == x.device for t in tensors)):
+    if not dispatch.on_one_cuda_device(*tensors):
         raise ValueError("ssd: the kernel takes CUDA tensors on one device")
-    if x.dtype not in _DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype \
+    if x.dtype not in (torch.float32, torch.bfloat16) or Bm.dtype != x.dtype or Cm.dtype != x.dtype \
             or any(t.dtype != torch.float32 for t in fp32):
         raise TypeError(f"ssd: dtypes x {x.dtype}, Bm {Bm.dtype}, Cm {Cm.dtype}, "
                         f"dt/A/init/D {[t.dtype for t in fp32]} (want x/Bm/Cm fp32 "
                         "or bf16, dt/A/init/D fp32)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd: the kernel takes contiguous tensors")
+    which = route(x.dtype, [t.data_ptr() for t in tensors], force_route)
     y = torch.empty_like(x)
     fin = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    fn = _build.entry(_DTYPES[x.dtype], _ARGS)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    _build.check(fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                    Cm.data_ptr(), init.data_ptr() if init is not None else None,
-                    D.data_ptr() if D is not None else None, y.data_ptr(),
-                    fin.data_ptr(), B, T, H, G, P, N, L, stream),
-                 "ssd_scan")
-    dispatch.count_launch("ssd_scan")
+    ptrs = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            init.data_ptr() if init is not None else None,
+            D.data_ptr() if D is not None else None, y.data_ptr(), fin.data_ptr()]
+    if which == "tc":  # each chunk's state, then the state entering it; decays;
+        # the count of each (b, h)'s chunk blocks done
+        nc = -(-T // L)
+        st = torch.empty((B, nc, H, P, N), dtype=torch.float32, device=x.device)
+        dec = torch.empty((B, nc, H), dtype=torch.float32, device=x.device)
+        arrived = torch.zeros((B, H), dtype=torch.int32, device=x.device)
+        rc = _build.entry(_ENTRIES[which, x.dtype], _TC_ARGS)(
+            *ptrs, st.data_ptr(), dec.data_ptr(), arrived.data_ptr(), B, T, H, G, P, N, L,
+            stream)
+    else:
+        rc = _build.entry(_ENTRIES[which, x.dtype], _ARGS)(
+            *ptrs, B, T, H, G, P, N, L, stream)
+    _build.check(rc, f"ssd_scan ({which})")
+    dispatch.count_launch("ssd_scan", which)
     return y, fin

@@ -19,10 +19,10 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import SSMSpec  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.flash_attn import attention_ref, flash, flash_hopper  # noqa: E402
-from repro_torch.kernels.int4_matmul import (int4_matmul, int4_matmul_ref,  # noqa: E402
-                                             quantize_matmul_weight)
+from repro_torch.kernels.int4_matmul import (int4_matmul, int4_matmul_hopper,  # noqa: E402
+                                             int4_matmul_ref, quantize_matmul_weight)
 from repro_torch.kernels.moe_gmm import gmm, gmm_hopper, gmm_ref  # noqa: E402
-from repro_torch.kernels.ssd_scan import ssd, ssd_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd, ssd_hopper, ssd_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.mamba2 import ssd_chunked  # noqa: E402
 
@@ -370,3 +370,105 @@ def test_full_path_serve_through_kernels_matches_plain(cuda, arch, per_prefill):
     np.testing.assert_array_equal(hop["tokens"], ref["tokens"])
     torch.testing.assert_close(hop["prefill_logits"], ref["prefill_logits"],
                                rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("K,N,group", [(2048, 1024, 32), (1024, 2048, 32),
+                                       (2048, 1000, 32),  # ragged N: a tile's tail
+                                       (2048, 1024, 64), (1024, 1000, 64)])
+@pytest.mark.parametrize("M", [1, 4, 16, 17, 512])
+def test_int4_fast_routes_match_plain(cuda, M, K, N, group):
+    """bf16 takes the split-K weight stream ("stream") up to 16 rows and
+    the tensor-core tiles ("tc") above, within the bf16 tolerance of the
+    plain version; repeated runs give equal bits (the splits meet in a
+    fixed order); the forced CUDA-core route agrees too."""
+    x, (p, s, z) = _int4_inputs(M, K, N, group, torch.bfloat16, cuda)
+    want = "stream" if M <= 16 else "tc"
+    n0 = dispatch.ROUTE_LAUNCHES["int4_matmul"].get(want, 0)
+    out = int4_matmul(x, p, s, z, group=group)
+    again = int4_matmul(x, p, s, z, group=group)
+    torch.cuda.synchronize()
+    assert dispatch.ROUTE_LAUNCHES["int4_matmul"][want] == n0 + 2
+    ref = int4_matmul_ref(x, p, s, z, group)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+    assert torch.equal(out, again)
+    fma = int4_matmul_hopper(x, p, s, z, group, force_route="fma")
+    torch.testing.assert_close(fma.float(), ref.float(), **TOL[torch.bfloat16])
+
+
+def test_int4_cuda_core_route_takes_the_rest(cuda):
+    """fp32, N not a multiple of 8, small groups and misaligned pointers
+    stay on the CUDA-core kernel; forcing a fast route on them raises."""
+    fma0 = dispatch.ROUTE_LAUNCHES["int4_matmul"].get("fma", 0)
+    x32, (p, s, z) = _int4_inputs(4, 256, 64, 32, torch.float32, cuda)
+    int4_matmul(x32, p, s, z, group=32)
+    xb, (pb, sb, zb) = _int4_inputs(4, 192, 50, 64, torch.bfloat16, cuda)
+    int4_matmul(xb, pb, sb, zb, group=64)
+    xg, (pg, sg, zg) = _int4_inputs(3, 96, 40, 2, torch.bfloat16, cuda)
+    int4_matmul(xg, pg, sg, zg, group=2)
+    x = x32.bfloat16()
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+    shifted = flat[1:].view(x.shape)  # 2 bytes past a 16-byte boundary
+    shifted.copy_(x)
+    out = int4_matmul(shifted, p, s, z, group=32)
+    torch.cuda.synchronize()
+    assert dispatch.ROUTE_LAUNCHES["int4_matmul"]["fma"] == fma0 + 4
+    torch.testing.assert_close(out.float(), int4_matmul_ref(x, p, s, z, 32).float(),
+                               **TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="route"):
+        int4_matmul_hopper(shifted, p, s, z, 32, force_route="stream")
+    with pytest.raises(ValueError, match="route"):
+        int4_matmul_hopper(x32, p, s, z, 32, force_route="tc")
+
+
+@pytest.mark.parametrize("B,T,H,P,N,G,chunk,with_init", [
+    (4, 512, 112, 64, 64, 1, 128, False),  # zamba2-7b's prefill
+    (4, 512, 24, 64, 128, 1, 128, True),  # mamba2-130m's, with a carried-in state
+    (2, 300, 16, 64, 64, 2, 128, True),  # T tail, two groups
+    (2, 260, 8, 64, 128, 4, 128, False),  # T tail, four groups
+    (1, 20, 4, 64, 64, 1, 128, True),  # T below the chunk (and below 32)
+    (2, 70, 8, 32, 16, 1, 32, True),  # smoke shapes, ragged T
+    (2, 200, 8, 64, 64, 1, 64, False),  # a smaller chunk
+])
+def test_ssd_tensor_core_route_matches_plain(cuda, B, T, H, P, N, G, chunk, with_init):
+    """bf16 takes the chunk-parallel tensor-core route: y within the bf16
+    tolerance of the sequential recurrence, the final state within the
+    fp32 one; repeated runs give equal bits; the forced CUDA-core route
+    agrees too; one op launch per call."""
+    x, dt, A, Bm, Cm, init, D = _ssd_inputs(B, T, H, P, N, G, with_init,
+                                            torch.bfloat16, cuda)
+    n0 = dispatch.LAUNCHES["ssd_scan"]
+    t0 = dispatch.ROUTE_LAUNCHES["ssd_scan"].get("tc", 0)
+    y, fin = ssd(x, dt, A, Bm, Cm, init=init, D=D, chunk=chunk)
+    y2, fin2 = ssd(x, dt, A, Bm, Cm, init=init, D=D, chunk=chunk)
+    torch.cuda.synchronize()
+    assert dispatch.LAUNCHES["ssd_scan"] == n0 + 2
+    assert dispatch.ROUTE_LAUNCHES["ssd_scan"]["tc"] == t0 + 2
+    assert y.dtype == torch.bfloat16 and fin.dtype == torch.float32
+    yr, fr = ssd_scan_ref(x, dt, A, Bm, Cm, init, D=D)
+    torch.testing.assert_close(y.float(), yr.float(), **TOL_SSD[torch.bfloat16])
+    torch.testing.assert_close(fin, fr, **TOL_SSD[torch.float32])
+    assert torch.equal(y, y2) and torch.equal(fin, fin2)
+    yf, ff = ssd_hopper(x, dt, A, Bm, Cm, init, D=D, chunk=chunk, force_route="fma")
+    torch.testing.assert_close(yf.float(), yr.float(), **TOL_SSD[torch.bfloat16])
+    torch.testing.assert_close(ff, fr, **TOL_SSD[torch.float32])
+
+
+def test_ssd_cuda_core_route_takes_the_rest(cuda):
+    """fp32 and misaligned bf16 stay on the CUDA-core kernel; forcing the
+    tensor-core route on them raises."""
+    x, dt, A, Bm, Cm, init, D = _ssd_inputs(1, 40, 4, 64, 64, 1, True, torch.float32, cuda)
+    fma0 = dispatch.ROUTE_LAUNCHES["ssd_scan"].get("fma", 0)
+    ssd(x, dt, A, Bm, Cm, init=init, D=D)
+    xb, Bb, Cb = x.bfloat16(), Bm.bfloat16(), Cm.bfloat16()
+    flat = torch.empty(xb.numel() + 8, dtype=xb.dtype, device=cuda)
+    shifted = flat[1:1 + xb.numel()].view(xb.shape)  # 2 bytes past a 16-byte boundary
+    shifted.copy_(xb)
+    y, _ = ssd(shifted, dt, A, Bb, Cb, init=init, D=D)
+    torch.cuda.synchronize()
+    assert dispatch.ROUTE_LAUNCHES["ssd_scan"]["fma"] == fma0 + 2
+    yr, _ = ssd_scan_ref(xb, dt, A, Bb, Cb, init, D=D)
+    torch.testing.assert_close(y.float(), yr.float(), **TOL_SSD[torch.bfloat16])
+    with pytest.raises(ValueError, match="route"):
+        ssd_hopper(x, dt, A, Bm, Cm, init, D=D, force_route="tc")
+    with pytest.raises(ValueError, match="route"):
+        ssd_hopper(shifted, dt, A, Bb, Cb, init, D=D, force_route="tc")
