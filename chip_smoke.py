@@ -42,7 +42,21 @@ From the root of a checkout, with CUDA available:
    prefills on the same weights (``kernel_backend="ref"``): in fp32 first,
    then in bf16 within a fixed limit per model and against the plain
    path's own bf16 round-off (see ``FP32_LOGITS_REL_TOL``);
-7. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+7. frees those models, then serves full-width OLMoE-1B-7B whole on the
+   card (bf16, random weights from seed 0) through the continuous-batching
+   server, ``repro_torch.serving.ContinuousBatchingServer`` (fcfs, 4 slots,
+   8 requests of 128 prompt tokens arriving at once, budgets 8, 32, 16, 24
+   twice over, so slots free and refill mid-flight), counters set to 0
+   after the server's constructor (its warm-up launches kernels too), just
+   before ``run``. It asserts the launches (``flash_attn`` 16 per prefill
+   on "tc"; ``moe_gmm`` 48 per prefill on "tc" and 48 per decode step on
+   "stream"), holds the first request's prefill logits against the plain
+   versions (``LOGITS_REL_TOL``), and, with the weights in fp32, that the
+   server gives 4 of the requests the tokens of ``ServingEngine`` at batch
+   1 (the bf16 agreement is printed, not gated); it prints throughput,
+   latency, TTFT, ms per decode step and peak memory against the weight
+   bytes;
+8. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -198,8 +212,6 @@ def route_of(op, fn):
 
 
 def gmm_cases(gen):
-    from repro_torch.kernels.moe_gmm import gmm_hopper, gmm_ref
-
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         for N in (1, 4, 512):
@@ -213,37 +225,59 @@ def gmm_cases(gen):
                           < sizes[:, None, None])).to(dtype)
                 b = (torch.randn(E, K, F, generator=gen, device="cuda")
                      * K**-0.5).to(dtype)
-                label = f"gmm {str(dtype)[6:]} a({E},{N},{K}) b({E},{K},{F})"
-                out = gmm_hopper(a, b, sizes)
-                ref = gmm_ref(a, b)
-                torch.cuda.synchronize()
-                err = check(label, out, ref, TOL[dtype])
-                for e, s in enumerate(sizes.tolist()):  # zero tails exactly zero
-                    if out[e, s:].any():
-                        raise AssertionError(f"{label}: group {e} tail not zero")
-                if not torch.equal(out, gmm_hopper(a, b, sizes)):
-                    raise AssertionError(f"{label}: a repeated run gave other bits")
-                which = route_of("moe_gmm", lambda: gmm_hopper(a, b, sizes))
-                fma = {}
-                if which != "fma":  # the kept CUDA-core kernel at the same case
-                    err_fma = check(label + " fma", gmm_hopper(a, b, sizes, force_route="fma"),
-                                    ref, TOL[dtype])
-                    fma = {"fma_ms": time_ms(lambda: gmm_hopper(a, b, sizes,
-                                                                force_route="fma")),
-                           "max_abs_err_fma": err_fma}
-                active = sizes > 0
-                rows = int(sizes.sum())
-                it = a.element_size()
-                nbytes = (rows * K + int(active.sum()) * K * F + E * N * F) * it
-                t_bound, by = bound(nbytes, 2.0 * rows * K * F, dtype)
-                cases.append({
-                    "case": label, "route": which, "max_abs_err": err, "tol": TOL[dtype],
-                    "ms": time_ms(lambda: gmm_hopper(a, b, sizes)), **fma,
-                    "eager_ms": time_ms(lambda: gmm_hopper(a, b, sizes), graph=False),
-                    "plain_ms": time_ms(lambda: gmm_ref(a, b), graph=False),
-                    "library_ms": time_ms(lambda: torch.bmm(a, b)),
-                    "bound_ms": t_bound, "bound_by": by})
+                cases.append(gmm_case(a, b, sizes, dtype))
+        # the full-model path's MoE layer (E = 64, top-8, zero_drop): the
+        # decode pool's 4 rows and one 128-token prefill, with the group
+        # sizes a real route gives
+        for M in (4, 128):
+            eids = torch.randn(M, 64, generator=gen, device="cuda").topk(8, dim=-1).indices
+            sizes = torch.bincount(eids.reshape(-1), minlength=64).to(torch.int32)
+            for K, F in ((2048, 1024), (1024, 2048)):
+                a = torch.randn(64, M, K, generator=gen, device="cuda")
+                a = (a * (torch.arange(M, device="cuda")[None, :, None]
+                          < sizes[:, None, None])).to(dtype)
+                b = (torch.randn(64, K, F, generator=gen, device="cuda") * K**-0.5).to(dtype)
+                cases.append(gmm_case(a, b, sizes, dtype))
     return cases
+
+
+def gmm_case(a, b, sizes, dtype) -> dict:
+    """One moe_gmm case: the kernel against the plain version and
+    ``torch.bmm``, its route, the CUDA-core route beside a fast one."""
+    from repro_torch.kernels.moe_gmm import gmm_hopper, gmm_ref
+
+    E, N, K = a.shape
+    F = b.shape[2]
+    label = f"gmm {str(dtype)[6:]} a({E},{N},{K}) b({E},{K},{F})"
+    out = gmm_hopper(a, b, sizes)
+    ref = gmm_ref(a, b)
+    torch.cuda.synchronize()
+    err = check(label, out, ref, TOL[dtype])
+    for e, s in enumerate(sizes.tolist()):  # zero tails exactly zero
+        if out[e, s:].any():
+            raise AssertionError(f"{label}: group {e} tail not zero")
+    if not torch.equal(out, gmm_hopper(a, b, sizes)):
+        raise AssertionError(f"{label}: a repeated run gave other bits")
+    which = route_of("moe_gmm", lambda: gmm_hopper(a, b, sizes))
+    fma = {}
+    if which != "fma":  # the kept CUDA-core kernel at the same case
+        err_fma = check(label + " fma", gmm_hopper(a, b, sizes, force_route="fma"),
+                        ref, TOL[dtype])
+        fma = {"fma_ms": time_ms(lambda: gmm_hopper(a, b, sizes,
+                                                    force_route="fma")),
+               "max_abs_err_fma": err_fma}
+    active = sizes > 0
+    rows = int(sizes.sum())
+    it = a.element_size()
+    nbytes = (rows * K + int(active.sum()) * K * F + E * N * F) * it
+    t_bound, by = bound(nbytes, 2.0 * rows * K * F, dtype)
+    return {
+        "case": label, "route": which, "max_abs_err": err, "tol": TOL[dtype],
+        "ms": time_ms(lambda: gmm_hopper(a, b, sizes)), **fma,
+        "eager_ms": time_ms(lambda: gmm_hopper(a, b, sizes), graph=False),
+        "plain_ms": time_ms(lambda: gmm_ref(a, b), graph=False),
+        "library_ms": time_ms(lambda: torch.bmm(a, b)),
+        "bound_ms": t_bound, "bound_by": by}
 
 
 def flash_cases(gen):
@@ -252,6 +286,7 @@ def flash_cases(gen):
 
     cases = []
     shapes = [(4, 128, 16, 1, 128, None, None), (4, 100, 16, 1, 128, None, None),
+              (1, 128, 16, 1, 128, None, None),  # the continuous server's prefill
               (4, 128, 8, 2, 64, None, None), (4, 128, 16, 1, 128, 50.0, 32),
               (4, 512, 32, 1, 112, None, None)]  # zamba2-7b's shared attention
     for dtype in (torch.bfloat16, torch.float32):
@@ -534,6 +569,141 @@ def serve_full(arch: str, n_ssd: int, n_flash: int) -> dict:
     return rep
 
 
+# The continuous-batching phase: 8 requests of 128 prompt tokens, budgets
+# cycling so that slots free and refill mid-flight, 4 slots, fcfs.
+SERVE_PROMPT, SERVE_BUDGETS, SERVE_SLOTS = 128, (8, 32, 16, 24) * 2, 4
+# per prefill (16 attn_moe layers, one request, zero_drop: cap = 128 rows)
+# and per decode step over the pool (4 rows): one flash per layer in
+# prefill, three gmm per layer in both
+CONT_PER_PREFILL = {"flash_attn": ("tc", 16), "moe_gmm": ("tc", 48)}
+CONT_PER_DECODE_STEP = {"moe_gmm": ("stream", 48)}
+# fp32 token identity of the continuous server against batch-1 serving, on
+# the 4 requests admitted into freed slots mid-flight
+TOKEN_GATE_RIDS = (4, 5, 6, 7)
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def serve_continuous() -> dict:
+    """Serve full-width OLMoE-1B-7B whole on the card through the port's
+    ``ContinuousBatchingServer`` (bf16, random weights from seed 0): launch
+    totals per route, the first request's prefill logits against the plain
+    versions, and, in fp32, the server's tokens against ``ServingEngine``
+    at batch 1 for the requests ``TOKEN_GATE_RIDS``."""
+    from repro_torch.configs import get_config
+    from repro_torch.inference import Request, ServingEngine
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import init_params, prefill
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.serving import (ContinuousBatchingServer, RequestQueue,
+                                     ServeRequest, get_scheduler)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("olmoe")
+    dev = torch.device("cuda")
+    n = len(SERVE_BUDGETS)
+    prompts = make_prompts(cfg.vocab, n, SERVE_PROMPT)
+    max_len = SERVE_PROMPT + max(SERVE_BUDGETS) + 1
+
+    def serve(params):
+        srv = ContinuousBatchingServer(cfg, params, n_slots=SERVE_SLOTS, max_len=max_len,
+                                       scheduler=get_scheduler("fcfs"))
+        torch.cuda.synchronize()
+        dispatch.reset_launches()  # after the constructor's warm-up launches
+        results, mt = srv.run(RequestQueue([
+            ServeRequest(rid=i, prompt=prompts[i], max_new_tokens=SERVE_BUDGETS[i])
+            for i in range(n)]))
+        return srv, results, mt
+
+    def same_as_batch1(params, results):
+        eng = ServingEngine(cfg, params, max_batch=1)
+        return [bool(np.array_equal(results[i].tokens, eng.generate_batch(
+            [Request(prompts[i], SERVE_BUDGETS[i])])[0].tokens)) for i in TOKEN_GATE_RIDS]
+
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    weight_bytes = _tree_bytes(params)
+    torch.cuda.reset_peak_memory_stats(dev)
+    srv, results, mt = serve(params)
+    launches = dict(dispatch.LAUNCHES)
+    routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = {op: {} for op in FAST_ROUTES}
+    for op, (route, k) in CONT_PER_PREFILL.items():
+        want[op][route] = want[op].get(route, 0) + k * n
+    for op, (route, k) in CONT_PER_DECODE_STEP.items():
+        want[op][route] = want[op].get(route, 0) + k * mt.decode_steps
+    if routes != want or any(launches[op] != sum(r.values()) for op, r in want.items()):
+        raise AssertionError(f"continuous olmoe: launches {launches} by route {routes}, "
+                             f"want {want} ({mt.decode_steps} decode steps)")
+    print(f"continuous olmoe: launches {launches}, routes {routes} over {n} prefills and "
+          f"{mt.decode_steps} decode steps")
+    toks = [r.tokens for r in results]
+    if [len(t) for t in toks] != list(SERVE_BUDGETS) or any(
+            r.finish_reason != "length" for r in results):
+        raise AssertionError(f"continuous olmoe: token counts {[len(t) for t in toks]}, "
+                             f"want {SERVE_BUDGETS}")
+    summ = mt.summary()
+    steps = srv.span_s["serve.decode_step"]
+    stats = {
+        "requests": summ["requests"], "decode_steps": mt.decode_steps,
+        "generated_tokens": mt.generated_tokens, "prefill_tokens": mt.prefill_tokens,
+        "throughput_tok_s": summ["throughput_tok_s"], "latency_p50_s": summ["latency_p50"],
+        "latency_p99_s": summ["latency_p99"], "ttft_p50_s": summ["ttft_p50"],
+        "ttft_p99_s": float(np.percentile(np.asarray(mt.ttfts), 99)),
+        "ms_per_decode_step": 1e3 * float(np.mean(steps)),
+        "ms_per_decode_step_p50": 1e3 * float(np.median(steps)),
+        "ms_per_prefill": 1e3 * float(np.mean(srv.span_s["serve.prefill"])),
+        "slot_occupancy": summ["slot_occupancy"], "wall_time_s": mt.wall_time,
+        "max_memory_allocated": peak, "weight_bytes": weight_bytes,
+    }
+    print("continuous olmoe serve:", json.dumps(stats))
+
+    x = torch.as_tensor(prompts[:1], dtype=torch.long, device=dev)
+
+    def first_logits(backend):
+        with torch.inference_mode():
+            lg, _ = prefill(params, cfg, x, Runtime(kernel_backend=backend, device=dev,
+                                                    zero_drop=True), n_slots=max_len)
+        return lg[:, -1].float().cpu()
+
+    kern, plain = first_logits("auto"), first_logits("ref")
+    rel = ((kern - plain).norm() / plain.norm()).item()
+    print(f"continuous olmoe first prefill logits kernel vs plain: rel {rel:.4g} (tol "
+          f"{LOGITS_REL_TOL}), top-1 agree {bool(kern.argmax() == plain.argmax())}")
+    if not (math.isfinite(rel) and rel <= LOGITS_REL_TOL):
+        raise AssertionError(f"continuous olmoe: prefill logits disagree: rel {rel}")
+
+    k = len(TOKEN_GATE_RIDS)
+    bf16_same = same_as_batch1(params, results)
+    print(f"continuous olmoe bf16: server tokens equal batch-1 serving for "
+          f"{sum(bf16_same)}/{k} of rids {TOKEN_GATE_RIDS} (printed, not gated)")
+    p32 = _tree_float(params)
+    del params, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, res32, _ = serve(p32)
+    same32 = same_as_batch1(p32, res32)
+    print(f"continuous olmoe fp32: server tokens equal batch-1 serving for "
+          f"{sum(same32)}/{k} of rids {TOKEN_GATE_RIDS}")
+    if not all(same32):
+        raise AssertionError(f"continuous olmoe fp32: server tokens differ from batch-1 "
+                             f"serving: {same32}")
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats.update(launches_total=launches, route_launches=routes, logits_rel=rel,
+                 bf16_token_identity=bf16_same, fp32_token_identity=same32,
+                 phase_s=time.perf_counter() - t_phase)
+    print(f"continuous olmoe phase: {stats['phase_s']:.1f} s")
+    return stats
+
+
 def _tree_float(tree):
     if isinstance(tree, dict):
         return {k: _tree_float(v) for k, v in tree.items()}
@@ -684,6 +854,9 @@ def main() -> int:
     z_rep = serve_full("zamba2-7b", n_ssd=68, n_flash=13)
     m_rep = serve_full("mamba2-130m", n_ssd=24, n_flash=0)
 
+    # ---- the continuous-batching server: olmoe whole on the card
+    c_rep = serve_continuous()
+
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
@@ -708,9 +881,11 @@ def main() -> int:
                      fma_source="src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"),
     ]
     paths = {"bf16": launches, "int4": q_launches,
-             "zamba2-7b": z_rep["launches_total"], "mamba2-130m": m_rep["launches_total"]}
+             "zamba2-7b": z_rep["launches_total"], "mamba2-130m": m_rep["launches_total"],
+             "continuous-olmoe": c_rep["launches_total"]}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
-              "mamba2-130m": m_rep["route_launches"]}
+              "mamba2-130m": m_rep["route_launches"],
+              "continuous-olmoe": c_rep["route_launches"]}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

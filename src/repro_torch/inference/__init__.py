@@ -1,4 +1,5 @@
 from .engine import Completion, Request, ServingEngine, truncate_at_stop
-from .sampling import greedy
+from .sampling import greedy, row_generator, sample, sample_per_row
 
-__all__ = ["Completion", "Request", "ServingEngine", "truncate_at_stop", "greedy"]
+__all__ = ["Completion", "Request", "ServingEngine", "truncate_at_stop", "greedy",
+           "row_generator", "sample", "sample_per_row"]

@@ -1,11 +1,12 @@
 """Batched serving engine over the full model (fits-in-memory path),
 counterpart of ``repro/inference/engine.py``: static batching, left
-padding, one prefill, then greedy decode steps.
+padding, one prefill, then decode steps, greedy or sampled per row, with
+optional MELINOE router-probe collection (``collect_probs``).
 
 The memory-constrained path is ``core.offload_engine.OffloadedMoEEngine``.
-Temperature sampling and router-probe collection (``collect_probs``)
-raise for now: the reference samples with ``jax.random``, and router
-probes need the ``attn_moe`` blocks of the full-model path.
+Sampled rows draw from ``sampling.row_generator(seed, row, step)``: the
+reference's ``jax.random`` stream cannot be reproduced, so sampled tokens
+are the port's own (greedy ones are the reference's).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..models.model import decode_step, prefill
 from ..models.runtime import Runtime
-from .sampling import greedy
+from .sampling import greedy, row_generator, sample_per_row
 
 
 @dataclass
@@ -32,7 +33,7 @@ class Request:
 @dataclass
 class Completion:
     tokens: np.ndarray
-    router_probs: Optional[np.ndarray] = None  # (L, T_gen, E); not collected yet
+    router_probs: Optional[np.ndarray] = None  # (L, T_gen, E)
     finish_reason: str = "length"  # "stop" | "length"
 
 
@@ -55,7 +56,7 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
-        self.rt = rt or Runtime(device=self.device)
+        self.rt = rt or Runtime(device=self.device, zero_drop=True)
         self.max_batch = max_batch
         self.window_override = window_override
 
@@ -64,13 +65,10 @@ class ServingEngine:
                        collect_probs: bool = False, seed: int = 0) -> List[Completion]:
         """Static batching: left-pad prompts to a common length (with token
         0, unmasked, as the reference does), prefill once, decode to the
-        max requested length. ``seed`` is unused until sampling is ported."""
-        if collect_probs:
-            raise NotImplementedError("generate_batch: collect_probs needs attn_moe "
-                                      "in the full-model path")
-        if any(r.temperature > 0 for r in requests):
-            raise NotImplementedError("generate_batch: temperature sampling is not "
-                                      "ported yet (greedy only)")
+        max requested length. The first token is greedy; after it a row
+        with ``temperature`` > 0 samples, keyed by (``seed``, row, step).
+        ``collect_probs`` gives each completion the router distributions
+        of its decode steps, (L, max_new - 1, E)."""
         assert len(requests) <= self.max_batch
         B = len(requests)
         lens = [len(r.prompt) for r in requests]
@@ -84,16 +82,31 @@ class ServingEngine:
         logits, cache = prefill(self.params, self.cfg,
                                 torch.as_tensor(toks, device=self.device), self.rt,
                                 n_slots=n_slots, window_override=self.window_override)
+        temps = np.asarray([r.temperature for r in requests], np.float32)
         cur = greedy(logits)
         outs = [cur]
-        for _ in range(max_new - 1):
-            logits, cache, _ = decode_step(self.params, self.cfg, cur, cache, self.rt,
-                                           window_override=self.window_override)
-            cur = greedy(logits)
+        probs_steps = []
+        for step in range(1, max_new):
+            logits, cache, aux = decode_step(self.params, self.cfg, cur, cache, self.rt,
+                                             window_override=self.window_override,
+                                             collect_probs=collect_probs)
+            if collect_probs and aux["probs"]:
+                # aux["probs"]: list of (R, B, 1, E) -> (B, L, E)
+                p = torch.cat([a[:, :, 0] for a in aux["probs"]], dim=0)
+                probs_steps.append(p.transpose(0, 1).float().cpu().numpy())
+            if np.any(temps > 0):
+                cur = sample_per_row(logits, temps,
+                                     [row_generator(seed, i, step) for i in range(B)])
+            else:
+                cur = greedy(logits)
             outs.append(cur)
         gen = torch.cat(outs, dim=1).cpu().numpy().astype(np.int32)  # (B, max_new)
         completions = []
         for i, r in enumerate(requests):
+            rp = None
+            if collect_probs and probs_steps:
+                rp = np.stack([p[i] for p in probs_steps], axis=1)  # (L, T_gen, E)
             toks_i, reason = truncate_at_stop(gen[i, : r.max_new_tokens], r.stop_tokens)
-            completions.append(Completion(tokens=toks_i, finish_reason=reason))
+            completions.append(Completion(tokens=toks_i, router_probs=rp,
+                                          finish_reason=reason))
         return completions

@@ -1,5 +1,5 @@
 """Serving launcher, PyTorch: offloaded MoE serving (post-deployment
-stage, Sec 3.2), or the full-model path for a model without a router.
+stage, Sec 3.2), or the full-model path with the whole model resident.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe \
         --capacity 16 --policy gamma --batch 4 --prompt-len 128 --max-new 32 \
@@ -8,11 +8,13 @@ stage, Sec 3.2), or the full-model path for a model without a router.
         --batch 4 --prompt-len 512 --max-new 32
 
 A MoE architecture goes through ``run`` (below); an SSM, hybrid or dense
-one through ``run_full``: random weights from ``--seed`` resident on the
-device, one prefill (``models.model.prefill``, where the Mamba2 layers
-launch the ``ssd_scan`` kernel and attention the ``flash_attn`` kernel)
-and a greedy ``decode_step`` loop, each timed to a device synchronize,
-with the launches of each phase and the peak device memory.
+one through ``run_full``, which also takes a MoE one (served whole from
+the command line by ``launch.bench_serve``): random weights from ``--seed`` resident on the device, one
+prefill (``models.model.prefill``, where the Mamba2 layers launch the
+``ssd_scan`` kernel, attention the ``flash_attn`` kernel and the MoE
+layers ``moe_gmm``) and a greedy ``decode_step`` loop, each timed to a
+device synchronize, with the launches of each phase and the peak device
+memory.
 
 Random weights from ``--seed`` (no checkpoint loader yet), the slab
 offload engine with the cache policy and capacity C, batched greedy
@@ -126,14 +128,12 @@ def _sync(dev) -> None:
 def run_full(arch: str, *, batch: int = 2, prompt_len: int = 32, max_new: int = 64,
              dtype=None, device=None, seed: int = 0, kernel_backend: str = "auto",
              keep_params: bool = False) -> dict:
-    """Serve one batch of a model without a router through the full-model
-    path and return the report (scalars, the launches of each phase,
+    """Serve one batch through the full-model path, the whole model
+    resident on the device, and return the report (scalars, the launches of each phase,
     ``tokens`` (B, max_new) and the last prompt position's
     ``prefill_logits`` (B, V)). ``keep_params`` puts the weights into the
     report under ``params``."""
     cfg = get_config(arch)
-    if cfg.has_router:
-        raise ValueError("a MoE architecture is served offloaded (run)")
     dev = resolve_device(device)
     dt = cdtype(dtype or cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -1,12 +1,15 @@
 """Block zoo: init/apply for each block kind, full-sequence and decode
 (counterpart of ``repro/models/blocks.py``, single device).
 
-``attn_moe`` blocks are initialized here (the offload engine walks them
-itself), but the full-model path does not apply them yet: that needs
-``moe.make_dispatch``/``apply_moe``, which wait for their own slice.
+An ``attn_moe`` block runs its MoE FFN through ``moe.apply_moe`` (the
+local path, ``moe_gmm`` for the expert products); with ``want_probs`` its
+aux carries the router distribution (B, T, E). Decode forces
+``zero_drop``, as the reference does. LoRA adapters raise until their
+slice is ported.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -18,7 +21,7 @@ from .common import rms_norm, rms_norm_init
 from .mamba2 import (MambaState, apply_mamba_decode, apply_mamba_full, conv_dim,
                      init_mamba)
 from .mlp import apply_mlp, init_mlp
-from .moe import init_moe
+from .moe import apply_moe, init_moe, router_probs
 from .runtime import Runtime
 
 
@@ -50,19 +53,30 @@ def effective_window(b: BlockSpec, window_override: Optional[int]) -> Optional[i
     return w
 
 
-def _no_moe(b: BlockSpec) -> None:
-    if b.kind == "attn_moe":
-        raise NotImplementedError(
-            "attn_moe blocks in the full-model path need make_dispatch/apply_moe, "
-            "not ported yet; MoE models are served by core.offload_engine")
+def _ffn(params, b: BlockSpec, h2, rt: Runtime, aux: dict, want_probs: bool,
+         lora, lora_scale: float):
+    """The block's FFN on h2 (B, T, d): the MoE layer for ``attn_moe`` (its
+    router distribution into ``aux["probs"]`` when ``want_probs``), else
+    the dense MLP."""
+    if b.kind != "attn_moe":
+        return apply_mlp(params["ffn"], h2)
+    B, T, dm = h2.shape
+    h2f = h2.reshape(B * T, dm)
+    probs = router_probs(params["ffn"], h2f, b.moe)
+    y2, _ = apply_moe(params["ffn"], h2f, b.moe, rt, lora=lora, lora_scale=lora_scale,
+                      probs=probs)
+    if want_probs:
+        aux["probs"] = probs.reshape(B, T, -1)
+    return y2.reshape(B, T, dm)
 
 
 def apply_block_full(params, cfg: ModelConfig, b: BlockSpec, x, positions, rt: Runtime,
                      *, window_override: Optional[int] = None, want_cache: bool = False,
-                     cache_slots: int = 0) -> tuple:
+                     cache_slots: int = 0, want_probs: bool = False, lora=None,
+                     lora_scale: float = 1.0) -> tuple:
     """Full-sequence (prefill) application. x (B, T, d). Returns (x, aux);
-    ``aux["kv"]`` is the block's cache when ``want_cache``."""
-    _no_moe(b)
+    ``aux["kv"]`` is the block's cache when ``want_cache``, ``aux["probs"]``
+    an ``attn_moe`` block's router distribution when ``want_probs``."""
     aux = {}
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
     if b.kind == "mamba":
@@ -82,25 +96,29 @@ def apply_block_full(params, cfg: ModelConfig, b: BlockSpec, x, positions, rt: R
         y = attend_full(params["mixer"], b.attn, h, positions, w, rt=rt)
     x = x + y
     h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
-    return x + apply_mlp(params["ffn"], h2), aux
+    return x + _ffn(params, b, h2, rt, aux, want_probs, lora, lora_scale), aux
 
 
 def apply_block_decode(params, cfg: ModelConfig, b: BlockSpec, x, cache, pos,
-                       rt: Runtime, *, window_override: Optional[int] = None) -> tuple:
-    """Single-token step. x (B, 1, d); cache is this block's state.
-    Returns (x, new cache, aux); an attention block's KV cache is updated
-    in place and returned."""
-    _no_moe(b)
+                       rt: Runtime, *, window_override: Optional[int] = None,
+                       want_probs: bool = False, lora=None,
+                       lora_scale: float = 1.0) -> tuple:
+    """Single-token step. x (B, 1, d); cache is this block's state; pos an
+    int or a (B,) tensor of per-row positions. Returns (x, new cache,
+    aux); an attention block's KV cache is updated in place and returned."""
+    aux = {}
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
     if b.kind == "mamba":
         y, new_state = apply_mamba_decode(params["mixer"], h, cache, b.ssm)
-        return x + y, new_state, {}
+        return x + y, new_state, aux
 
     w = effective_window(b, window_override)
     y, new_cache = decode_attend(params["mixer"], b.attn, h, cache, pos, w)
     x = x + y
     h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
-    return x + apply_mlp(params["ffn"], h2), new_cache, {}
+    rt_d = rt if rt.zero_drop else dataclasses.replace(rt, zero_drop=True)
+    return (x + _ffn(params, b, h2, rt_d, aux, want_probs, lora, lora_scale),
+            new_cache, aux)
 
 
 def init_block_cache(cfg: ModelConfig, b: BlockSpec, batch: int, n_slots: int,

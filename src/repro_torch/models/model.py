@@ -17,8 +17,13 @@ A ``shared_attn`` position has no entry under its group: every
 occurrence uses ``params["shared"]``.
 
 Cache dict (``init_cache``/``prefill``): ``{"pos": int, "g0": {"p0":
-KVCache or MambaState with leaves stacked over repeats}}``. Unlike the
-JAX version, ``decode_step`` updates the cache in place and returns it.
+KVCache or MambaState with leaves stacked over repeats}}``; ``pos`` may
+also be a (B,) int tensor, every row at its own position (the
+continuous-batching server's slot pool). Unlike the JAX version,
+``decode_step`` updates the cache in place and returns it.
+
+Router probes (``collect_probs``) come back in the JAX layout: a list of
+(R, B, T, E) router distributions, one per (group, MoE position).
 """
 from __future__ import annotations
 
@@ -110,35 +115,43 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
                 cache_slots: int = 0, window_override: Optional[int] = None,
                 lora=None, remat: bool = False):
     """tokens (B, T) -> (logits (B, T, V) fp32, aux); ``aux["cache"]``
-    holds the per-group stacked block caches when ``want_cache``.
+    holds the per-group stacked block caches when ``want_cache``,
+    ``aux["probs"]`` the router distributions when ``collect_probs``.
 
-    Tokens only: ``prefix_embed``, ``melinoe``, ``collect_probs``,
-    ``lora`` and ``remat`` raise until their slices are ported."""
+    Tokens only: ``prefix_embed``, ``melinoe``, ``lora`` and ``remat``
+    raise until their slices are ported."""
     unported = {"prefix_embed": prefix_embed is not None, "melinoe": melinoe is not None,
-                "collect_probs": collect_probs, "lora": lora is not None, "remat": remat}
+                "lora": lora is not None, "remat": remat}
     if any(unported.values()):
         raise NotImplementedError(
             f"apply_model: {[k for k, v in unported.items() if v]} not ported yet")
     x = embed_tokens(params, cfg, tokens)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
-    cache = {}
+    cache, probs_out = {}, []
     for gi, g in enumerate(cfg.layout):
         gparams = params["groups"][f"g{gi}"]
         kv = [[] for _ in g.pattern]
+        probs = [[] for _ in g.pattern]
         for r in range(g.repeats):
             for pi, bname in enumerate(g.pattern):
                 b = cfg.block_defs[bname]
                 x, aux = apply_block_full(
                     _block_params(params, gparams, b, pi, r), cfg, b, x, positions, rt,
                     window_override=window_override, want_cache=want_cache,
-                    cache_slots=cache_slots)
+                    cache_slots=cache_slots,
+                    want_probs=collect_probs and b.moe is not None)
                 if want_cache:
                     kv[pi].append(aux["kv"])
+                if "probs" in aux:
+                    probs[pi].append(aux["probs"])
         if want_cache:
             cache[f"g{gi}"] = {f"p{pi}": _stack(c) for pi, c in enumerate(kv)}
+        probs_out += [torch.stack(p) for p in probs if p]
     logits = compute_logits(params, cfg, x)
     aux = {}
+    if collect_probs:
+        aux["probs"] = probs_out
     if want_cache:
         cache["pos"] = T
         aux["cache"] = cache
@@ -178,24 +191,32 @@ def init_cache(cfg: ModelConfig, batch: int, n_slots: int, dtype=None,
 def decode_step(params, cfg: ModelConfig, tokens, cache, rt: Runtime, *,
                 window_override: Optional[int] = None, collect_probs: bool = False,
                 lora=None):
-    """One autoregressive step. tokens (B, 1). Returns (logits (B,1,V),
-    cache, aux); the cache is updated in place."""
-    if collect_probs or lora is not None:
-        raise NotImplementedError("decode_step: collect_probs and lora are not "
-                                  "ported yet")
+    """One autoregressive step. tokens (B, 1); ``cache["pos"]`` an int (the
+    batch in lockstep) or a (B,) tensor (per-row positions). Returns
+    (logits (B,1,V), cache, aux); the cache is updated in place, and
+    ``aux["probs"]`` holds the router distributions when ``collect_probs``."""
+    if lora is not None:
+        raise NotImplementedError("decode_step: lora is not ported yet")
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens)
+    probs_out = []
     for gi, g in enumerate(cfg.layout):
         gparams, gcache = params["groups"][f"g{gi}"], cache[f"g{gi}"]
+        probs = [[] for _ in g.pattern]
         for r in range(g.repeats):
             for pi, bname in enumerate(g.pattern):
                 b = cfg.block_defs[bname]
                 c = _index(gcache[f"p{pi}"], r)  # views into the stacked cache
-                x, new_c, _ = apply_block_decode(
+                x, new_c, aux = apply_block_decode(
                     _block_params(params, gparams, b, pi, r), cfg, b, x, c, pos, rt,
-                    window_override=window_override)
+                    window_override=window_override,
+                    want_probs=collect_probs and b.moe is not None)
                 for dst, src in zip(c, new_c):
                     if src.data_ptr() != dst.data_ptr():
                         dst.copy_(src)
+                if "probs" in aux:
+                    probs[pi].append(aux["probs"])
+        probs_out += [torch.stack(p) for p in probs if p]
     cache["pos"] = pos + 1
-    return compute_logits(params, cfg, x), cache, {}
+    return compute_logits(params, cfg, x), cache, (
+        {"probs": probs_out} if collect_probs else {})

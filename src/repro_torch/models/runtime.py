@@ -24,6 +24,7 @@ class Runtime:
     kernel_backend: str = "auto"  # "ref" | "hopper" | "auto", optionally per
     # op ("auto,flash_attn=ref"); REPRO_TORCH_KERNEL_BACKEND overrides it
     device: torch.device = torch.device("cpu")
+    zero_drop: bool = False  # MoE capacity large enough for zero token drops
 
     def kernel_choice(self, op: str) -> bool:
         """True when ``op`` launches its Hopper kernel on this device."""

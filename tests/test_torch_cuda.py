@@ -472,3 +472,80 @@ def test_ssd_cuda_core_route_takes_the_rest(cuda):
         ssd_hopper(x, dt, A, Bm, Cm, init, D=D, force_route="tc")
     with pytest.raises(ValueError, match="route"):
         ssd_hopper(shifted, dt, A, Bb, Cb, init, D=D, force_route="tc")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [4, 13, 100, 128])
+def test_expert_ffn_kernel_matches_plain_at_olmoe_width(cuda, dtype, M):
+    """The full-model MoE layer's expert FFN at OLMoE's widths (E = 64,
+    d 2048, d_ff 1024), on a real dispatch: M tokens routed top-8 with
+    zero_drop (cap = M: the decode pool's 4 rows, the prefill's 128, and
+    two counts that are no multiple of 16), ``group_sizes`` from the
+    dispatch. Three gmm launches on the bf16 route the shape picks."""
+    from repro_torch.configs.base import MoESpec
+    from repro_torch.models import moe
+    from repro_torch.models.runtime import Runtime
+
+    spec = MoESpec(num_experts=64, top_k=8, d_ff=1024)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = {n: (torch.randn(64, i, o, generator=gen, device=cuda) * i**-0.5).to(dtype)
+              for n, (i, o) in (("wg", (2048, 1024)), ("wu", (2048, 1024)),
+                                ("wd", (1024, 2048)))}
+    x = torch.randn(M, 2048, generator=gen, device=cuda).to(dtype)
+    gates, eids = moe.top_k_route(torch.softmax(torch.randn(M, 64, generator=gen,
+                                                            device=cuda), -1), 8)
+    d = moe.make_dispatch(gates, eids, spec, M)
+    sizes = moe.group_sizes(d, 64)
+    assert int(sizes.sum()) == 8 * M
+    buf = moe.dispatch_tokens(d, x, 64)
+    before = dispatch.route_snapshot()
+    out = moe.expert_ffn(params, buf, Runtime(device=cuda), sizes=sizes)
+    routes = dispatch.route_delta(before, dispatch.route_snapshot())["moe_gmm"]
+    want = "fma" if dtype == torch.float32 else ("stream" if M <= 16 else "tc")
+    assert routes == {want: 3}, routes
+    ref = moe.expert_ffn(params, buf, Runtime(kernel_backend="ref", device=cuda))
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    past = torch.arange(M, device=cuda)[None, :] >= sizes[:, None]
+    assert not out[past].any()
+    torch.testing.assert_close(moe.combine_tokens(d, out).float(),
+                               moe.combine_tokens(d, ref).float(), **TOL[dtype])
+
+
+def test_continuous_server_on_the_card_matches_the_cpu(cuda):
+    """The continuous-batching server on olmoe-mini in fp32 (2 slots, 5
+    requests of mixed budgets): the same tokens and finish reasons on the
+    card (moe_gmm and flash_attn kernels) as on the CPU (plain versions)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ContinuousBatchingServer, RequestQueue, ServeRequest
+
+    cfg = get_config("olmoe-mini")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         dtype=torch.float32, device="cpu")
+    on_card = _tree_to(params, cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (20, 12, 17, 9, 20)]
+    budgets = (6, 3, 8, 5, 4)
+
+    def serve(p):
+        reqs = [ServeRequest(rid=i, prompt=q, max_new_tokens=m)
+                for i, (q, m) in enumerate(zip(prompts, budgets))]
+        srv = ContinuousBatchingServer(cfg, p, n_slots=2, max_len=32)
+        dispatch.reset_launches()  # after the constructor's warm-up
+        return srv.run(RequestQueue(reqs))
+
+    cpu, _ = serve(params)
+    card, mt = serve(on_card)
+    # one flash per layer per prefill; three gmm per layer per prefill and step
+    assert dispatch.LAUNCHES["flash_attn"] == 8 * 5
+    assert dispatch.LAUNCHES["moe_gmm"] == 3 * 8 * (5 + mt.decode_steps)
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+        assert a.finish_reason == b.finish_reason
+    assert mt.generated_tokens == sum(budgets)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

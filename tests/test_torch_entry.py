@@ -107,7 +107,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.kernels.int4_matmul.ref", "repro_torch.bridge",
             "repro_torch.kernels.ssd_scan.ops", "repro_torch.kernels.ssd_scan.ref",
             "repro_torch.models.mamba2", "repro_torch.models.blocks",
-            "repro_torch.inference.engine", "repro_torch.inference.sampling"} <= set(mods)
+            "repro_torch.inference.engine", "repro_torch.inference.sampling",
+            "repro_torch.models.moe", "repro_torch.serving", "repro_torch.serving.server",
+            "repro_torch.serving.scorers", "repro_torch.serving.profiling",
+            "repro_torch.serving.queue", "repro_torch.serving.request",
+            "repro_torch.serving.scheduler", "repro_torch.serving.batch",
+            "repro_torch.serving.metrics", "repro_torch.launch.bench_serve"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"

@@ -152,26 +152,40 @@ def test_serving_engine_gives_the_jax_engines_greedy_tokens(bridged):
 
 
 def test_engine_and_full_path_refuse_what_is_not_ported(bridged):
+    """Sampling and router probes are ported (tests/test_torch_serving.py,
+    tests/test_torch_moe.py); LoRA, remat and prefix embeddings raise."""
     _, tcfg, _, params = bridged
-    eng = ServingEngine(tcfg, params)
-    req = Request(np.arange(4, dtype=np.int32), 2)
-    with pytest.raises(NotImplementedError, match="temperature"):
-        eng.generate_batch([Request(req.prompt, 2, temperature=1.0)])
-    with pytest.raises(NotImplementedError, match="collect_probs"):
-        eng.generate_batch([req], collect_probs=True)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        ServingEngine(tcfg, params, lora={})
     with pytest.raises(NotImplementedError, match="remat"):
-        tmodel.apply_model(params, tcfg, torch.zeros((1, 4), dtype=torch.long), CPU,
-                           remat=True)
+        tmodel.apply_model(params, tcfg, toks, CPU, remat=True)
+    with pytest.raises(NotImplementedError, match="prefix_embed"):
+        tmodel.apply_model(params, tcfg, toks, CPU, prefix_embed=torch.zeros((1, 2, 8)))
+    _, cache = tmodel.prefill(params, tcfg, toks, CPU, n_slots=6)
+    with pytest.raises(NotImplementedError, match="lora"):
+        tmodel.decode_step(params, tcfg, toks[:, :1], cache, CPU, lora={})
+    # a model without a router has no probes to give
+    out = ServingEngine(tcfg, params).generate_batch(
+        [Request(np.arange(4, dtype=np.int32), 3)], collect_probs=True)
+    assert out[0].router_probs is None and len(out[0].tokens) == 3
 
 
 def test_attn_moe_waits_for_its_slice():
+    """The attn_moe slice has landed: a MoE config runs through
+    apply_model and run_full (tests/test_torch_moe.py holds the numbers);
+    its LoRA adapters still wait for theirs and raise."""
     cfg = get_config("granite-moe-1b-a400m-smoke")
     params = tmodel.init_params(cfg, generator=torch.Generator().manual_seed(0),
                                 dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError, match="attn_moe"):
-        tmodel.apply_model(params, cfg, torch.zeros((1, 4), dtype=torch.long), CPU)
-    with pytest.raises(ValueError, match="offloaded"):
-        serve.run_full("granite-moe-1b-a400m-smoke", device="cpu")
+    logits, _ = tmodel.apply_model(params, cfg, torch.zeros((1, 4), dtype=torch.long), CPU)
+    assert logits.shape == (1, 4, cfg.vocab) and torch.isfinite(logits).all()
+    with pytest.raises(NotImplementedError, match="lora"):
+        tmodel.apply_model(params, cfg, torch.zeros((1, 4), dtype=torch.long), CPU,
+                           lora={})
+    rep = serve.run_full("granite-moe-1b-a400m-smoke", batch=2, prompt_len=8, max_new=3,
+                         dtype="float32", device="cpu")
+    assert rep["path"] == "full" and rep["tokens"].shape == (2, 3)
 
 
 def test_truncate_at_stop():
