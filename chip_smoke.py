@@ -56,7 +56,37 @@ From the root of a checkout, with CUDA available:
    1 (the bf16 agreement is printed, not gated); it prints throughput,
    latency, TTFT, ms per decode step and peak memory against the weight
    bytes;
-8. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+8. frees that model, then serves full-width OLMoE-1B-7B offloaded behind
+   ``repro_torch.serving.OffloadedWaveServer`` (bf16, random weights from
+   seed 0, LoRA rank 32 / alpha 16 on every MoE layer with ``b`` drawn
+   N(0, 1/r)), C = 16, policy gamma, waves of 4: the continuous phase's 8
+   requests, their affinity scores the oracle ``prefill_expert_scores`` of
+   the same model and LoRA (the whole model on the card, then freed). One
+   fresh server per policy (fcfs, expert-affinity with top-C 16; the
+   pinned expert store built once and shared), counters set to 0 just
+   before each ``run``. It asserts launch totals (``PATH_LAUNCHES``) and
+   routes, equal tokens under both policies, and, on the first request's
+   prefill logits: kernels against plain versions in fp32 on the same
+   weights within ``FP32_LOGITS_REL_TOL`` and in bf16 within
+   ``WAVE_BF16_LOGITS_REL_TOL``, the adapters against ``merge_lora``'d
+   experts without them (fp32) within ``FP32_LOGITS_REL_TOL``, while the
+   engines without LoRA are more than ``LORA_MOVES`` x
+   ``LOGITS_REL_TOL`` from them. It prints each policy's
+   ``ServerMetrics`` summary (both Eq.-3 clocks, transfers, prefetch
+   transfers, hit rate, latency and TTFT on the modeled clock), wall
+   seconds, tokens per wall second, ms per decode step and peak device
+   memory against slab and LoRA bytes;
+9. serves full-width DeepSeek-MoE-16B (bf16, random weights from seed 0;
+   a dense first layer, 27 MoE layers with 2 shared experts) offloaded
+   through ``repro_torch.launch.serve.run``: C = 16, batch 4, prompt 128,
+   32 new tokens, counters set to 0 just before; asserts launches per
+   phase and route and holds the prefill logits against the plain
+   versions, in fp32 first (``FP32_LOGITS_REL_TOL``), then in bf16
+   (``DEEPSEEK_BF16_LOGITS_REL_TOL``);
+10. writes a params-only checkpoint of olmoe-mini-smoke with the port's
+   ``save_checkpoint``, serves it with ``launch.serve --ckpt`` on the card
+   and asserts the tokens of the in-memory run;
+11. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -128,12 +158,51 @@ PATH_LAUNCHES = {
     "int4": {"moe_gmm": 1536, "flash_attn": 16, "int4_matmul": None},
     "zamba2-7b": {"ssd_scan": 68, "flash_attn": 13},
     "mamba2-130m": {"ssd_scan": 24, "flash_attn": 0},
+    # the wave server, one request at a time: per prefill (128 tokens, which
+    # route to more than C = 16 of the 64 experts in every layer) 16 flash
+    # and 6 gmm a layer (slab and overflow groups, "tc"); per decode step (1
+    # token: its 8 experts always fit the slab) 3 gmm a layer ("stream"):
+    # 8 prefills and 152 decode steps, under either policy
+    "wave-olmoe-fcfs": {"moe_gmm": 8 * 96 + 152 * 48, "flash_attn": 128,
+                        "int4_matmul": 0},
+    "wave-olmoe-affinity": {"moe_gmm": 8 * 96 + 152 * 48, "flash_attn": 128,
+                            "int4_matmul": 0},
+    # deepseek, batch 4: one flash per attention layer (28) in prefill; gmm
+    # 6 a MoE layer in prefill (all 64 experts: slab and overflow, "tc"),
+    # then 3 a layer-step for the slab group and 3 more where the step's
+    # up to 24 routed experts overflow C = 16, which follows the routing
+    # ("stream"; a multiple of 3, at least 31 x 81)
+    "deepseek-offloaded": {"moe_gmm": None, "flash_attn": 28, "int4_matmul": 0},
 }
 FAST_ROUTES = {"moe_gmm": ("stream", "tc"), "flash_attn": ("tc",),
                "int4_matmul": ("stream", "tc"), "ssd_scan": ("tc",)}
 # The INT4 path's int4_matmul launches by phase: prefill multiplies all
 # 512 prompt tokens ("tc"), decode the batch's 4 rows ("stream").
 INT4_PHASE_ROUTES = {"prefill": ("tc",), "decode": ("stream",)}
+# deepseek's moe_gmm launches by phase and route: prefill exactly 27 x 6
+# on "tc"; decode only "stream", at least the slab group's 31 x 27 x 3
+DEEPSEEK_PREFILL_GMM = {"tc": 27 * 6}
+DEEPSEEK_DECODE_GMM_MIN = 31 * 27 * 3
+# The wave phase's LoRA: b ~ N(0, 1/r) (r = 32), so that scale * a @ b is
+# about the size of the expert weights themselves (b = N(0, 1/(4r)) moved
+# OLMoE's first prefill logits 0.068 from the engine without LoRA, on an
+# H100 80GB HBM3 at 700 W). The engine without LoRA must be farther than
+# LORA_MOVES x LOGITS_REL_TOL from the LoRA engines' logits, so a dropped
+# LoRA term fails the run.
+LORA_B_STD = 32**-0.5
+LORA_MOVES = 5
+# The LoRA'd OLMoE's bf16 kernel run against its plain run: the adapters
+# make the random model amplify round-off more (b = N(0, 1/r): 0.0206;
+# N(0, 1/(4r)): 0.0096; H100 80GB HBM3, 700 W), so LOGITS_REL_TOL cannot hold at the
+# LoRA strength the movement gate needs. The same pair is held in fp32 on
+# the same weights to FP32_LOGITS_REL_TOL, where only the order of sums
+# differs; a wrong kernel or LoRA term moves these logits by O(1).
+WAVE_BF16_LOGITS_REL_TOL = 3e-2
+# deepseek's 28 random bf16 layers: the kernel run read 0.0288 from the
+# plain run (H100 80GB HBM3, 700 W), as zamba2's 81 layers read 0.0418 (its limit
+# 4.5e-2); held first in fp32 at full width and depth to
+# FP32_LOGITS_REL_TOL, where only the order of sums differs.
+DEEPSEEK_BF16_LOGITS_REL_TOL = 4e-2
 
 
 def check_path(path: str, launches: dict, routes: dict) -> None:
@@ -237,6 +306,18 @@ def gmm_cases(gen):
                 a = (a * (torch.arange(M, device="cuda")[None, :, None]
                           < sizes[:, None, None])).to(dtype)
                 b = (torch.randn(64, K, F, generator=gen, device="cuda") * K**-0.5).to(dtype)
+                cases.append(gmm_case(a, b, sizes, dtype))
+        # deepseek-moe-16b's routed experts (d_ff 1408, top-6 of 64, C = 16):
+        # the slab group of a batch-4 decode step and a prefill's overflow
+        # group (48 experts, 512 rows)
+        for G, M in ((16, 4), (48, 512)):
+            for K, F in ((2048, 1408), (1408, 2048)):
+                sizes = torch.randint(0, M + 1, (G,), generator=gen, device="cuda",
+                                      dtype=torch.int32)
+                a = torch.randn(G, M, K, generator=gen, device="cuda")
+                a = (a * (torch.arange(M, device="cuda")[None, :, None]
+                          < sizes[:, None, None])).to(dtype)
+                b = (torch.randn(G, K, F, generator=gen, device="cuda") * K**-0.5).to(dtype)
                 cases.append(gmm_case(a, b, sizes, dtype))
     return cases
 
@@ -710,6 +791,298 @@ def _tree_float(tree):
     return tree.float()
 
 
+def _host_available_gib() -> float:
+    """MemAvailable of the host (the wave and deepseek phases hold 30-60 GB
+    of experts in host memory), or NaN where /proc/meminfo is missing."""
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    except OSError:
+        pass
+    return float("nan")
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _strip_experts(params) -> None:
+    """Drop the stacked expert leaves of every MoE block (the engine's
+    pinned store holds them), so the device keeps only the rest."""
+    for g in params["groups"].values():
+        for bp in g.values():
+            for k in ("wg", "wu", "wd"):
+                if "router" in bp.get("ffn", {}):
+                    bp["ffn"].pop(k, None)
+
+
+def serve_wave(arch: str = "olmoe", device: str = "cuda") -> dict:
+    """Phase 8: full-width OLMoE-1B-7B offloaded behind the port's
+    ``OffloadedWaveServer`` with LoRA on every MoE layer, under fcfs and
+    expert-affinity, and the LoRA gates on the first request's prefill
+    logits (see the module docstring). ``arch``/``device``: a smaller
+    model or the CPU, to rehearse the phase's logic."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import init_lora, lora_scale
+    from repro_torch.core.offload_engine import OffloadedMoEEngine
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import (OffloadedWaveServer, RequestQueue, ServeRequest,
+                                     get_scheduler, prefill_expert_scores)
+    from repro_torch.training import merge_lora
+
+    t_phase = time.perf_counter()
+    print(f"wave phase: host memory available {_host_available_gib():.1f} GiB")
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    n, C = len(SERVE_BUDGETS), 16
+    prompts = make_prompts(cfg.vocab, n, SERVE_PROMPT)
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    lora = init_lora(cfg, cfg.melinoe, generator=g, device=dev)  # fp32, as the reference's
+    for gt in lora.values():
+        for pt in gt.values():
+            for ab in pt.values():
+                ab["b"] = torch.randn(ab["b"].shape, generator=g, device=dev) * LORA_B_STD
+    sc = lora_scale(cfg.melinoe)
+    scores = prefill_expert_scores(cfg, params, [
+        ServeRequest(rid=i, prompt=prompts[i], max_new_tokens=1) for i in range(n)],
+        lora=lora, lora_scale=sc)
+    (gname, pname), = [(gk, pk) for gk, gt in params["groups"].items() for pk in gt]
+    # the same (bf16-valued) experts in fp32 on the host, for the merge gate
+    experts32 = {k: params["groups"][gname][pname]["ffn"][k].float().cpu()
+                 for k in ("wg", "wu", "wd")}
+
+    out, store = {}, None
+    for policy, path in (("fcfs", "wave-olmoe-fcfs"), ("expert-affinity", "wave-olmoe-affinity")):
+        sched = get_scheduler(policy) if policy == "fcfs" else get_scheduler(policy, top_c=C)
+        srv = OffloadedWaveServer(cfg, params, capacity=C, policy="gamma", scheduler=sched,
+                                  wave_size=4, lora=lora, lora_scale=sc, device=dev,
+                                  host_store=store)
+        if store is None:  # the store is built: the device keeps the rest
+            store = srv.engine.host_store
+            _strip_experts(params)
+            gc.collect()
+            torch.cuda.empty_cache()
+        reqs = [ServeRequest(rid=i, prompt=prompts[i], max_new_tokens=SERVE_BUDGETS[i],
+                             expert_scores=scores[i]) for i in range(n)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        dispatch.reset_launches()
+        results, mt = srv.run(RequestQueue(reqs))
+        torch.cuda.synchronize()
+        launches = dict(dispatch.LAUNCHES)
+        routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+        check_path(path, launches, routes)
+        toks = [r.tokens for r in results]
+        if [len(t) for t in toks] != list(SERVE_BUDGETS) or any(
+                r.finish_reason != "length" for r in results):
+            raise AssertionError(f"{path}: token counts {[len(t) for t in toks]}")
+        summ = mt.summary()
+        dec_s, dec_n = sum(srv.span_s["serve.decode"]), sum(srv.span_s["decode_steps"])
+        stats = {k: summ[k] for k in (
+            "requests", "generated_tokens", "prefill_tokens", "modeled_time_serial_s",
+            "modeled_time_overlapped_s", "transfers", "transfer_bytes", "prefetch_transfers",
+            "cache_hit_rate", "latency_p50", "latency_p99", "ttft_p50", "ttft_p95")}
+        stats.update(
+            wall_time_s=mt.wall_time, tok_per_wall_s=mt.generated_tokens / mt.wall_time,
+            ms_per_decode_step=1e3 * dec_s / dec_n, decode_steps=dec_n,
+            ms_per_prefill=1e3 * float(np.mean(srv.span_s["serve.prefill"])),
+            max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+            slab_bytes=srv.engine.slab_bytes, lora_bytes=srv.engine.lora_bytes,
+            host_store_bytes=srv.engine.host_store_bytes,
+            launches_total=launches, route_launches=routes)
+        print(f"{path}:", json.dumps(stats))
+        out[policy] = (toks, stats)
+        del srv
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b) for a, b in zip(out["fcfs"][0], out["expert-affinity"][0]))
+    print(f"wave olmoe: per-request tokens equal under fcfs and expert-affinity: {same}")
+    if not same:
+        raise AssertionError("wave olmoe: the policies gave other tokens")
+
+    def first_logits(p, store_, lora_, backend="auto"):
+        eng = OffloadedMoEEngine(cfg, p, capacity=C, policy="gamma", lora=lora_,
+                                 lora_scale=sc, host_store=store_, kernel_backend=backend,
+                                 device=dev)
+        lg = eng.generate(prompts[:1], max_new_tokens=1)["prefill_logits"].float().cpu()
+        del eng
+        return lg
+
+    # bf16, as served: kernels against plain versions, both with LoRA, and
+    # the base without it
+    kern = first_logits(params, store, lora)
+    plain = first_logits(params, store, lora, "ref")
+    base = first_logits(params, store, None)
+    del store
+    # fp32 on the same weights: the adapters served against merge_lora'd
+    # experts without them (bf16 would round every merged weight once more,
+    # and that rounding alone moves a random bf16 model's logits as far as
+    # its own round-off does)
+    p32 = _tree_float(params)
+    layers = lambda t: [{k: v[r] for k, v in t.items()}  # noqa: E731
+                        for r in range(next(iter(t.values())).shape[0])]
+    term32 = first_logits(p32, layers(experts32), lora)
+    plain32 = first_logits(p32, layers(experts32), lora, "ref")
+    base32 = first_logits(p32, layers(experts32), None)
+    merged = merge_lora(cfg, {"groups": {gname: {pname: {"ffn": experts32}}}}, lora, sc)
+    merged32 = first_logits(p32, layers(merged["groups"][gname][pname]["ffn"]), None)
+    del merged, experts32, p32
+    gates = {"kernel_vs_plain": _rel(kern, plain),
+             "fp32_kernel_vs_plain": _rel(term32, plain32),
+             "fp32_lora_vs_merged": _rel(term32, merged32),
+             "no_lora_vs_kernel": _rel(base, kern),
+             "fp32_no_lora_vs_lora": _rel(base32, term32),
+             "fp32_no_lora_vs_merged": _rel(base32, merged32),
+             "bf16_kernel_vs_fp32": _rel(kern, term32), "bf16_plain_vs_fp32": _rel(plain, term32)}
+    print(f"wave olmoe first prefill logits rel: {gates} (bf16 tol {WAVE_BF16_LOGITS_REL_TOL}, "
+          f"fp32 tol {FP32_LOGITS_REL_TOL}; without LoRA more than "
+          f"{LORA_MOVES * LOGITS_REL_TOL})")
+    moves = LORA_MOVES * LOGITS_REL_TOL
+    if not (gates["kernel_vs_plain"] <= WAVE_BF16_LOGITS_REL_TOL
+            and gates["fp32_kernel_vs_plain"] <= FP32_LOGITS_REL_TOL
+            and gates["fp32_lora_vs_merged"] <= FP32_LOGITS_REL_TOL):
+        raise AssertionError(f"wave olmoe: LoRA logits disagree: {gates}")
+    if not (gates["no_lora_vs_kernel"] > moves and gates["fp32_no_lora_vs_lora"] > moves
+            and gates["fp32_no_lora_vs_merged"] > moves):
+        raise AssertionError(f"wave olmoe: the LoRA term moves nothing: {gates}")
+    del params, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = {"fcfs": out["fcfs"][1], "affinity": out["expert-affinity"][1], "logits_rel": gates,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"wave olmoe phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
+def deepseek_fp32_rel(arch: str, device: str, capacity: int) -> float:
+    """The deepseek phase's prefill (4 x 128 tokens, full width and depth)
+    in fp32, kernels against plain versions: fp32 weights from seed 0,
+    the experts kept in pageable host memory and served as the engines'
+    store as they are (60 GB: a second, pinned copy would not fit the
+    host). Returns ||kernel - plain|| / ||plain||."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import OffloadedMoEEngine
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import init_params
+
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev, expert_device="cpu")
+    store = [{k: bp["ffn"][k][r] for k in ("wg", "wu", "wd")}
+             for gi, g in enumerate(cfg.layout) for r in range(g.repeats)
+             for pi, bname in enumerate(g.pattern)
+             if cfg.block_defs[bname].kind == "attn_moe"
+             for bp in (params["groups"][f"g{gi}"][f"p{pi}"],)]
+    prompts = make_prompts(cfg.vocab, 4, 128)
+    out = []
+    for backend in ("auto", "ref"):
+        eng = OffloadedMoEEngine(cfg, params, capacity=capacity, policy="gamma",
+                                 host_store=store, kernel_backend=backend, device=dev)
+        out.append(eng.generate(prompts, max_new_tokens=1)["prefill_logits"].float().cpu())
+        del eng
+    del params, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    return _rel(out[0], out[1])
+
+
+def check_deepseek_phases(by_phase: dict) -> None:
+    """deepseek's moe_gmm launches by phase and route (see
+    DEEPSEEK_PREFILL_GMM)."""
+    dec = by_phase["decode"]
+    if (by_phase["prefill"] != DEEPSEEK_PREFILL_GMM or set(dec) != {"stream"}
+            or dec["stream"] < DEEPSEEK_DECODE_GMM_MIN or dec["stream"] % 3):
+        raise AssertionError(f"deepseek: moe_gmm by phase {by_phase}, want prefill "
+                             f"{DEEPSEEK_PREFILL_GMM}, decode stream >= "
+                             f"{DEEPSEEK_DECODE_GMM_MIN}, a multiple of 3")
+
+
+def serve_deepseek(arch: str = "deepseek-moe-16b", device: str = "cuda",
+                   capacity: int = 16) -> dict:
+    """Phase 9: full-width DeepSeek-MoE-16B offloaded through
+    ``launch.serve.run`` (bf16, random weights from seed 0), C = 16,
+    4 x (128 + 32) tokens: launches per phase and route, and the prefill
+    logits against a plain run on the same pinned store."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import run
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    print(f"deepseek phase: host memory available {_host_available_gib():.1f} GiB")
+    vocab = get_config(arch).vocab
+    kw = dict(capacity=capacity, policy="gamma", batch=4, prompt_len=128,
+              dtype=torch.bfloat16, device=device, seed=0)
+    dispatch.reset_launches()
+    rep = run(arch, max_new=32, keep_store=True, **kw)
+    launches = dict(dispatch.LAUNCHES)
+    routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    check_path("deepseek-offloaded", launches, routes)
+    by_phase = {ph: r["moe_gmm"] for ph, r in rep["route_launches"].items()}
+    check_deepseek_phases(by_phase)
+    tokens, logits = rep.pop("tokens"), rep.pop("prefill_logits")
+    if tokens.shape != (4, 32) or logits.shape != (4, vocab) or not torch.isfinite(
+            logits).all():
+        raise AssertionError(f"deepseek: tokens {tokens.shape} logits {logits.shape}")
+    store = rep.pop("host_store")
+    print("serve deepseek-moe-16b:", json.dumps(rep))
+    ref = run(arch, max_new=1, kernel_backend="ref", host_store=store, **kw)
+    rel = _rel(logits, ref["prefill_logits"])
+    top1 = (logits.argmax(-1) == ref["prefill_logits"].argmax(-1)).float().mean().item()
+    del store, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel32 = deepseek_fp32_rel(arch, device, capacity)
+    print(f"deepseek prefill logits kernel vs plain: fp32 rel {rel32:.3g} (tol "
+          f"{FP32_LOGITS_REL_TOL}); bf16 rel {rel:.4g} (tol {DEEPSEEK_BF16_LOGITS_REL_TOL}), "
+          f"top-1 agreement {top1:.2f}")
+    if not (math.isfinite(rel32) and rel32 <= FP32_LOGITS_REL_TOL):
+        raise AssertionError(f"deepseek: fp32 prefill logits disagree: rel {rel32}")
+    if not (math.isfinite(rel) and rel <= DEEPSEEK_BF16_LOGITS_REL_TOL):
+        raise AssertionError(f"deepseek: prefill logits disagree: rel {rel}")
+    rep.update(launches_total=launches, route_launches_total=routes, gmm_by_phase=by_phase,
+               logits_rel=rel, fp32_logits_rel=rel32, top1=top1,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"deepseek phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
+def checkpoint_phase(device: str = "cuda") -> dict:
+    """Phase 10: a params-only checkpoint of olmoe-mini-smoke written by
+    the port, served with ``launch.serve --ckpt`` on the card, gives the
+    tokens of the in-memory run of the same weights."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.training import save_checkpoint
+
+    arch = "olmoe-mini-smoke"
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    kw = ["--batch", "2", "--prompt-len", "16", "--max-new", "8", "--capacity", "2"]
+    mem = serve.run(arch, batch=2, prompt_len=16, max_new=8, capacity=2, device=dev, seed=0)
+    # the weights run() drew: the same generator, dtype and expert placement
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev, expert_device="cpu")
+    with tempfile.TemporaryDirectory() as d:
+        path = str(Path(d) / "olmoe-mini-smoke.ckpt")
+        save_checkpoint(path, params, step=0, metadata={"arch": arch})
+        ck = serve.main(["--arch", arch, "--ckpt", path, "--device", device, *kw])
+    same = bool(np.array_equal(ck["tokens"], mem["tokens"]))
+    print(f"checkpoint: serve --ckpt tokens equal the in-memory run: {same}")
+    if not same:
+        raise AssertionError("checkpoint: served tokens differ from the in-memory run")
+    return {"tokens_equal": same}
+
+
 def slab_dequant_ms(gen, C=16, d=2048, f=1024, g=32) -> float:
     """The INT4 slab step's plain dequant of C slots for wg, wu and wd into
     bf16 (what one MoE layer-step computes before its gmm calls)."""
@@ -820,7 +1193,7 @@ def main() -> int:
         raise AssertionError("non-finite INT4 prefill logits")
     print("serve olmoe quantized:", json.dumps(
         {k: v for k, v in qrep.items()
-         if k not in ("tokens", "prefill_logits", "quantized_experts")}))
+         if k not in ("tokens", "prefill_logits", "quantized_experts", "host_store")}))
     print(f"launches on the INT4 path: {q_launches}")
     int4_phases = {ph: r["int4_matmul"] for ph, r in qrep["route_launches"].items()}
     print(f"INT4 path int4_matmul launches by phase and route: {int4_phases}")
@@ -857,6 +1230,11 @@ def main() -> int:
     # ---- the continuous-batching server: olmoe whole on the card
     c_rep = serve_continuous()
 
+    # ---- the offloaded wave server with LoRA; deepseek offloaded; a checkpoint
+    w_rep = serve_wave()
+    d_rep = serve_deepseek()
+    checkpoint_phase()
+
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
@@ -882,10 +1260,16 @@ def main() -> int:
     ]
     paths = {"bf16": launches, "int4": q_launches,
              "zamba2-7b": z_rep["launches_total"], "mamba2-130m": m_rep["launches_total"],
-             "continuous-olmoe": c_rep["launches_total"]}
+             "continuous-olmoe": c_rep["launches_total"],
+             "wave-olmoe-fcfs": w_rep["fcfs"]["launches_total"],
+             "wave-olmoe-affinity": w_rep["affinity"]["launches_total"],
+             "deepseek-offloaded": d_rep["launches_total"]}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
-              "continuous-olmoe": c_rep["route_launches"]}
+              "continuous-olmoe": c_rep["route_launches"],
+              "wave-olmoe-fcfs": w_rep["fcfs"]["route_launches"],
+              "wave-olmoe-affinity": w_rep["affinity"]["route_launches"],
+              "deepseek-offloaded": d_rep["route_launches_total"]}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

@@ -14,6 +14,9 @@ copy of a JAX ``QTensor`` (``repro.core.quant``), and
 :func:`quantized_experts_from_jax` turns a JAX quantized engine's host
 store into the port engine's ``quantized_experts`` argument, so that the
 two packages compute on the same codes.
+
+LoRA trees cross with :func:`lora_from_jax` (``{g: {p: {"wu"|"wd":
+{"a": (R, E, din, r), "b": (R, E, r, dout)}}}}``, numpy leaves).
 """
 from __future__ import annotations
 
@@ -45,7 +48,10 @@ def _check_layout(tree: dict, cfg: ModelConfig) -> None:
                 raise KeyError(f"parameter tree lacks groups/g{gi}/p{pi}")
 
 
-def _to_torch(a: np.ndarray, dtype, device) -> torch.Tensor:
+def _to_torch(a, dtype, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # e.g. a leaf of training.load_checkpoint
+        t = a if dtype is None or not a.is_floating_point() else a.to(dtype)
+        return t.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -57,7 +63,8 @@ def _to_torch(a: np.ndarray, dtype, device) -> torch.Tensor:
 
 
 def params_from_jax(tree, cfg: ModelConfig, *, dtype=None, device="cpu"):
-    """Numpy tree (``jax.tree.map(np.asarray, params)``) -> torch dict.
+    """Numpy tree (``jax.tree.map(np.asarray, params)``; CPU tensors, as
+    ``training.load_checkpoint`` returns them, cross too) -> torch dict.
 
     ``dtype``: cast floating leaves to it, except the fp32 leaves of
     :data:`FP32_LEAVES` (router, and the SSM's A_log, D, dt_bias), as in
@@ -71,6 +78,35 @@ def params_from_jax(tree, cfg: ModelConfig, *, dtype=None, device="cpu"):
         return _to_torch(node, None if key in FP32_LEAVES else dt, device)
 
     return walk(tree)
+
+
+def lora_from_jax(cfg: ModelConfig, tree, *, dtype=None, device="cpu"):
+    """Numpy LoRA tree (``jax.tree.map(np.asarray, lora)``) -> torch dict,
+    checked against the config's MoE positions and expert shapes.
+    ``dtype``: cast every leaf to it; ``None`` keeps each leaf's dtype."""
+    dt = cdtype(dtype) if dtype is not None else None
+    out = {}
+    for g, gtree in tree.items():
+        gi = int(g[1:])
+        group = cfg.layout[gi]
+        out[g] = {}
+        for p, ptree in gtree.items():
+            b = cfg.block_defs[group.pattern[int(p[1:])]]
+            if b.moe is None:
+                raise KeyError(f"lora {g}/{p}: block {b.kind!r} has no experts")
+            E, d, f = b.moe.num_experts, cfg.d_model, b.moe.d_ff
+            dims = {"wu": (d, f), "wd": (f, d)}
+            out[g][p] = {}
+            for t, ab in ptree.items():
+                din, dout = dims[t]
+                a, bb = np.asarray(ab["a"]), np.asarray(ab["b"])
+                r = a.shape[-1]
+                if a.shape != (group.repeats, E, din, r) or \
+                        bb.shape != (group.repeats, E, r, dout):
+                    raise ValueError(f"lora {g}/{p}/{t}: a {a.shape} b {bb.shape} do not "
+                                     f"fit (R={group.repeats}, E={E}, {din}->{dout})")
+                out[g][p][t] = {"a": _to_torch(a, dt, device), "b": _to_torch(bb, dt, device)}
+    return out
 
 
 def params_to_numpy(params) -> dict:

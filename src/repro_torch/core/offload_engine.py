@@ -6,7 +6,9 @@ Eq. 3; counterpart of ``repro/core/offload_engine.py`` with
                     ``wg/wu (C, d, f)``, ``wd (C, f, d)`` buffers with a
                     slot free-list, overwritten in place;
   * offload pool  — every expert of every layer in **pinned** host
-                    memory (one ``(E, 3, d*f)`` buffer per layer);
+                    memory (one ``(E, 3, d*f)`` buffer per layer,
+                    page-locked with ``cudaHostRegister`` at its exact
+                    size);
   * miss          — a ``non_blocking`` host->device copy of the expert's
                     three matrices into a slab slot (it replaces the JAX
                     engine's donated ``.at[slot].set``), counted and
@@ -27,18 +29,25 @@ gate-mass accumulation (the JAX ``_per_expert_contrib``).
 Per MoE layer and step: attention + router, then the vectorized host
 cache accounting (``LayerExpertCache.access_batch``), then one grouped
 ``moe_gmm`` per projection over the C slots (tokens sorted into
-per-slot buffers, ragged group sizes), plus an overflow group for the
-experts this step needs that the slab could not hold. The port runs
-eagerly, so the JAX engine's compact variant and fused moe(l)+pre(l+1)
-call — XLA launch optimisations with identical results — are not
-ported.
+per-slot buffers, ragged group sizes; a single token is broadcast into
+every active slot instead, the reference's ``N == 1`` branch), plus an
+overflow group for the experts this step needs that the slab could not
+hold. LoRA adapters (``lora``, per MoE layer on the device) ride as a
+low-rank term gathered by each group's expert. The blocks without
+experts (``attn_dense``, ``mamba``, ``shared_attn``) run whole on the
+device between the MoE layers. The port runs eagerly, so the JAX
+engine's compact variant and fused moe(l)+pre(l+1) call — XLA launch
+optimisations with identical results — are not ported.
 
 Beside the two modeled clocks the engine reports measured wall-clock
-prefill seconds and decode tokens/s on its device.
+prefill seconds and decode tokens/s on its device. The reference's
+little-expert tier, fault seams, host-execution and stream-all baselines
+and its ``impl="dict"`` engine are not ported: asking for one raises.
 """
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -51,7 +60,9 @@ from ..kernels.int4_matmul.ops import MatmulQWeight
 from ..kernels.int4_matmul.ref import dequant_ref
 from ..kernels.moe_gmm import ops as gmm_ops
 from ..models.attention import attend_full, cache_from_prefill, decode_attend
+from ..models.blocks import apply_block_full
 from ..models.common import rms_norm, silu
+from ..models.mamba2 import apply_mamba_decode
 from ..models.mlp import apply_mlp
 from ..models.model import compute_logits, embed_tokens
 from ..models.moe import (Dispatch, combine_tokens, dispatch_tokens,
@@ -75,6 +86,7 @@ class HardwareProfile:
     hbm_bw: float = 3350e9
     host_link_bw: float = 64e9  # host<->device copies (PCIe gen5 x16)
     transfer_latency: float = 30e-6  # per-transfer fixed cost
+    host_flops: float = 2e12  # host-side expert execution (not ported; Eq. 3 term)
     mfu: float = 0.4  # assumed compute efficiency for Eq. 3
 
 
@@ -90,21 +102,49 @@ class EngineMetrics:
     transfer_bytes: int = 0
     prefetch_transfers: int = 0
     prefetch_bytes: int = 0
+    host_executed: int = 0
     compute_flops: float = 0.0
     wall_time: float = 0.0  # measured seconds of the last generate call
     prefill_wall_time: float = 0.0  # ... of its prefill (device synchronized)
     decode_wall_time: float = 0.0  # ... of its decode steps
+    host_time: float = 0.0  # modeled host-side expert execution (set in generate)
+    # resilience accounting of the reference (its fault seams are not
+    # ported, so these stay 0): modeled seconds lost to injected transfer
+    # spikes, failed fetch attempts and retry backoff; counts of retries,
+    # failed attempts and little-expert substitutions
+    fault_delay_s: float = 0.0
+    fetch_retries: int = 0
+    fetch_failures: int = 0
+    degraded_uses: int = 0
     # per engine step (prefill counts as one, then one per decode step):
     # total flops and per-MoE-layer demand-transfer counts/bytes — the
-    # event records behind the overlapped clock
+    # event records behind the overlapped clock — plus that step's fault
+    # delay (charged serially on both clocks)
     step_flops: List[float] = field(default_factory=list)
     step_tx: List[np.ndarray] = field(default_factory=list)
     step_tx_bytes: List[np.ndarray] = field(default_factory=list)
+    step_fault_delay: List[float] = field(default_factory=list)
+    # overlapped-clock seconds of records dropped via drop_step_records
+    # (keeps modeled_time_overlapped cumulative after trimming)
+    overlapped_dropped: float = 0.0
+    # cumulative per-MoE-layer transfer totals (moe_idx -> count/bytes);
+    # unlike the per-step records these survive drop_step_records
+    layer_tx: Dict[int, int] = field(default_factory=dict)
+    layer_tx_bytes: Dict[int, int] = field(default_factory=dict)
+    layer_prefetch_tx: Dict[int, int] = field(default_factory=dict)
+    layer_prefetch_bytes: Dict[int, int] = field(default_factory=dict)
 
+    # -- recording ---------------------------------------------------------
     def begin_step(self, n_moe_layers: int) -> None:
         self.step_flops.append(0.0)
         self.step_tx.append(np.zeros(n_moe_layers, np.int64))
         self.step_tx_bytes.append(np.zeros(n_moe_layers, np.int64))
+        self.step_fault_delay.append(0.0)
+
+    def add_fault_delay(self, seconds: float) -> None:
+        self.fault_delay_s += seconds
+        if self.step_fault_delay:
+            self.step_fault_delay[-1] += seconds
 
     def add_flops(self, flops: float) -> None:
         self.compute_flops += flops
@@ -114,32 +154,72 @@ class EngineMetrics:
     def add_demand_transfers(self, moe_idx: int, n: int, nbytes: int) -> None:
         self.transfers += n
         self.transfer_bytes += nbytes
+        self.layer_tx[moe_idx] = self.layer_tx.get(moe_idx, 0) + n
+        self.layer_tx_bytes[moe_idx] = self.layer_tx_bytes.get(moe_idx, 0) + nbytes
         if self.step_tx:
             self.step_tx[-1][moe_idx] += n
             self.step_tx_bytes[-1][moe_idx] += nbytes
 
     def add_prefetch_transfers(self, moe_idx: int, n: int, nbytes: int) -> None:
         """Proactive (predictor-driven) transfers: real link traffic, but
-        charged outside the demand clocks."""
+        charged outside the demand clocks; tracked per layer."""
         self.prefetch_transfers += n
         self.prefetch_bytes += nbytes
+        self.layer_prefetch_tx[moe_idx] = self.layer_prefetch_tx.get(moe_idx, 0) + n
+        self.layer_prefetch_bytes[moe_idx] = (
+            self.layer_prefetch_bytes.get(moe_idx, 0) + nbytes)
 
+    def drop_step_records(self, hw: HardwareProfile) -> None:
+        """Discard the per-step event records so a long-lived engine (the
+        wave server) keeps no array pair per decode step. Their
+        overlapped seconds are folded into ``overlapped_dropped`` first,
+        so :meth:`modeled_time_overlapped` stays cumulative (exact as long
+        as the same ``hw`` is used throughout)."""
+        self.overlapped_dropped += self.overlapped_span(hw)
+        self.step_flops.clear()
+        self.step_tx.clear()
+        self.step_tx_bytes.clear()
+        self.step_fault_delay.clear()
+
+    # -- clocks ------------------------------------------------------------
     def modeled_time(self, hw: HardwareProfile) -> float:
         """Eq. 3, serial: Time_decode ~ Time_compute + N_miss * Time_transfer."""
         t_compute = self.compute_flops / (hw.peak_flops * hw.mfu)
         t_transfer = (self.transfer_bytes / hw.host_link_bw
                       + self.transfers * hw.transfer_latency)
-        return t_compute + t_transfer
+        return t_compute + t_transfer + self.host_time + self.fault_delay_s
 
-    def overlapped_span(self, hw: HardwareProfile) -> float:
-        """Eq. 3 with cross-layer prefetch hiding: layer ``l``'s router
-        output issues layer ``l+1``'s fetches, so a step costs
-        ``t_tx[0] + sum_l max(t_compute_l, t_tx[l+1])`` with the step's
-        compute split uniformly over its MoE layers."""
+    def _spans(self, start_step: int, end_step: Optional[int]):
+        return zip(self.step_flops[start_step:end_step],
+                   self.step_tx[start_step:end_step],
+                   self.step_tx_bytes[start_step:end_step],
+                   self.step_fault_delay[start_step:end_step])
+
+    def serial_span(self, hw: HardwareProfile, start_step: int = 0,
+                    end_step: Optional[int] = None) -> float:
+        """Serial Eq.-3 seconds of steps[start_step:end_step] only (no host
+        time): per-step flops + every demand transfer + fault delay. A
+        request's time to first token is the span of its prefill step."""
         speed = hw.peak_flops * hw.mfu
         total = 0.0
-        for flops, tx, txb in zip(self.step_flops, self.step_tx,
-                                  self.step_tx_bytes):
+        for flops, tx, txb, fd in self._spans(start_step, end_step):
+            total += flops / speed
+            total += float(txb.sum()) / hw.host_link_bw
+            total += float(tx.sum()) * hw.transfer_latency
+            total += fd
+        return total
+
+    def overlapped_span(self, hw: HardwareProfile, start_step: int = 0,
+                        end_step: Optional[int] = None) -> float:
+        """Overlapped-clock seconds of steps[start_step:end_step] only (no
+        host time): layer ``l``'s router output issues layer ``l+1``'s
+        fetches, so a step costs ``t_tx[0] + sum_l max(t_compute_l,
+        t_tx[l+1])`` with the step's compute split uniformly over its MoE
+        layers; fault delay serializes."""
+        speed = hw.peak_flops * hw.mfu
+        total = 0.0
+        for flops, tx, txb, fd in self._spans(start_step, end_step):
+            total += fd  # retry stalls serialize: nothing hides them
             L = len(tx)
             if L == 0:
                 total += flops / speed
@@ -153,15 +233,45 @@ class EngineMetrics:
         return total
 
     def modeled_time_overlapped(self, hw: HardwareProfile) -> float:
-        """Always <= :meth:`modeled_time` (``max(a, b) <= a + b``)."""
-        if not self.step_flops:
+        """Eq. 3 with cross-layer prefetch hiding (:meth:`overlapped_span`
+        over every step, dropped ones included, plus host time). Always
+        <= :meth:`modeled_time` (``max(a, b) <= a + b``)."""
+        if not self.step_flops and not self.overlapped_dropped:
             return self.modeled_time(hw)
-        return self.overlapped_span(hw)
+        return self.overlapped_dropped + self.overlapped_span(hw) + self.host_time
 
     def throughput(self, hw: HardwareProfile, batch: int = 1,
                    overlap: bool = False) -> float:
         t = self.modeled_time_overlapped(hw) if overlap else self.modeled_time(hw)
         return (self.decode_tokens * batch) / max(t, 1e-12)
+
+    # -- durable state (recovery checkpoints) ------------------------------
+    _STATE_SCALARS = (
+        "decode_tokens", "transfers", "transfer_bytes", "prefetch_transfers",
+        "prefetch_bytes", "host_executed", "compute_flops", "wall_time",
+        "prefill_wall_time", "host_time", "fault_delay_s", "fetch_retries",
+        "fetch_failures", "degraded_uses", "overlapped_dropped",
+    )
+    _STATE_LAYER_DICTS = (
+        "layer_tx", "layer_tx_bytes", "layer_prefetch_tx", "layer_prefetch_bytes",
+    )
+
+    def state(self) -> dict:
+        """Cumulative counters as a plain dict (the per-step records are
+        transient and left out). Layer-dict keys become strings, as the
+        reference's msgpack snapshots need."""
+        out = {k: getattr(self, k) for k in self._STATE_SCALARS}
+        for k in self._STATE_LAYER_DICTS:
+            out[k] = {str(i): v for i, v in getattr(self, k).items()}
+        return out
+
+    def load_state(self, state: dict) -> None:
+        for k in self._STATE_SCALARS:
+            if k in state:
+                setattr(self, k, state[k])
+        for k in self._STATE_LAYER_DICTS:
+            if k in state:
+                setattr(self, k, {int(i): v for i, v in state[k].items()})
 
 
 # ---------------------------------------------------------------------------
@@ -181,8 +291,9 @@ class ExpertSlab:
         self.residents: set = set()
         self.free: List[int] = list(range(capacity - 1, -1, -1))
         # expert id -> slot (C == "absent" sentinel; also the dispatch
-        # drop index)
+        # drop index), and slot -> expert id (the LoRA gather)
         self.slot_of_expert = np.full(num_experts, capacity, np.int64)
+        self.slot_expert = np.zeros(max(capacity, 1), np.int64)
         self.last_use: Dict[int, int] = {}  # physical LRU over compute use
         self.tick = 0
 
@@ -197,6 +308,7 @@ class ExpertSlab:
         caller copies the weights)."""
         slot = self.free.pop()
         self.slot_of_expert[e] = slot
+        self.slot_expert[slot] = e
         self.residents.add(e)
         return slot
 
@@ -240,9 +352,41 @@ class QuantLayout:
                 for k, v in leaves.items()}
 
 
+_PAGE = 4096
+
+
+def _host_buffer(shape, dtype, pin: bool) -> torch.Tensor:
+    """An empty host buffer, page-locked with ``cudaHostRegister`` when
+    ``pin``: exactly its own pages, released with the memory. (The caching
+    pinned allocator behind ``pin_memory=True`` rounds each buffer up to a
+    power of two and keeps freed ones for reuse, which a 30 GB store
+    cannot afford.) The memory is a numpy array that every tensor made of
+    it keeps alive; the lock is undone as that array goes, before numpy
+    frees it."""
+    nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    if not pin:
+        return torch.empty(shape, dtype=dtype)
+    raw = np.empty(nbytes + _PAGE, np.uint8)
+    off = -raw.ctypes.data % _PAGE  # page-aligned start
+    arr = raw[off:off + nbytes]
+    cudart = torch.cuda.cudart()
+    torch.cuda.check_error(cudart.cudaHostRegister(arr.ctypes.data, nbytes, 0))
+    weakref.finalize(raw, cudart.cudaHostUnregister, arr.ctypes.data)
+    return torch.from_numpy(arr).view(dtype).reshape(shape)
+
+
 def _tree_map(fn, tree):
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+    return ({k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict)
+            else fn(tree))
+
+
+def _unported(**knobs) -> None:
+    """Raise for the reference's engine options that wait for a module of
+    their own (name -> (given, what it needs))."""
+    given = [f"{k} (needs {needs})" for k, (on, needs) in knobs.items() if on]
+    if given:
+        raise NotImplementedError("OffloadedMoEEngine: " + ", ".join(given)
+                                  + " not ported yet")
 
 
 class OffloadedMoEEngine:
@@ -252,14 +396,33 @@ class OffloadedMoEEngine:
                  policy: str = "lfu", gamma: float = 0.9,
                  quantized: bool = False, quant_group: int = 32,
                  quantized_experts: Optional[List[Dict[str, MatmulQWeight]]] = None,
+                 host_store: Optional[List[Dict[str, torch.Tensor]]] = None,
                  hw: HardwareProfile = HardwareProfile(),
-                 kernel_backend: str = "auto", device=None):
+                 cpu_execute: bool = False, stream_all: bool = False,
+                 lora=None, lora_scale: float = 1.0,
+                 kernel_backend: str = "auto", impl: str = "slab",
+                 little_experts: bool = False, little_rank: int = 8,
+                 little_quantized: bool = False, fetch_policy=None,
+                 pressure_frac: float = 0.75, device=None):
         """``quantized_experts`` (with ``quantized``): per MoE layer, the
         INT4 experts already in the matmul layout (``{k: MatmulQWeight}``
         of ``(E, ...)`` leaves, e.g. from :meth:`quantized_experts` or
         ``bridge.quantized_experts_from_jax``), stored as given instead of
-        quantizing ``params``' experts."""
+        quantizing ``params``' experts. ``host_store``: the pinned expert
+        store of another engine of the same config and quantization
+        (``engine.host_store``), shared as it is: ``params``' expert
+        leaves are then not read. ``lora`` (the model's adapter tree,
+        ``core.lora``) is kept on the device, one slice per MoE layer.
+        ``little_rank``, ``little_quantized`` and ``pressure_frac`` only
+        matter with ``little_experts``, which is not ported."""
         assert cfg.has_router, "offload engine needs an MoE architecture"
+        _unported(
+            impl=(impl != "slab", "the reference's dict engine, the pre-rewrite "
+                                  "baseline of benchmarks/offload_bench.py"),
+            little_experts=(little_experts, "core/little_expert.py"),
+            fetch_policy=(fetch_policy is not None, "faults/"),
+            cpu_execute=(cpu_execute, "the host-execution (Fiddler) baseline"),
+            stream_all=(stream_all, "the stream-all baseline"))
         self.cfg = cfg
         self.quantized = quantized
         self.quant_group = quant_group
@@ -268,51 +431,67 @@ class OffloadedMoEEngine:
         self.hw = hw
         self.capacity = capacity
         self.moe_spec = cfg.moe_spec
+        self.lora_scale = lora_scale
         E, d, f = self.moe_spec.num_experts, cfg.d_model, self.moe_spec.d_ff
         dev = self.device
         pin = dev.type == "cuda"
         self._qlayout = (QuantLayout({"wg": (d, f), "wu": (d, f), "wd": (f, d)},
                                      quant_group) if quantized else None)
         self.quantize_s = 0.0  # seconds spent building the INT4 store
-        self.host_store_bytes = 0  # pinned host memory of the expert store
 
         # ---- unstack the scanned groups into a flat per-layer list; the
-        # expert weights go to the pinned host store, the rest to the device
-        self.layers: List[dict] = []  # {"spec", "params", "moe_idx"}
+        # expert weights go to the pinned host store, the rest (and the
+        # LoRA adapters) to the device
+        self.layers: List[dict] = []  # {"spec", "params", "lora", "moe_idx"}
         self.moe_layer_ids: List[int] = []
         # per MoE layer: wg/wu/wd (E, ...) views of one pinned (E, 3, d*f) buffer
-        self.host_store: List[Dict[str, torch.Tensor]] = []
+        self.host_store: List[Dict[str, torch.Tensor]] = list(host_store or [])
+        to_dev = lambda a: a.to(dev)  # noqa: E731
+        shared = (_tree_map(to_dev, params["shared"]) if "shared" in params else None)
         for gi, g in enumerate(cfg.layout):
-            gparams = params["groups"][f"g{gi}"]
+            gparams = params["groups"].get(f"g{gi}", {})
+            glora = (lora or {}).get(f"g{gi}", {})
             for r in range(g.repeats):
                 for pi, bname in enumerate(g.pattern):
                     b = cfg.block_defs[bname]
-                    if b.kind != "attn_moe":
-                        raise NotImplementedError(
-                            f"block kind {b.kind!r}: only attn_moe is ported")
+                    at_r = lambda a: a[r].to(dev)  # noqa: E731
+                    if b.kind == "shared_attn":
+                        self.layers.append({"spec": b, "params": shared, "lora": None})
+                        continue
                     bp = gparams[f"p{pi}"]
+                    if b.kind != "attn_moe":
+                        self.layers.append({"spec": b, "params": _tree_map(at_r, bp),
+                                            "lora": None})
+                        continue
                     ffn = bp["ffn"]
-                    lp = _tree_map(lambda a: a[r].to(dev),
-                                   {k: v for k, v in bp.items() if k != "ffn"})
+                    lp = _tree_map(at_r, {k: v for k, v in bp.items() if k != "ffn"})
                     lp["ffn"] = _tree_map(
-                        lambda a: a[r].to(dev),
-                        {k: v for k, v in ffn.items() if k not in _EXPERT_KEYS})
-                    w = {k: ffn[k][r] for k in _EXPERT_KEYS}
-                    if quantized:
-                        t0 = time.perf_counter()
-                        self._add_host_qexperts(
-                            w, quantized_experts, len(self.moe_layer_ids), pin)
-                        self.quantize_s += time.perf_counter() - t0
-                    else:
-                        self._add_host_experts(w, pin)
+                        at_r, {k: v for k, v in ffn.items() if k not in _EXPERT_KEYS})
+                    moe_idx = len(self.moe_layer_ids)
+                    if host_store is None:
+                        w = {k: ffn[k][r] for k in _EXPERT_KEYS}
+                        if quantized:
+                            t0 = time.perf_counter()
+                            self._add_host_qexperts(w, quantized_experts, moe_idx, pin)
+                            self.quantize_s += time.perf_counter() - t0
+                        else:
+                            self._add_host_experts(w, pin)
                     self.moe_layer_ids.append(len(self.layers))
-                    self.layers.append({"spec": b, "params": lp,
-                                        "moe_idx": len(self.moe_layer_ids) - 1})
+                    ll = (_tree_map(at_r, glora[f"p{pi}"]) if f"p{pi}" in glora
+                          else None)
+                    self.layers.append({"spec": b, "params": lp, "lora": ll,
+                                        "moe_idx": moe_idx})
+        if len(self.host_store) != len(self.moe_layer_ids):
+            raise ValueError(f"host_store holds {len(self.host_store)} MoE layers, "
+                             f"the config {len(self.moe_layer_ids)}")
         self.params_top = {k: v.to(dev) for k, v in params.items()
                            if k in ("embed", "lm_head", "final_norm")}
         leaf0 = next(iter(self.host_store[0].values()))
         self.expert_bytes = (self._qlayout.nbytes if quantized
                              else 3 * d * f * leaf0.element_size())
+        # one pinned buffer per layer, every view of a layer on its storage
+        self.host_store_bytes = sum(next(iter(s.values())).untyped_storage().nbytes()
+                                    for s in self.host_store)
 
         self.cache = ModelExpertCache(len(self.moe_layer_ids), E, capacity,
                                       policy=policy, gamma=gamma)
@@ -328,6 +507,8 @@ class OffloadedMoEEngine:
         ]
         self.slab_bytes = sum(b.nbytes for s in self._slabs
                               for b in s.buffers.values())
+        self.lora_bytes = sum(t.nbytes for layer in self.layers if layer["lora"]
+                              for ab in layer["lora"].values() for t in ab.values())
         # INT4 leaves of each slab, viewed in place
         self._slab_q = ([self._qlayout.views(s.buffers["q"]) for s in self._slabs]
                         if quantized else None)
@@ -340,14 +521,12 @@ class OffloadedMoEEngine:
         """Copy one layer's (E, ...) expert matrices into a pinned host
         buffer in which each expert's three matrices are contiguous."""
         E = w["wg"].shape[0]
-        buf = torch.empty((E, 3, w["wg"][0].numel()), dtype=w["wg"].dtype,
-                          pin_memory=pin)
+        buf = _host_buffer((E, 3, w["wg"][0].numel()), w["wg"].dtype, pin)
         views = {}
         for i, k in enumerate(_EXPERT_KEYS):
             buf[:, i].copy_(w[k].reshape(E, -1))
             views[k] = buf[:, i].unflatten(1, tuple(w[k].shape[1:]))
         self.host_store.append(views)
-        self.host_store_bytes += buf.nbytes
 
     def _add_host_qexperts(self, w: Dict[str, torch.Tensor], given, moe_idx: int,
                            pin: bool) -> None:
@@ -361,13 +540,11 @@ class OffloadedMoEEngine:
                                                    group=self.quant_group))
                   for k, v in w.items()}
         E = w["wg"].shape[0]
-        buf = torch.empty((E, self._qlayout.nbytes), dtype=torch.uint8,
-                          pin_memory=pin)
+        buf = _host_buffer((E, self._qlayout.nbytes), torch.uint8, pin)
         for k, dst in self._qlayout.views(buf).items():
             for leaf in ("packed", "scale", "zero"):
                 getattr(dst, leaf).copy_(getattr(mq[k], leaf))
         self.host_store.append({"q": buf})
-        self.host_store_bytes += buf.nbytes
 
     def quantized_experts(self) -> List[Dict[str, MatmulQWeight]]:
         """The INT4 store as ``{k: MatmulQWeight}`` of ``(E, ...)`` views of
@@ -447,30 +624,105 @@ class OffloadedMoEEngine:
     # ------------------------------------------------------------------
     # grouped expert compute
     # ------------------------------------------------------------------
-    def _group_core(self, w: Dict[str, torch.Tensor], slots: np.ndarray,
-                    h2f, gates):
-        """Sort the (N, K) top-k assignments into per-group buffers
-        (``slots`` holds each assignment's group, == G where its expert is
-        not in ``w``), run ONE grouped matmul per projection over all G
-        groups with ragged sizes, gate-combine. The index arithmetic runs
-        on the host, where the routed ids already are."""
-        G = w["wg"].shape[0]
-        N, K = slots.shape
-        flat = slots.reshape(-1)
-        oh = flat[:, None] == np.arange(G + 1)[None, :]
-        pos = (np.cumsum(oh, axis=0) * oh).sum(-1) - 1  # occurrences before self
-        keep = flat < G
+    def _low_rank(self, x, lora_t: dict, experts, out_dtype):
+        """The LoRA term of one projection over (U, n, din) rows of the
+        experts ``experts`` (U,): ``scale * (x @ a) @ b`` in fp32, cast to
+        ``out_dtype`` (the reference's ``low_rank``)."""
+        t = torch.bmm(x.float(), lora_t["a"][experts].float())
+        return (self.lora_scale * torch.bmm(t, lora_t["b"][experts].float())).to(out_dtype)
+
+    def _moe_sets(self, sets, h2f, gates, eids_np, lora):
+        """The routed experts' FFN over one or more group sets (the slab,
+        the overflow stack): each set is ``(w, slots, group_expert)`` with
+        ``w`` {wg, wu, wd: (G, ...)}, ``slots`` (N, K) each assignment's
+        group in the set (== G where no group of the set holds its
+        expert) and ``group_expert`` (G,) each group's expert id.
+
+        One grouped ``moe_gmm`` per projection and set, the tokens sorted
+        into per-group buffers (ragged sizes), or, for a single token,
+        broadcast into every active group (the reference's ``N == 1``
+        branch). LoRA runs once over the step's routed experts (sorted by
+        id) and one fp32 gate-combine takes every assignment, so which set
+        holds an expert changes nothing that is computed: residency (the
+        scheduling policy) never changes the tokens. Assignments in no set
+        (the INT4 spillover's) are left out. The index arithmetic runs on
+        the host, where the routed ids already are. Returns (N, d)."""
+        N, K = eids_np.shape
+        dm = h2f.shape[-1]
         dev = self.device
-        to_dev = lambda a: torch.as_tensor(a, dtype=torch.int32).to(dev)
-        keep_t = torch.as_tensor(keep.reshape(N, K)).to(dev)
-        d = Dispatch(eids=to_dev(slots), pos=to_dev(np.where(keep, pos, 0).reshape(N, K)),
-                     gates=torch.where(keep_t, gates, torch.zeros((), device=dev)),
+        to_dev = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32).to(dev)  # noqa: E731
+        be = self.rt.kernel_backend
+        stages = []
+        for w, slots, ge in sets:
+            G = w["wg"].shape[0]
+            flat = slots.reshape(-1)
+            oh = flat[:, None] == np.arange(G + 1)[None, :]
+            counts = oh.sum(0)[:G]
+            if N == 1:
+                active = torch.as_tensor(counts > 0).to(dev)
+                buf = h2f[None].expand(G, 1, dm) * active[:, None, None].to(h2f.dtype)
+            else:
+                pos = (np.cumsum(oh, axis=0) * oh).sum(-1) - 1  # occurrences before self
+                keep = flat < G
+                d = Dispatch(eids=to_dev(slots), pos=to_dev(np.where(keep, pos, 0).reshape(N, K)),
+                             gates=gates, cap=N)
+                buf = dispatch_tokens(d, h2f, G)  # (G, N, d) group-sorted
+            sizes = to_dev(counts)  # tokens per group (ragged gmm groups)
+            mm = lambda a, b, s=sizes: gmm_ops.gmm(a, b, s, backend=be)  # noqa: E731
+            stages.append({"w": w, "G": G, "flat": flat, "mm": mm, "buf": buf,
+                           "pos": None if N == 1 else np.where(flat < G, pos, 0),
+                           "hg": mm(buf, w["wg"]), "hu": mm(buf, w["wu"]),
+                           "ge": ge, "counts": counts})
+        if lora is not None:
+            routed = np.unique(eids_np)  # sorted; (U,)
+            U = routed.size
+            r_dev = torch.as_tensor(routed).to(dev)
+            for st in stages:  # each group's row in the routed batch; U = none
+                m = np.searchsorted(routed, st["ge"])
+                st["map"] = torch.as_tensor(np.where(st["counts"] > 0, m, U)).to(dev)
+
+            def routed_rows(key, width, dtype):  # every set's groups -> (U+1, n, width)
+                out = torch.zeros((U + 1, stages[0][key].shape[1], width), dtype=dtype,
+                                  device=dev)
+                for st in stages:  # inactive groups are zero rows, written to U
+                    out[st["map"]] = st[key]
+                return out[:U]
+
+            x_r = routed_rows("buf", dm, h2f.dtype)
+            hu0 = stages[0]["hu"]
+            lu = self._low_rank(x_r, lora["wu"], r_dev, hu0.dtype)
+            lu = torch.cat([lu, torch.zeros_like(lu[:1])])
+            for st in stages:
+                st["hu"] = st["hu"] + lu[st["map"]]
+        for st in stages:
+            st["h_act"] = silu(st["hg"]) * st["hu"]
+            st["yb"] = st["mm"](st["h_act"], st["w"]["wd"])
+        if lora is not None:
+            h_r = routed_rows("h_act", stages[0]["h_act"].shape[-1], stages[0]["h_act"].dtype)
+            ld = self._low_rank(h_r, lora["wd"], r_dev, stages[0]["yb"].dtype)
+            ld = torch.cat([ld, torch.zeros_like(ld[:1])])
+            for st in stages:
+                st["yb"] = st["yb"] + ld[st["map"]]
+        # one gate-combine over every assignment: its row in the sets' outputs
+        total = sum(st["G"] for st in stages)
+        idx = np.full(N * K, total, np.int64)
+        pos = np.zeros(N * K, np.int64)
+        off = 0
+        for st in stages:
+            here = st["flat"] < st["G"]
+            idx[here] = off + st["flat"][here]
+            if N > 1:
+                pos[here] = st["pos"][here]
+            off += st["G"]
+        yb = stages[0]["yb"] if len(stages) == 1 else torch.cat([st["yb"] for st in stages])
+        keep_t = torch.as_tensor(idx < total).to(dev).reshape(N, K)
+        g = torch.where(keep_t, gates, torch.zeros((), device=dev))
+        if N == 1:  # gate-combine by direct group gather
+            safe = torch.as_tensor(np.minimum(idx, total - 1)).to(dev)
+            return torch.einsum("kd,k->d", yb[safe, 0].float(), g[0])[None].to(yb.dtype)
+        d = Dispatch(eids=to_dev(idx.reshape(N, K)), pos=to_dev(pos.reshape(N, K)), gates=g,
                      cap=N)
-        buf = dispatch_tokens(d, h2f, G)  # (G, N, d) slot-sorted
-        sizes = to_dev(oh.sum(0)[:G])  # tokens per group (ragged gmm groups)
-        mm = lambda a, b: gmm_ops.gmm(a, b, sizes, backend=self.rt.kernel_backend)
-        h_act = silu(mm(buf, w["wg"])) * mm(buf, w["wu"])
-        return combine_tokens(d, mm(h_act, w["wd"]))  # (N, d)
+        return combine_tokens(d, yb)  # (N, d)
 
     def _prep_moe(self, moe_idx: int, eids_np: np.ndarray) -> List[int]:
         """Host half of a MoE layer's step: cache accounting (one
@@ -489,31 +741,33 @@ class OffloadedMoEEngine:
         return self._ensure_resident(moe_idx, needed)
 
     def _finish_moe(self, layer: dict, h2f, gates, eids, eids_np, missing):
-        """Device half: grouped compute over the slab (+ the shared expert)
-        and the overflow group. h2f (N, d) -> (N, d)."""
+        """Device half: grouped compute over the slab and, for the experts
+        it could not hold, the overflow stack (fp) or the per-expert INT4
+        spillover, + the shared expert. h2f (N, d) -> (N, d)."""
         moe_idx = layer["moe_idx"]
         slab = self._slabs[moe_idx]
+        lora = layer["lora"]
         if self.quantized:
-            y = self._quant_slab_group(moe_idx, h2f, gates, eids_np)
+            y = self._moe_sets([self._quant_slab_set(moe_idx, h2f, eids_np)], h2f, gates,
+                               eids_np, lora)
+            if missing:  # |needed| > C spillover / degenerate C < K
+                extra = self._quant_spillover(moe_idx, h2f, gates, eids, missing, lora)
+                y = y + extra.to(y.dtype)
         else:
-            y = self._group_core(slab.buffers, slab.slot_of_expert[eids_np], h2f,
-                                 gates)
+            sets = [(slab.buffers, slab.slot_of_expert[eids_np], slab.slot_expert)]
+            if missing:
+                sets.append(self._overflow_set(moe_idx, eids_np, missing))
+            y = self._moe_sets(sets, h2f, gates, eids_np, lora)
         if self.moe_spec.shared_d_ff:
             y = y + apply_mlp(layer["params"]["ffn"]["shared"], h2f)
-        if missing:  # |needed| > C spillover / degenerate C < K
-            if self.quantized:
-                extra = self._quant_spillover(moe_idx, h2f, gates, eids, missing)
-                y = y + extra.to(y.dtype)
-            else:
-                y = y + self._overflow_group(moe_idx, h2f, gates, eids_np, missing)
         return y
 
-    def _quant_slab_group(self, moe_idx: int, h2f, gates, eids_np):
-        """Grouped compute over the INT4 slab: the slots this step uses are
-        dequantized into the activation dtype (``dequant_ref`` batched over
-        slots, the JAX ``_dequant_slab_mat``; an unused slot would only
-        meet zero rows) and renumbered 0..G-1 for one ``moe_gmm`` per
-        projection."""
+    def _quant_slab_set(self, moe_idx: int, h2f, eids_np):
+        """The INT4 slab as a group set: the slots this step uses are
+        dequantized into the activation dtype (``dequant_ref`` batched
+        over slots, the JAX ``_dequant_slab_mat``; an unused slot would
+        only meet zero rows) and renumbered 0..G-1 (the LoRA gather
+        follows the renumbering)."""
         slab = self._slabs[moe_idx]
         slots = slab.slot_of_expert[eids_np]
         # never empty: the manager admits every miss, so the step's last
@@ -521,8 +775,7 @@ class OffloadedMoEEngine:
         used = np.unique(slots[slots < slab.C])
         remap = np.full(slab.C + 1, used.size, np.int64)
         remap[used] = np.arange(used.size)
-        w = self._dequant_slots(moe_idx, used, h2f.dtype)
-        return self._group_core(w, remap[slots], h2f, gates)
+        return self._dequant_slots(moe_idx, used, h2f.dtype), remap[slots], slab.slot_expert[used]
 
     def _dequant_slots(self, moe_idx: int, used: np.ndarray, dtype):
         """{k: (G, K, N)} weights of the slab slots ``used``, in ``dtype``."""
@@ -531,11 +784,13 @@ class OffloadedMoEEngine:
                                mq.group).to(dtype)
                 for k, mq in self._slab_q[moe_idx].items()}
 
-    def _quant_spillover(self, moe_idx: int, h2f, gates, eids, missing):
+    def _quant_spillover(self, moe_idx: int, h2f, gates, eids, missing, lora):
         """The experts the INT4 slab could not hold, one by one (the JAX
         ``_per_expert_contrib``): a copy into a reused INT4 buffer, then
         three ``qmatmul`` calls (the ``int4_matmul`` kernel on the card),
-        with gate-massed fp32 accumulation. Returns (N, d) fp32."""
+        with gate-massed fp32 accumulation. LoRA as the reference's eager
+        term: ``scale * ((x @ a) @ b)`` in the promoted type of ``x`` and
+        the adapters, cast to the activation type. Returns (N, d) fp32."""
         buf = self._overflow_buffers(len(missing))
         for i, e in enumerate(missing):
             self._load(moe_idx, e, buf, i)
@@ -547,33 +802,49 @@ class OffloadedMoEEngine:
                            dtype=torch.float32, device=self.device)
         mass.scatter_add_(1, eids.long(), gates.float())
         be = self.rt.kernel_backend
+        sc = self.lora_scale
+
+        def low_rank(x, t, e, out_dtype):
+            a, b = lora[t]["a"][e], lora[t]["b"][e]
+            ct = torch.promote_types(x.dtype, a.dtype)
+            return sc * ((x.to(ct) @ a.to(ct)) @ b.to(ct)).to(out_dtype)
+
         out = torch.zeros(h2f.shape, dtype=torch.float32, device=self.device)
         for i, e in enumerate(missing):
             w = {k: MatmulQWeight(v.packed[i], v.scale[i], v.zero[i], v.group)
                  for k, v in ws.items()}
-            h_act = (silu(qmatmul(h2f, w["wg"], backend=be))
-                     * qmatmul(h2f, w["wu"], backend=be))
+            hg = qmatmul(h2f, w["wg"], backend=be)
+            hu = qmatmul(h2f, w["wu"], backend=be)
+            if lora is not None:
+                hu = hu + low_rank(h2f, "wu", e, hu.dtype)
+            h_act = silu(hg) * hu
             ye = qmatmul(h_act, w["wd"], backend=be)
+            if lora is not None:
+                ye = ye + low_rank(h_act, "wd", e, ye.dtype)
             out = out + mass[:, e:e + 1] * ye.float()
         return out
 
-    def _overflow_group(self, moe_idx: int, h2f, gates, eids_np, missing):
-        """Grouped compute over a transient stack of the experts the slab
-        could not hold this step."""
+    def _overflow_set(self, moe_idx: int, eids_np, missing):
+        """A transient stack of the experts the slab could not hold this
+        step, as a group set."""
         w = self._overflow_buffers(len(missing))
         soe = np.full(self.moe_spec.num_experts, len(missing), np.int64)
         for i, e in enumerate(missing):
             soe[e] = i
             self._load(moe_idx, e, w, i)
-        return self._group_core(w, soe[eids_np], h2f, gates)
+        return w, soe[eids_np], np.asarray(missing, np.int64)
 
     # ------------------------------------------------------------------
     def _forward_layers_slab(self, x, positions, caches, decode_pos=None):
         """One engine step through every layer: attention (prefill through
-        the flash kernel, or one decode position), router, MoE."""
+        the flash kernel, or one decode position), router, MoE; a block
+        without experts runs whole (:meth:`_block_forward`)."""
         cfg = self.cfg
         for idx, layer in enumerate(self.layers):
             b, p = layer["spec"], layer["params"]
+            if b.kind != "attn_moe":
+                x = self._block_forward(layer, x, positions, caches, idx, decode_pos)
+                continue
             h = rms_norm(p["ln1"], x, cfg.norm_eps)
             if decode_pos is None:
                 y, (k, v) = attend_full(p["mixer"], b.attn, h, positions,
@@ -594,16 +865,49 @@ class OffloadedMoEEngine:
             x = xa + y.reshape(B, T, dm)
         return x
 
+    def _block_forward(self, layer: dict, x, positions, caches, idx, decode_pos=None):
+        """A block without experts (``attn_dense``, ``shared_attn``,
+        ``mamba``), whole on the device: full sequence (``decode_pos``
+        None, filling ``caches[idx]``) or one decode step."""
+        cfg, b, p = self.cfg, layer["spec"], layer["params"]
+        if b.kind == "mamba":
+            if decode_pos is None:
+                x2, aux = apply_block_full(p, cfg, b, x, positions, self.rt,
+                                           want_cache=True, cache_slots=0)
+                caches[idx] = aux["kv"]
+                return x2
+            h = rms_norm(p["ln1"], x, cfg.norm_eps)
+            y, caches[idx] = apply_mamba_decode(p["mixer"], h, caches[idx], b.ssm)
+            return x + y
+        h = rms_norm(p["ln1"], x, cfg.norm_eps)
+        if decode_pos is None:
+            y, (k, v) = attend_full(p["mixer"], b.attn, h, positions, b.attn.window,
+                                    return_kv=True, rt=self.rt)
+            caches[idx] = cache_from_prefill(k, v, b.attn, self._n_slots)
+        else:
+            y, caches[idx] = decode_attend(p["mixer"], b.attn, h, caches[idx],
+                                           decode_pos, b.attn.window)
+        x = x + y
+        h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+        return x + apply_mlp(p["ffn"], h2)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
-    def generate(self, prompt_tokens, max_new_tokens: int) -> dict:
+    def generate(self, prompt_tokens, max_new_tokens: int, *, quality: float = 1.0,
+                 deadline_s: Optional[float] = None) -> dict:
         """Greedy decoding. prompt_tokens (B, T) ints. Returns a dict with
-        tokens (B, max_new_tokens) int32, the last prompt position's
-        logits, metrics, both Eq.-3 clocks, the measured times and the
-        kernel launches of each phase by op and route."""
+        tokens (B, n) int32 (n = ``max_new_tokens`` unless stopped early),
+        the last prompt position's logits, metrics, both Eq.-3 clocks, the
+        measured times and the kernel launches of each phase by op and
+        route.
+
+        ``deadline_s`` bounds this call's serial Eq.-3 seconds: once the
+        steps so far have spent it, decoding stops (``stopped_early``).
+        ``quality`` is the reference's little-expert dial; without a
+        little bank (not ported) it has no effect, as in the reference."""
         cfg = self.cfg
         routes0 = dispatch.route_snapshot()
         t0 = time.perf_counter()
@@ -611,43 +915,53 @@ class OffloadedMoEEngine:
         B, T = toks.shape
         L_moe = len(self.moe_layer_ids)
         self._n_slots = T + max_new_tokens
+        m = self.metrics
+        elapsed = 0.0  # serial Eq.-3 seconds of this call's steps
+        stopped_early = False
 
-        self.metrics.begin_step(L_moe)
+        m.begin_step(L_moe)
         x = embed_tokens(self.params_top, cfg, toks)
         positions = torch.arange(T, device=self.device).expand(B, T)
         caches: List = [None] * len(self.layers)
         x = self._forward_layers_slab(x, positions, caches)
-        self.metrics.add_flops(self._flops_per_token * B * T)
+        m.add_flops(self._flops_per_token * B * T)
         logits = compute_logits(self.params_top, cfg, x[:, -1:])
         next_tok = torch.argmax(logits, -1).to(torch.int32)
         self._sync()
         t_prefill = time.perf_counter()
-        self.metrics.prefill_wall_time = t_prefill - t0
+        m.prefill_wall_time = t_prefill - t0
         routes1 = dispatch.route_snapshot()
+        elapsed += m.serial_span(self.hw, len(m.step_flops) - 1)
 
         out_tokens = [next_tok]
         pos = T
         for _ in range(max_new_tokens - 1):
-            self.metrics.begin_step(L_moe)
+            if deadline_s is not None and elapsed >= deadline_s:
+                stopped_early = True
+                break
+            m.begin_step(L_moe)
             x = embed_tokens(self.params_top, cfg, next_tok.long())
             x = self._forward_layers_slab(x, positions, caches, decode_pos=pos)
             next_tok = torch.argmax(compute_logits(self.params_top, cfg, x), -1
                                     ).to(torch.int32)
             out_tokens.append(next_tok)
             pos += 1
-            self.metrics.decode_tokens += 1
-            self.metrics.add_flops(self._flops_per_token * B)
-        self.metrics.decode_tokens += 1
+            m.decode_tokens += 1
+            m.add_flops(self._flops_per_token * B)
+            elapsed += m.serial_span(self.hw, len(m.step_flops) - 1)
+        m.decode_tokens += 1
         tokens = torch.cat(out_tokens, dim=1)
         self._sync()
-        m = self.metrics
         m.wall_time = time.perf_counter() - t0
         m.decode_wall_time = m.wall_time - m.prefill_wall_time
-        decode_steps = max_new_tokens - 1
+        m.host_time = (m.host_executed * (3 * 2 * cfg.d_model * self.moe_spec.d_ff)
+                       / self.hw.host_flops)
+        decode_steps = len(out_tokens) - 1
         return {
             "tokens": tokens,
             "prefill_logits": logits[:, 0],
             "metrics": m,
+            "stopped_early": stopped_early,
             "cache_stats": self.cache.stats(),
             "transfers_per_layer": self.cache.transfers_per_layer(),
             "throughput_tok_s": m.throughput(self.hw, batch=B),

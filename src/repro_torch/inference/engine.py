@@ -50,13 +50,14 @@ def truncate_at_stop(tokens: np.ndarray, stop_tokens) -> tuple:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, rt: Optional[Runtime] = None,
-                 lora=None, max_batch: int = 8, window_override: Optional[int] = None):
-        if lora is not None:
-            raise NotImplementedError("ServingEngine: LoRA is not ported yet")
+                 lora=None, lora_scale: float = 1.0, max_batch: int = 8,
+                 window_override: Optional[int] = None):
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
         self.rt = rt or Runtime(device=self.device, zero_drop=True)
+        self.lora = lora
+        self.lora_scale = lora_scale
         self.max_batch = max_batch
         self.window_override = window_override
 
@@ -81,7 +82,8 @@ class ServingEngine:
 
         logits, cache = prefill(self.params, self.cfg,
                                 torch.as_tensor(toks, device=self.device), self.rt,
-                                n_slots=n_slots, window_override=self.window_override)
+                                n_slots=n_slots, window_override=self.window_override,
+                                lora=self.lora, lora_scale=self.lora_scale)
         temps = np.asarray([r.temperature for r in requests], np.float32)
         cur = greedy(logits)
         outs = [cur]
@@ -89,7 +91,8 @@ class ServingEngine:
         for step in range(1, max_new):
             logits, cache, aux = decode_step(self.params, self.cfg, cur, cache, self.rt,
                                              window_override=self.window_override,
-                                             collect_probs=collect_probs)
+                                             collect_probs=collect_probs, lora=self.lora,
+                                             lora_scale=self.lora_scale)
             if collect_probs and aux["probs"]:
                 # aux["probs"]: list of (R, B, 1, E) -> (B, L, E)
                 p = torch.cat([a[:, :, 0] for a in aux["probs"]], dim=0)

@@ -1,22 +1,33 @@
-"""Continuous-batching serving launcher, PyTorch (counterpart of
-``repro.launch.bench_serve``, the fits-in-memory path):
+"""Serving launcher, PyTorch (counterpart of ``repro.launch.bench_serve``):
 
+    # fits-in-memory path: continuous batching, the whole model resident
     PYTHONPATH=src python -m repro_torch.launch.bench_serve --arch olmoe \
         --slots 4 --n-requests 8 --prompt-len 128 --max-new 32 \
         --arrival all_at_once [--scheduler fcfs|sjf|expert-affinity]
 
+    # offloaded path: expert-affinity waves with scheduler-driven prefetch
+    # over the offloaded expert cache (Sec 3.2)
+    PYTHONPATH=src python -m repro_torch.launch.bench_serve --arch olmoe \
+        --offloaded --capacity 16 --scheduler expert-affinity --slots 4 \
+        [--overlap]
+
 Synthesizes a Poisson/bursty/all-at-once workload over the ClusterLM
 prompt distribution (prompt lengths in [prompt-len/2, prompt-len],
 budgets in [max-new/2, max-new]), serves it through
-``ContinuousBatchingServer`` with the whole model resident on the device
-(random weights from seed 0, ``--dtype``, default the config's), and
-prints the ``ServerMetrics`` summary as JSON. Runs on ``cuda`` unless
-``--device cpu``.
+``ContinuousBatchingServer`` or, with ``--offloaded``,
+``OffloadedWaveServer`` (waves of ``--slots`` requests; the affinity
+scores are the oracle ``prefill_expert_scores``; C = ``--capacity``,
+0 => E/4, also the affinity scheduler's top-C), and prints the
+``ServerMetrics`` summary as JSON (offloaded: transfers, prefetch
+transfers, hit rate and both Eq.-3 clocks too). Weights are random from
+seed 0 in ``--dtype`` (default the config's), or ``--ckpt PATH`` (a
+params-only checkpoint). Runs on ``cuda`` unless ``--device cpu``.
 
-The offloaded path and the operations stack are not ported yet: their
-flags (``--offloaded``, ``--faults``, ``--trace``, ``--journal``,
-``--resume``, ``--little``, ``--ckpt``) exit with an error naming what
-is missing.
+The operations stack and the little-expert tier are not ported yet:
+their flags (``--faults``, ``--trace``, ``--journal``, ``--resume``,
+``--checkpoint-every``, ``--audit-every``, ``--cold-restore``,
+``--little``) exit with an error naming what is missing, and
+``--engine-impl dict`` raises in the engine.
 """
 from __future__ import annotations
 
@@ -32,21 +43,25 @@ from ..models.model import init_params
 from ..models.runtime import resolve_device
 from ..serving import (
     ContinuousBatchingServer,
+    OffloadedWaveServer,
     RequestQueue,
     TrafficConfig,
     get_scheduler,
+    prefill_expert_scores,
     synthesize_workload,
 )
+from .serve import load_params
 
 # flag -> what it needs; a flag given on the command line exits with an error
 UNPORTED = {
-    "--offloaded": "the OffloadedWaveServer",
     "--little": "core/little_expert.py",
     "--faults": "faults/",
     "--trace": "obs/",
     "--journal": "recovery/",
     "--resume": "recovery/",
-    "--ckpt": "a checkpoint loader (training/checkpoint.py)",
+    "--checkpoint-every": "recovery/",
+    "--audit-every": "recovery/",
+    "--cold-restore": "recovery/",
 }
 
 
@@ -72,6 +87,16 @@ def _parser() -> argparse.ArgumentParser:
                          "beyond it are shed (admission control)")
     ap.add_argument("--dtype", default=None, help="default: the config's dtype")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--ckpt", default=None,
+                    help="params-only checkpoint instead of random weights")
+    ap.add_argument("--offloaded", action="store_true",
+                    help="serve through the offloaded expert cache (Sec 3.2)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="advance the offloaded clock by the overlapped Eq.-3 "
+                         "model; both clocks are reported either way")
+    ap.add_argument("--capacity", type=int, default=0, help="0 => E/4 (offloaded)")
+    ap.add_argument("--engine-impl", default="slab", choices=["slab", "dict"],
+                    help="offloaded engine implementation (dict: not ported, raises)")
     for flag, needs in UNPORTED.items():
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=f"not ported yet (needs {needs})")
@@ -87,10 +112,17 @@ def main(argv=None):
                                                 for f in given))
 
     cfg = get_config(args.arch)
+    if args.offloaded and not cfg.has_router:
+        ap.error("--offloaded applies to MoE architectures")
     dev = resolve_device(args.device)
-    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
-                         dtype=cdtype(args.dtype or cfg.dtype), device=dev)
-    print("using randomly initialized weights (demo mode)")
+    dt = cdtype(args.dtype or cfg.dtype)
+    if args.ckpt:
+        params, meta = load_params(cfg, args.ckpt, dtype=dt, device=dev)
+        print(f"loaded {args.ckpt} ({meta})")
+    else:
+        params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                             dtype=dt, device=dev)
+        print("using randomly initialized weights (demo mode)")
 
     lm = ClusterLM(SyntheticConfig(vocab=cfg.vocab, seq_len=args.prompt_len * 2,
                                    seed=args.seed + 3))
@@ -100,10 +132,24 @@ def main(argv=None):
         max_new_tokens=(max(args.max_new // 2, 1), args.max_new),
         temperature=args.temperature, seed=args.seed, slo=args.slo,
     )
-    queue = RequestQueue(synthesize_workload(lm, tcfg), max_pending=args.max_backlog)
-    srv = ContinuousBatchingServer(
-        cfg, params, n_slots=args.slots, max_len=args.prompt_len + args.max_new + 1,
-        scheduler=get_scheduler(args.scheduler), seed=args.seed)
+    requests = synthesize_workload(lm, tcfg)
+    queue = RequestQueue(requests, max_pending=args.max_backlog)
+    if args.offloaded:
+        if args.temperature > 0:
+            print("note: the offloaded engine decodes greedily; "
+                  "--temperature is ignored on this path")
+        capacity = args.capacity or cfg.melinoe_cache_capacity()
+        prefill_expert_scores(cfg, params, requests)  # oracle profiles
+        kw = {"top_c": capacity} if args.scheduler == "expert-affinity" else {}
+        srv = OffloadedWaveServer(
+            cfg, params, capacity=capacity, scheduler=get_scheduler(args.scheduler, **kw),
+            wave_size=args.slots, overlap=args.overlap, engine_impl=args.engine_impl,
+            seed=args.seed, device=dev)
+        del params  # the engine keeps its experts in pinned host memory
+    else:
+        srv = ContinuousBatchingServer(
+            cfg, params, n_slots=args.slots, max_len=args.prompt_len + args.max_new + 1,
+            scheduler=get_scheduler(args.scheduler), seed=args.seed)
     results, mt = srv.run(queue)
     for r in results[: min(4, len(results))]:
         print(f"  rid={r.rid} {len(r.tokens)} toks ({r.finish_reason}) "

@@ -16,15 +16,18 @@ layers ``moe_gmm``) and a greedy ``decode_step`` loop, each timed to a
 device synchronize, with the launches of each phase and the peak device
 memory.
 
-Random weights from ``--seed`` (no checkpoint loader yet), the slab
-offload engine with the cache policy and capacity C, batched greedy
-generation, then a report of transfers, hit rate, both Eq.-3 modeled
-clocks and the measured prefill seconds and decode tokens/s.
-``--quantized`` keeps every expert in HQQ INT4 (paper Sec 3.2, group
-32); the report then also gives ``quantize_s``, the seconds spent
-building the INT4 store (not part of ``prefill_s``). Runs on ``cuda``
-unless ``--device cpu``. Counterpart of ``repro.launch.serve`` without
-``--predictor`` and ``--ckpt``.
+Random weights from ``--seed``, or a params-only checkpoint
+(``--ckpt PATH``: ``training.save_checkpoint`` of the parameter tree, in
+either package; read with a like-tree of the config's fp32 shapes, as
+the reference does, then cast to ``--dtype``), the slab offload engine
+with the cache policy and capacity C, batched greedy generation, then a
+report of transfers, hit rate, both Eq.-3 modeled clocks and the
+measured prefill seconds and decode tokens/s. ``--quantized`` keeps
+every expert in HQQ INT4 (paper Sec 3.2, group 32); the report then
+also gives ``quantize_s``, the seconds spent building the INT4 store
+(not part of ``prefill_s``). Runs on ``cuda`` unless ``--device cpu``.
+Counterpart of ``repro.launch.serve`` without ``--predictor`` (it needs
+``core/predictor.py``).
 """
 from __future__ import annotations
 
@@ -37,12 +40,14 @@ import torch
 
 from ..configs import get_config
 from ..core.offload_engine import HardwareProfile, OffloadedMoEEngine
+from ..bridge import params_from_jax
 from ..data.synthetic import ClusterLM, SyntheticConfig
 from ..inference.sampling import greedy
 from ..kernels import _build, dispatch
 from ..models.common import cdtype
 from ..models.model import decode_step, init_params, prefill
 from ..models.runtime import Runtime, resolve_device
+from ..training.checkpoint import load_checkpoint
 
 
 def make_prompts(vocab: int, batch: int, prompt_len: int) -> np.ndarray:
@@ -53,31 +58,52 @@ def make_prompts(vocab: int, batch: int, prompt_len: int) -> np.ndarray:
                     ).astype(np.int32)
 
 
+def load_params(cfg, ckpt, *, dtype, device):
+    """A params-only checkpoint (either package's ``save_checkpoint`` of
+    the parameter tree) read with a like-tree of the config's fp32 shapes
+    (built on the ``meta`` device: no memory), then through the bridge:
+    floating leaves cast to ``dtype`` (the router and SSM constants stay
+    fp32), on ``device``. Returns (params, metadata)."""
+    like = init_params(cfg, generator=torch.Generator(), dtype=torch.float32,
+                       device="meta")
+    tree, _, meta = load_checkpoint(ckpt, like)
+    return params_from_jax(tree, cfg, dtype=dtype, device=device), meta
+
+
 def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         prompt_len: int = 32, max_new: int = 64, dtype=None, device=None,
         seed: int = 0, kernel_backend: str = "auto", quantized: bool = False,
-        quantized_experts=None, keep_store: bool = False) -> dict:
-    """Build a random-init model, serve one batch through the offloaded
-    engine, and return the report (scalars, plus ``tokens`` and the last
-    prompt position's ``prefill_logits``).
+        quantized_experts=None, keep_store: bool = False, host_store=None,
+        ckpt=None) -> dict:
+    """Build a random-init model (or read ``ckpt``), serve one batch
+    through the offloaded engine, and return the report (scalars, plus
+    ``tokens`` and the last prompt position's ``prefill_logits``).
 
-    With ``quantized``: ``quantized_experts`` (the ``quantized_experts``
-    of an earlier report) serves those INT4 codes instead of quantizing
-    again, and ``keep_store`` puts the engine's INT4 store into the report
-    under ``quantized_experts`` (views of pinned host memory)."""
+    ``keep_store`` puts the engine's pinned expert store into the report
+    under ``host_store`` (and, quantized, under ``quantized_experts`` as
+    INT4 views); an earlier report's ``host_store`` given back serves
+    those experts without drawing or copying them again (the same seed
+    gives the same other weights). With ``quantized``,
+    ``quantized_experts`` serves those INT4 codes instead of quantizing
+    again."""
     cfg = get_config(arch)
     if not cfg.has_router:
         raise ValueError("offloaded serving applies to MoE architectures")
     dev = resolve_device(device)
     dt = cdtype(dtype or cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    # a model served from host memory keeps its experts there from the start
-    params = init_params(cfg, generator=gen, dtype=dt, device=dev,
-                         expert_device="cpu")
+    if ckpt is not None:  # the engine moves what it keeps on the device
+        params, _ = load_params(cfg, ckpt, dtype=dt, device="cpu")
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        # a model served from host memory keeps its experts there from the
+        # start; with a store given they are drawn (the same stream) and dropped
+        params = init_params(cfg, generator=gen, dtype=dt, device=dev,
+                             expert_device="cpu" if host_store is None else "meta")
     capacity = capacity or cfg.melinoe_cache_capacity()
     engine = OffloadedMoEEngine(cfg, params, capacity=capacity, policy=policy,
                                 quantized=quantized,
                                 quantized_experts=quantized_experts,
+                                host_store=host_store,
                                 hw=HardwareProfile(), kernel_backend=kernel_backend,
                                 device=dev)
     del params  # the engine holds the experts in its pinned store
@@ -115,8 +141,10 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         "tokens": res["tokens"].cpu().numpy(),
         "prefill_logits": res["prefill_logits"].cpu(),
     }
-    if keep_store and quantized:
-        rep["quantized_experts"] = engine.quantized_experts()
+    if keep_store:
+        rep["host_store"] = engine.host_store
+        if quantized:
+            rep["quantized_experts"] = engine.quantized_experts()
     return rep
 
 
@@ -127,17 +155,21 @@ def _sync(dev) -> None:
 
 def run_full(arch: str, *, batch: int = 2, prompt_len: int = 32, max_new: int = 64,
              dtype=None, device=None, seed: int = 0, kernel_backend: str = "auto",
-             keep_params: bool = False) -> dict:
+             keep_params: bool = False, ckpt=None) -> dict:
     """Serve one batch through the full-model path, the whole model
-    resident on the device, and return the report (scalars, the launches of each phase,
+    resident on the device (random from ``seed``, or read from ``ckpt``),
+    and return the report (scalars, the launches of each phase,
     ``tokens`` (B, max_new) and the last prompt position's
     ``prefill_logits`` (B, V)). ``keep_params`` puts the weights into the
     report under ``params``."""
     cfg = get_config(arch)
     dev = resolve_device(device)
     dt = cdtype(dtype or cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    params = init_params(cfg, generator=gen, dtype=dt, device=dev)
+    if ckpt is not None:
+        params, _ = load_params(cfg, ckpt, dtype=dt, device=dev)
+    else:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = init_params(cfg, generator=gen, dtype=dt, device=dev)
     rt = Runtime(kernel_backend=kernel_backend, device=dev)
     if dev.type == "cuda":
         _build.lib()  # build the kernels now, not inside the timed prefill
@@ -204,13 +236,16 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--quantized", action="store_true",
                     help="HQQ INT4 experts (Sec 3.2)")
+    ap.add_argument("--ckpt", default=None,
+                    help="params-only checkpoint (save_checkpoint of the parameter "
+                         "tree, e.g. a merge_lora'd fine-tune) instead of random weights")
     args = ap.parse_args(argv)
     if not get_config(args.arch).has_router:
         if args.quantized:
             ap.error("--quantized applies to the offloaded MoE path")
         rep = run_full(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                        max_new=args.max_new, dtype=args.dtype, device=args.device,
-                       seed=args.seed)
+                       seed=args.seed, ckpt=args.ckpt)
         print(f"full-model path: {args.max_new} tokens x batch {args.batch} on "
               f"{rep['device_name']}; prefill={rep['prefill_s']:.4f} s, "
               f"decode={rep['decode_tok_s']:.2f} tok/s, launches {rep['launches']}")
@@ -220,7 +255,9 @@ def main(argv=None):
     rep = run(args.arch, capacity=args.capacity, policy=args.policy,
               batch=args.batch, prompt_len=args.prompt_len, max_new=args.max_new,
               dtype=args.dtype, device=args.device, seed=args.seed,
-              quantized=args.quantized)
+              quantized=args.quantized, ckpt=args.ckpt)
+    if args.ckpt:
+        print(f"loaded {args.ckpt}")
     print(f"generated {rep['decode_tokens']} tokens x batch {args.batch} "
           f"on {rep['device_name']}")
     print(f"transfers={rep['transfers']} ({rep['transfers_per_layer']:.1f}/layer), "

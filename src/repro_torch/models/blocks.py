@@ -4,8 +4,8 @@
 An ``attn_moe`` block runs its MoE FFN through ``moe.apply_moe`` (the
 local path, ``moe_gmm`` for the expert products); with ``want_probs`` its
 aux carries the router distribution (B, T, E). Decode forces
-``zero_drop``, as the reference does. LoRA adapters raise until their
-slice is ported.
+``zero_drop``, as the reference does. ``lora`` (one block's adapters,
+``{"wu"|"wd": {"a", "b"}}``) is merged into its expert weights.
 """
 from __future__ import annotations
 

@@ -24,6 +24,10 @@ continuous-batching server's slot pool). Unlike the JAX version,
 
 Router probes (``collect_probs``) come back in the JAX layout: a list of
 (R, B, T, E) router distributions, one per (group, MoE position).
+
+LoRA trees (``lora``, from ``core.lora`` or ``bridge.lora_from_jax``)
+mirror ``params["groups"]``; each repeat takes its slice of the stacked
+adapters, as the reference's scan does.
 """
 from __future__ import annotations
 
@@ -110,18 +114,25 @@ def _block_params(params, gparams, b, pi: int, r: int):
     return _index(gparams[f"p{pi}"], r)
 
 
+def _block_lora(lora_g, pi: int, r: int):
+    """Repeat ``r`` of position ``pi``'s adapters, or None."""
+    if lora_g is None or f"p{pi}" not in lora_g:
+        return None
+    return _index(lora_g[f"p{pi}"], r)
+
+
 def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=None,
                 melinoe=None, collect_probs: bool = False, want_cache: bool = False,
                 cache_slots: int = 0, window_override: Optional[int] = None,
-                lora=None, remat: bool = False):
+                lora=None, lora_scale: float = 1.0, remat: bool = False):
     """tokens (B, T) -> (logits (B, T, V) fp32, aux); ``aux["cache"]``
     holds the per-group stacked block caches when ``want_cache``,
     ``aux["probs"]`` the router distributions when ``collect_probs``.
 
-    Tokens only: ``prefix_embed``, ``melinoe``, ``lora`` and ``remat``
-    raise until their slices are ported."""
+    Tokens only: ``prefix_embed``, ``melinoe`` and ``remat`` raise until
+    their slices are ported."""
     unported = {"prefix_embed": prefix_embed is not None, "melinoe": melinoe is not None,
-                "lora": lora is not None, "remat": remat}
+                "remat": remat}
     if any(unported.values()):
         raise NotImplementedError(
             f"apply_model: {[k for k, v in unported.items() if v]} not ported yet")
@@ -131,6 +142,7 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
     cache, probs_out = {}, []
     for gi, g in enumerate(cfg.layout):
         gparams = params["groups"][f"g{gi}"]
+        lora_g = lora.get(f"g{gi}") if lora is not None else None
         kv = [[] for _ in g.pattern]
         probs = [[] for _ in g.pattern]
         for r in range(g.repeats):
@@ -140,7 +152,8 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
                     _block_params(params, gparams, b, pi, r), cfg, b, x, positions, rt,
                     window_override=window_override, want_cache=want_cache,
                     cache_slots=cache_slots,
-                    want_probs=collect_probs and b.moe is not None)
+                    want_probs=collect_probs and b.moe is not None,
+                    lora=_block_lora(lora_g, pi, r), lora_scale=lora_scale)
                 if want_cache:
                     kv[pi].append(aux["kv"])
                 if "probs" in aux:
@@ -159,11 +172,13 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
 
 
 def prefill(params, cfg: ModelConfig, tokens, rt: Runtime, *,
-            n_slots: Optional[int] = None, window_override: Optional[int] = None):
+            n_slots: Optional[int] = None, window_override: Optional[int] = None,
+            lora=None, lora_scale: float = 1.0):
     """Process the prompt, returning (last-position logits (B,1,V), cache)."""
     logits, aux = apply_model(params, cfg, tokens, rt, want_cache=True,
                               cache_slots=n_slots or tokens.shape[1],
-                              window_override=window_override)
+                              window_override=window_override, lora=lora,
+                              lora_scale=lora_scale)
     return logits[:, -1:], aux["cache"]
 
 
@@ -190,18 +205,17 @@ def init_cache(cfg: ModelConfig, batch: int, n_slots: int, dtype=None,
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, rt: Runtime, *,
                 window_override: Optional[int] = None, collect_probs: bool = False,
-                lora=None):
+                lora=None, lora_scale: float = 1.0):
     """One autoregressive step. tokens (B, 1); ``cache["pos"]`` an int (the
     batch in lockstep) or a (B,) tensor (per-row positions). Returns
     (logits (B,1,V), cache, aux); the cache is updated in place, and
     ``aux["probs"]`` holds the router distributions when ``collect_probs``."""
-    if lora is not None:
-        raise NotImplementedError("decode_step: lora is not ported yet")
     pos = cache["pos"]
     x = embed_tokens(params, cfg, tokens)
     probs_out = []
     for gi, g in enumerate(cfg.layout):
         gparams, gcache = params["groups"][f"g{gi}"], cache[f"g{gi}"]
+        lora_g = lora.get(f"g{gi}") if lora is not None else None
         probs = [[] for _ in g.pattern]
         for r in range(g.repeats):
             for pi, bname in enumerate(g.pattern):
@@ -210,7 +224,8 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, rt: Runtime, *,
                 x, new_c, aux = apply_block_decode(
                     _block_params(params, gparams, b, pi, r), cfg, b, x, c, pos, rt,
                     window_override=window_override,
-                    want_probs=collect_probs and b.moe is not None)
+                    want_probs=collect_probs and b.moe is not None,
+                    lora=_block_lora(lora_g, pi, r), lora_scale=lora_scale)
                 for dst, src in zip(c, new_c):
                     if src.data_ptr() != dst.data_ptr():
                         dst.copy_(src)

@@ -5,9 +5,11 @@ Dispatch is GShard-style: per-expert capacity ``cap``; overflow tokens
 are dropped (gate mass zeroed), the later tokens first. ``zero_drop``
 (decode) sizes the buffer at N tokens so nothing can drop. The grouped
 expert FFN goes through ``kernels.moe_gmm`` with each expert's kept
-count as its group size, so the kernel skips empty experts. The sharded
-path (expert parallelism over a mesh) and LoRA adapters are not ported:
-``apply_moe`` runs the local path, and ``lora`` raises.
+count as its group size, so the kernel skips empty experts. LoRA
+adapters on the expert projections are merged into the weights before
+the grouped products, as the reference does. The sharded path (expert
+parallelism over a mesh) is not ported: ``apply_moe`` runs the local
+path.
 """
 from __future__ import annotations
 
@@ -125,9 +127,14 @@ def combine_tokens(d: Dispatch, buf):
 
 
 def _expert_weights(params, lora: Optional[dict], lora_scale: float, name: str):
-    if lora is not None:
-        raise NotImplementedError("MoE LoRA adapters are not ported yet")
-    return params[name]
+    """``params[name]`` with the adapter's delta ``scale * a @ b`` (fp32,
+    cast once to the weight's dtype) merged in, where ``lora`` has one."""
+    w = params[name]
+    if lora is not None and name in lora:
+        a, b = lora[name]["a"], lora[name]["b"]
+        delta = torch.einsum("edr,erf->edf", a.float(), b.float())
+        w = w + (lora_scale * delta).to(w.dtype)
+    return w
 
 
 def expert_ffn(params, buf, rt: Runtime, lora: Optional[dict] = None,

@@ -1,5 +1,5 @@
 """Continuous-batching serving subsystem with expert-affinity scheduling
-(counterpart of ``repro/serving``, the fits-in-memory half).
+(counterpart of ``repro/serving``).
 
 Layers:
   request.py    — ServeRequest / ServeResult
@@ -10,8 +10,9 @@ Layers:
   scorers.py    — per-request expert-preference scorers (oracle; the
                   Psi predictor waits for core/predictor.py)
                   (``profiling.py`` is a deprecated alias)
-  server.py     — ContinuousBatchingServer (fits path) and serve_static;
-                  OffloadedWaveServer is not ported yet
+  server.py     — ContinuousBatchingServer (fits path), serve_static,
+                  and OffloadedWaveServer (offloaded path: expert-affinity
+                  waves with scheduler-driven prefetch)
 """
 from .batch import BatchState, SlotState
 from .metrics import ServerMetrics
@@ -30,7 +31,7 @@ from .scorers import (
     prefill_expert_scores,
     prompt_router_profile,
 )
-from .server import ContinuousBatchingServer, serve_static
+from .server import ContinuousBatchingServer, OffloadedWaveServer, serve_static
 
 __all__ = [
     "BatchState",
@@ -48,6 +49,7 @@ __all__ = [
     "ExpertAffinityScheduler",
     "get_scheduler",
     "ContinuousBatchingServer",
+    "OffloadedWaveServer",
     "serve_static",
     "prefill_expert_scores",
     "predictor_expert_scores",

@@ -24,14 +24,15 @@ from .request import ServeRequest
 
 @torch.inference_mode()
 def prompt_router_profile(cfg: ModelConfig, params, prompt: np.ndarray, *,
-                          rt: Optional[Runtime] = None, lora=None) -> np.ndarray:
+                          rt: Optional[Runtime] = None, lora=None,
+                          lora_scale: float = 1.0) -> np.ndarray:
     """One forward pass over the prompt -> (L, E) mean router probs."""
     device = params["embed"].device
     rt = rt or Runtime(device=device, zero_drop=True)
     _, aux = apply_model(params, cfg,
                          torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                          device=device)[None],
-                         rt, collect_probs=True, lora=lora)
+                         rt, collect_probs=True, lora=lora, lora_scale=lora_scale)
     # aux["probs"]: list of (R, 1, T, E) per (group, position) -> (L, E)
     per_layer = [p[:, 0].mean(dim=1) for p in aux["probs"]]  # [(R, E), ...]
     return torch.cat(per_layer, dim=0).float().cpu().numpy()
@@ -39,11 +40,13 @@ def prompt_router_profile(cfg: ModelConfig, params, prompt: np.ndarray, *,
 
 def prefill_expert_scores(cfg: ModelConfig, params,
                           requests: Sequence[ServeRequest], *,
-                          rt: Optional[Runtime] = None, lora=None) -> List[np.ndarray]:
+                          rt: Optional[Runtime] = None, lora=None,
+                          lora_scale: float = 1.0) -> List[np.ndarray]:
     """Annotate ``requests`` in place with oracle prompt profiles."""
     scores = []
     for r in requests:
-        s = prompt_router_profile(cfg, params, r.prompt, rt=rt, lora=lora)
+        s = prompt_router_profile(cfg, params, r.prompt, rt=rt, lora=lora,
+                                  lora_scale=lora_scale)
         r.expert_scores = s
         scores.append(s)
     return scores

@@ -1,7 +1,7 @@
-"""Continuous-batching server over the full model (counterpart of
-``repro/serving/server.py``, the fits-in-memory half).
+"""Continuous-batching and wave servers over both inference engines
+(counterpart of ``repro/serving/server.py``).
 
-``ContinuousBatchingServer`` runs the single-step decode over a fixed
+``ContinuousBatchingServer`` (fits-in-memory path) runs the single-step decode over a fixed
 pool of KV slots. Sequences live at independent positions (the per-row
 ``pos`` vector threaded through ``decode_attend``); finished sequences
 retire on a stop token or their token budget and the freed slot is
@@ -18,8 +18,17 @@ last ``run`` keeps them in ``span_s`` ({"serve.prefill": [s, ...],
 (``clock_span``) and fault seams (``get_fault_plan``) come with ``obs/``
 and ``faults/``, not ported yet.
 So do the crash-safety knobs of ``run`` (``journal``,
-``checkpoint_every``, ``audit_every``, ``resume``), which raise, and
-``OffloadedWaveServer``.
+``checkpoint_every``, ``audit_every``, ``resume``), which raise.
+
+``OffloadedWaveServer`` (memory-constrained path, Sec 3.2) drives the
+port's ``OffloadedMoEEngine``: the scheduler picks the next wave of
+requests, the mean of their predicted expert scores is prefetched (Eq.
+7), and the wave is decoded one request at a time over the shared
+resident cache. Its clock advances by the Eq.-3 cost model (demand
+misses AND prefetch copies), serial or overlapped, so its latencies are
+the reference's exactly for the same counts. The measured seconds are
+kept beside it: ``wall_time``, and per request the engine's prefill and
+decode wall seconds and decode steps (``span_s``).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.offload_engine import HardwareProfile, OffloadedMoEEngine
 from ..inference.engine import Request, ServingEngine, truncate_at_stop
 from ..inference.sampling import greedy, row_generator, sample_per_row
 from ..models.model import decode_step, prefill
@@ -76,6 +86,15 @@ def _reject_unservable(queue: RequestQueue, now: float, mt: ServerMetrics,
         ))
 
 
+def _refuse_recovery(who: str, journal, checkpoint_every, audit_every, resume) -> None:
+    """The crash-safety knobs of ``run`` need ``recovery/``: raise if any is set."""
+    unported = {"journal": journal is not None, "checkpoint_every": bool(checkpoint_every),
+                "audit_every": bool(audit_every), "resume": resume is not None}
+    if any(unported.values()):
+        raise NotImplementedError(f"{who}: {[k for k, v in unported.items() if v]} "
+                                  "need recovery/, not ported yet")
+
+
 class ContinuousBatchingServer:
     """In-flight batching over the single-step decode."""
 
@@ -89,11 +108,10 @@ class ContinuousBatchingServer:
         scheduler: Optional[Scheduler] = None,
         rt: Optional[Runtime] = None,
         lora=None,
+        lora_scale: float = 1.0,
         window_override: Optional[int] = None,
         seed: int = 0,
     ):
-        if lora is not None:
-            raise NotImplementedError("ContinuousBatchingServer: LoRA is not ported yet")
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
@@ -101,6 +119,8 @@ class ContinuousBatchingServer:
         self.scheduler = scheduler or FCFSScheduler()
         self.n_slots = n_slots
         self.max_len = max_len
+        self.lora = lora
+        self.lora_scale = lora_scale
         self.window_override = window_override
         self.seed = seed  # request-keyed sampling: row_generator(seed, rid, step)
         self.cache = self._fresh_cache()
@@ -110,10 +130,12 @@ class ContinuousBatchingServer:
         with torch.inference_mode():
             dummy = torch.zeros((n_slots, 1), dtype=torch.long, device=self.device)
             decode_step(params, cfg, dummy, self.cache, self.rt,
-                        window_override=window_override)
+                        window_override=window_override, lora=lora,
+                        lora_scale=lora_scale)
             self.cache["pos"].zero_()
             _, pre = prefill(params, cfg, dummy[:1], self.rt, n_slots=max_len,
-                             window_override=window_override)
+                             window_override=window_override, lora=lora,
+                             lora_scale=lora_scale)
             self._insert_row(self.cache, pre, 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -126,7 +148,8 @@ class ContinuousBatchingServer:
         produce; rows are garbage until a request is inserted."""
         dummy = torch.zeros((self.n_slots, 1), dtype=torch.long, device=self.device)
         _, cache = prefill(self.params, self.cfg, dummy, self.rt, n_slots=self.max_len,
-                           window_override=self.window_override)
+                           window_override=self.window_override, lora=self.lora,
+                           lora_scale=self.lora_scale)
         cache["pos"] = torch.zeros((self.n_slots,), dtype=torch.long,
                                    device=self.device)  # per-row positions
         return cache
@@ -160,7 +183,8 @@ class ContinuousBatchingServer:
         logits, pre_cache = prefill(
             self.params, self.cfg,
             torch.as_tensor(inp, dtype=torch.long, device=self.device)[None],
-            self.rt, n_slots=self.max_len, window_override=self.window_override)
+            self.rt, n_slots=self.max_len, window_override=self.window_override,
+            lora=self.lora, lora_scale=self.lora_scale)
         self._insert_row(self.cache, pre_cache, slot)
         state.occupy(slot, req, now)
         mt.prefill_tokens += len(inp)
@@ -180,7 +204,8 @@ class ContinuousBatchingServer:
         logits, self.cache, _ = decode_step(
             self.params, self.cfg, torch.as_tensor(cur, dtype=torch.long,
                                                    device=self.device),
-            self.cache, self.rt, window_override=self.window_override)
+            self.cache, self.rt, window_override=self.window_override,
+            lora=self.lora, lora_scale=self.lora_scale)
         temps = np.zeros(self.n_slots, np.float32)
         gens: list = [None] * self.n_slots
         for s in active:
@@ -211,12 +236,8 @@ class ContinuousBatchingServer:
 
         ``journal``, ``checkpoint_every``, ``audit_every`` and ``resume``
         need ``recovery/``, which is not ported yet: they raise."""
-        unported = {"journal": journal is not None, "checkpoint_every": bool(checkpoint_every),
-                    "audit_every": bool(audit_every), "resume": resume is not None}
-        if any(unported.values()):
-            raise NotImplementedError(
-                f"ContinuousBatchingServer.run: {[k for k, v in unported.items() if v]} "
-                "need recovery/, not ported yet")
+        _refuse_recovery("ContinuousBatchingServer.run", journal, checkpoint_every,
+                         audit_every, resume)
         mt = metrics or ServerMetrics(policy=self.scheduler.name)
         self.span_s = {"serve.prefill": [], "serve.decode_step": []}
         state = BatchState(self.n_slots, self.max_len)
@@ -308,6 +329,210 @@ class ContinuousBatchingServer:
 
         _reject_unservable(queue, now, mt, results)
         self.drained = should_drain is not None and should_drain()
+        mt.wall_time += time.perf_counter() - t_wall0
+        return sorted(results, key=lambda r: r.rid), mt
+
+
+# ---------------------------------------------------------------------------
+# Offloaded path: scheduler-driven prefetch between batch waves
+# ---------------------------------------------------------------------------
+
+
+class OffloadedWaveServer:
+    """Wave scheduling over the offloaded expert cache (Sec 3.2).
+
+    Requests are served greedily in scheduler order, ``wave_size`` at a
+    time; before each wave the mean of the wave's predicted expert
+    scores is prefetched so the resident set matches the co-scheduled
+    requests. The expert cache (and its residency) persists across
+    waves — that persistence is exactly what the affinity policy
+    exploits. The serving clock advances by the Eq. 3 cost model:
+    serial by default, or the engine's overlapped clock with
+    ``overlap=True``; both cumulative modeled times are reported either
+    way. ``engine_kw`` goes to the engine as it is (``device``,
+    ``kernel_backend``, ``host_store``, ``quantized_experts``, ...).
+
+    The reference's little-expert and fault options (``little_experts``,
+    ``fetch_policy``) and ``engine_impl="dict"`` raise in the engine."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params,
+        *,
+        capacity: int,
+        policy: str = "lfu",
+        gamma: float = 0.9,
+        scheduler: Optional[Scheduler] = None,
+        wave_size: int = 4,
+        quantized: bool = False,
+        hw: HardwareProfile = HardwareProfile(),
+        use_prefetch: bool = True,
+        lora=None,
+        lora_scale: float = 1.0,
+        overlap: bool = False,
+        engine_impl: str = "slab",
+        little_experts: bool = False,
+        little_rank: int = 8,
+        little_quantized: bool = False,
+        fetch_policy=None,
+        pressure_frac: float = 0.75,
+        max_backlog: Optional[int] = None,
+        seed: int = 0,
+        **engine_kw,
+    ):
+        self.cfg = cfg
+        self.seed = seed
+        self.scheduler = scheduler or FCFSScheduler()
+        self.wave_size = wave_size
+        self.hw = hw
+        self.use_prefetch = use_prefetch
+        self.overlap = overlap
+        self.max_backlog = max_backlog
+        self.engine = OffloadedMoEEngine(
+            cfg, params, capacity=capacity, policy=policy, gamma=gamma,
+            quantized=quantized, hw=hw, lora=lora, lora_scale=lora_scale,
+            impl=engine_impl, little_experts=little_experts,
+            little_rank=little_rank, little_quantized=little_quantized,
+            fetch_policy=fetch_policy, pressure_frac=pressure_frac, **engine_kw)
+
+    def run(self, queue: RequestQueue,
+            metrics: Optional[ServerMetrics] = None,
+            *,
+            journal=None,
+            checkpoint_every: Optional[int] = None,
+            audit_every: Optional[int] = None,
+            resume=None,
+            on_step=None,
+            should_drain=None,
+            ) -> Tuple[List[ServeResult], ServerMetrics]:
+        """Serve the queue, one wave at a time. ``on_step`` fires once per
+        completed wave with a dict (step/now/backlog/in_flight/finished/
+        generated); ``should_drain`` stops scheduling further waves (a
+        wave is atomic) and sets ``self.drained``. ``journal``,
+        ``checkpoint_every``, ``audit_every`` and ``resume`` need
+        ``recovery/``, which is not ported yet: they raise."""
+        _refuse_recovery("OffloadedWaveServer.run", journal, checkpoint_every,
+                         audit_every, resume)
+        mt = metrics or ServerMetrics(policy=self.scheduler.name)
+        eng = self.engine
+        em = eng.metrics
+        # measured per request (device synchronized): prefill s, decode s
+        # and decode steps of its generate call
+        self.span_s = {"serve.prefill": [], "serve.decode": [], "decode_steps": []}
+        results: List[ServeResult] = []
+        now = 0.0
+        wave_idx = 0
+        t_wall0 = time.perf_counter()
+        prev_wave: List[ServeRequest] = []
+        if self.max_backlog is not None:
+            queue.set_bound(self.max_backlog)
+
+        self.drained = False
+        while len(queue):
+            if should_drain is not None and should_drain():
+                break
+            # -- admission control: shed what can't be served -----------
+            _reject_unservable(queue, now, mt, results)
+            if not len(queue):
+                break
+            ready = queue.ready(now)
+            if not ready:
+                now = max(now, queue.next_arrival())
+                continue
+            order = self.scheduler.order(ready, hot=prev_wave)
+            wave = order[: self.wave_size]
+            mt.observe_queue_depth(queue.backlog(now))
+
+            if self.use_prefetch:
+                scored = [r.expert_scores for r in wave if r.expert_scores is not None]
+                if scored:
+                    # prefetch copies are real link traffic: charged to the
+                    # wave on the same Eq. 3 terms as demand misses (they
+                    # precede the wave, so neither clock hides them)
+                    p_tx0, p_b0, fd0 = (em.prefetch_transfers, em.prefetch_bytes,
+                                        em.fault_delay_s)
+                    eng.prefetch(np.mean(scored, axis=0))
+                    dt = ((em.prefetch_bytes - p_b0) / self.hw.host_link_bw
+                          + (em.prefetch_transfers - p_tx0) * self.hw.transfer_latency
+                          + (em.fault_delay_s - fd0))
+                    now += dt
+                    mt.modeled_time_serial += dt
+                    mt.modeled_time_overlapped += dt
+
+            for req in wave:
+                queue.admit(req)
+                start = now
+                before_s = em.modeled_time(self.hw)
+                step0 = len(em.step_flops)
+                host0 = em.host_time
+                deg0 = em.degraded_uses
+                # SLO budget left on the engine's own (serial) clock
+                deadline_s = (None if req.slo is None
+                              else max(req.deadline - now, 0.0))
+                # a request resumed from a crash re-prefills up to its
+                # journaled watermark and only generates the remainder
+                inp = (req.prompt if req.resumed is None else
+                       np.concatenate([req.prompt, req.resumed]).astype(np.int32))
+                res = eng.generate(inp[None, :],
+                                   max_new_tokens=req.max_new_tokens - req.n_resumed,
+                                   quality=req.quality, deadline_s=deadline_s)
+                d_serial = em.modeled_time(self.hw) - before_s
+                # delta over only this request's recorded steps
+                d_overlap = em.overlapped_span(self.hw, step0) + em.host_time - host0
+                # the prefill step alone (step0) dates the first token on
+                # whichever Eq.-3 clock drives this server's time
+                d_first = (em.overlapped_span(self.hw, step0, step0 + 1) if self.overlap
+                           else em.serial_span(self.hw, step0, step0 + 1))
+                em.drop_step_records(self.hw)  # consumed
+                self.span_s["serve.prefill"].append(em.prefill_wall_time)
+                self.span_s["serve.decode"].append(em.decode_wall_time)
+                self.span_s["decode_steps"].append(int(res["tokens"].shape[1]) - 1)
+                mt.modeled_time_serial += d_serial
+                mt.modeled_time_overlapped += d_overlap
+                now += d_overlap if self.overlap else d_serial
+                new = res["tokens"][0].cpu().numpy()
+                full = (new if req.resumed is None else
+                        np.concatenate([req.resumed, new]))
+                toks, reason = truncate_at_stop(full, req.stop_tokens)
+                if res["stopped_early"] and reason == "length":
+                    reason = "deadline"  # cut mid-decode at the SLO
+                degraded = em.degraded_uses > deg0
+                first_tok_time = start + d_first
+                n_new = len(toks) - req.n_resumed
+                mt.generated_tokens += n_new
+                mt.prefill_tokens += len(inp)
+                mt.decode_steps += n_new
+                ttft = first_tok_time - req.arrival_time
+                itl = (now - first_tok_time) / max(len(toks) - 1, 1)
+                mt.observe_finish(now - req.arrival_time, ttft=ttft, itl=itl)
+                if reason == "deadline":
+                    mt.deadline_retired += 1
+                elif req.slo is None or now <= req.deadline:
+                    mt.slo_attained += 1
+                if degraded:
+                    mt.degraded_requests += 1
+                results.append(ServeResult(
+                    rid=req.rid, tokens=toks, finish_reason=reason,
+                    arrival_time=req.arrival_time, start_time=start,
+                    finish_time=now, decode_steps=n_new, degraded=degraded))
+            prev_wave = wave
+
+            wave_idx += 1
+            if on_step is not None:
+                on_step({"step": wave_idx, "now": now,
+                         "backlog": queue.backlog(now), "in_flight": 0,
+                         "finished": mt.requests_finished,
+                         "generated": mt.generated_tokens})
+
+        _reject_unservable(queue, now, mt, results)
+        self.drained = should_drain is not None and should_drain()
+        stats = eng.cache.stats()
+        mt.transfers = em.transfers
+        mt.transfer_bytes = em.transfer_bytes
+        mt.prefetch_transfers = em.prefetch_transfers
+        mt.cache_hits, mt.cache_misses = stats.hits, stats.misses
+        mt.modeled_time = now
         mt.wall_time += time.perf_counter() - t_wall0
         return sorted(results, key=lambda r: r.rid), mt
 

@@ -545,6 +545,109 @@ def test_continuous_server_on_the_card_matches_the_cpu(cuda):
     assert mt.generated_tokens == sum(budgets)
 
 
+def _lora_nonzero(cfg, seed):
+    """The port's LoRA init with ``b`` drawn N(0, 1/r), so the term acts."""
+    from repro_torch.core.lora import init_lora
+
+    g = torch.Generator().manual_seed(seed)
+    lora = init_lora(cfg, cfg.melinoe, generator=g)
+    for gt in lora.values():
+        for pt in gt.values():
+            for ab in pt.values():
+                ab["b"] = torch.randn(ab["b"].shape, generator=g) * cfg.melinoe.lora_rank**-0.5
+    return lora
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_engine_lora_term_on_the_card_matches_the_cpu(cuda, dtype):
+    """The offload engine with LoRA on olmoe-mini-smoke (C = 2 of 4
+    experts: slab and overflow groups, batch 2 and batch 1): the card's
+    prefill logits against the CPU's plain run on the same weights, 1e-4
+    in fp32 (tokens equal) and 2e-2 relative in bf16 (both bf16: only the
+    order of sums differs); the term moves them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import lora_scale
+    from repro_torch.core.offload_engine import OffloadedMoEEngine
+    from repro_torch.models.model import init_params
+
+    cfg = get_config("olmoe-mini-smoke")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         dtype=torch.float32, device="cpu")
+    lora = _lora_nonzero(cfg, 1)
+    sc = lora_scale(cfg.melinoe)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 24))
+
+    def gen(device, p, l, B):
+        eng = OffloadedMoEEngine(cfg, p, capacity=2, policy="gamma", lora=l, lora_scale=sc,
+                                 device=device)
+        return eng.generate(toks[:B], max_new_tokens=6)
+
+    for B in (2, 1):
+        cpu = gen("cpu", _tree_cast(params, "cpu", dtype), _tree_cast(lora, "cpu", dtype), B)
+        card = gen(cuda, _tree_cast(params, cuda, dtype), _tree_cast(lora, cuda, dtype), B)
+        ref, got = cpu["prefill_logits"].float(), card["prefill_logits"].float().cpu()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+            np.testing.assert_array_equal(card["tokens"].cpu().numpy(), cpu["tokens"].numpy())
+        else:
+            assert ((got - ref).norm() / ref.norm()).item() < 2e-2
+        plain = gen("cpu", _tree_cast(params, "cpu", dtype), None, B)["prefill_logits"]
+        assert ((plain.float() - ref).norm() / ref.norm()).item() > 0.1
+
+
+def test_wave_server_on_the_card_tokens_equal_across_policies(cuda):
+    """The offloaded wave server on olmoe-mini in fp32 with LoRA (C = 8,
+    waves of 3, oracle scores): fcfs and expert-affinity give each request
+    the same tokens, which are the CPU's; the card launches one flash per
+    layer per prefill and three gmm per layer per step, plus three per
+    overflowing layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import lora_scale
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import (OffloadedWaveServer, RequestQueue, ServeRequest,
+                                     get_scheduler, prefill_expert_scores)
+
+    cfg = get_config("olmoe-mini")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         dtype=torch.float32, device="cpu")
+    lora = _lora_nonzero(cfg, 2)
+    sc = lora_scale(cfg.melinoe)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, 16).astype(np.int32) for _ in range(6)]
+    budgets = (5, 3, 6, 4, 2, 5)
+    reqs0 = [ServeRequest(rid=i, prompt=q, max_new_tokens=1) for i, q in enumerate(prompts)]
+    scores = prefill_expert_scores(cfg, params, reqs0, lora=lora, lora_scale=sc)
+
+    def serve(device, p, l, policy):
+        reqs = [ServeRequest(rid=i, prompt=q, max_new_tokens=m, expert_scores=s)
+                for i, (q, m, s) in enumerate(zip(prompts, budgets, scores))]
+        sched = (get_scheduler(policy) if policy == "fcfs"
+                 else get_scheduler(policy, top_c=8))
+        srv = OffloadedWaveServer(cfg, p, capacity=8, policy="gamma", scheduler=sched,
+                                  wave_size=3, lora=l, lora_scale=sc, device=device)
+        dispatch.reset_launches()
+        res, mt = srv.run(RequestQueue(reqs))
+        return [r.tokens.tolist() for r in res], mt, dict(dispatch.LAUNCHES)
+
+    p_card, l_card = _tree_to(params, cuda), _tree_to(lora, cuda)
+    out = {pol: serve(cuda, p_card, l_card, pol) for pol in ("fcfs", "expert-affinity")}
+    assert out["fcfs"][0] == out["expert-affinity"][0]
+    assert out["fcfs"][0] == serve("cpu", params, lora, "fcfs")[0]
+    for toks, mt, launches in out.values():
+        assert launches["flash_attn"] == 8 * 6
+        steps = mt.generated_tokens - 6
+        assert launches["moe_gmm"] >= 3 * 8 * (6 + steps) and launches["moe_gmm"] % 3 == 0
+        assert mt.prefetch_transfers > 0
+
+
+def _tree_cast(tree, device, dtype):
+    """fp32 leaves to ``dtype`` except the router (fp32, as the init keeps it)."""
+    if isinstance(tree, dict):
+        return {k: (v.to(device) if k == "router" else _tree_cast(v, device, dtype))
+                for k, v in tree.items()}
+    return tree.to(device, dtype)
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}

@@ -153,18 +153,23 @@ def test_serving_engine_gives_the_jax_engines_greedy_tokens(bridged):
 
 def test_engine_and_full_path_refuse_what_is_not_ported(bridged):
     """Sampling and router probes are ported (tests/test_torch_serving.py,
-    tests/test_torch_moe.py); LoRA, remat and prefix embeddings raise."""
+    tests/test_torch_moe.py), and so is LoRA (tests/test_torch_lora.py:
+    here a model without experts, where a LoRA tree has nothing to
+    adapt); remat and prefix embeddings raise."""
     _, tcfg, _, params = bridged
     toks = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        ServingEngine(tcfg, params, lora={})
+    req = [Request(np.arange(4, dtype=np.int32), 3)]
+    np.testing.assert_array_equal(
+        ServingEngine(tcfg, params, lora={}).generate_batch(req)[0].tokens,
+        ServingEngine(tcfg, params).generate_batch(req)[0].tokens)
     with pytest.raises(NotImplementedError, match="remat"):
         tmodel.apply_model(params, tcfg, toks, CPU, remat=True)
     with pytest.raises(NotImplementedError, match="prefix_embed"):
         tmodel.apply_model(params, tcfg, toks, CPU, prefix_embed=torch.zeros((1, 2, 8)))
-    _, cache = tmodel.prefill(params, tcfg, toks, CPU, n_slots=6)
-    with pytest.raises(NotImplementedError, match="lora"):
-        tmodel.decode_step(params, tcfg, toks[:, :1], cache, CPU, lora={})
+    caches = [tmodel.prefill(params, tcfg, toks, CPU, n_slots=6)[1] for _ in range(2)]
+    lg_lora, _, _ = tmodel.decode_step(params, tcfg, toks[:, :1], caches[0], CPU, lora={})
+    lg, _, _ = tmodel.decode_step(params, tcfg, toks[:, :1], caches[1], CPU)
+    assert torch.equal(lg_lora, lg)
     # a model without a router has no probes to give
     out = ServingEngine(tcfg, params).generate_batch(
         [Request(np.arange(4, dtype=np.int32), 3)], collect_probs=True)
@@ -174,15 +179,19 @@ def test_engine_and_full_path_refuse_what_is_not_ported(bridged):
 def test_attn_moe_waits_for_its_slice():
     """The attn_moe slice has landed: a MoE config runs through
     apply_model and run_full (tests/test_torch_moe.py holds the numbers);
-    its LoRA adapters still wait for theirs and raise."""
+    so have its LoRA adapters (tests/test_torch_lora.py): a tree with
+    ``b`` = 0, as the init draws it, leaves the logits as they are."""
+    from repro_torch.core.lora import init_lora
+
     cfg = get_config("granite-moe-1b-a400m-smoke")
     params = tmodel.init_params(cfg, generator=torch.Generator().manual_seed(0),
                                 dtype=torch.float32, device="cpu")
-    logits, _ = tmodel.apply_model(params, cfg, torch.zeros((1, 4), dtype=torch.long), CPU)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    logits, _ = tmodel.apply_model(params, cfg, toks, CPU)
     assert logits.shape == (1, 4, cfg.vocab) and torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError, match="lora"):
-        tmodel.apply_model(params, cfg, torch.zeros((1, 4), dtype=torch.long), CPU,
-                           lora={})
+    lora = init_lora(cfg, cfg.melinoe, generator=torch.Generator().manual_seed(1))
+    with_lora, _ = tmodel.apply_model(params, cfg, toks, CPU, lora=lora, lora_scale=0.5)
+    assert torch.equal(with_lora, logits)
     rep = serve.run_full("granite-moe-1b-a400m-smoke", batch=2, prompt_len=8, max_new=3,
                          dtype="float32", device="cpu")
     assert rep["path"] == "full" and rep["tokens"].shape == (2, 3)

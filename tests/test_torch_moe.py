@@ -148,10 +148,24 @@ def test_expert_ffn_with_group_sizes_equals_the_dense_product():
 
 
 def test_moe_lora_waits_for_its_slice():
+    """MoE LoRA has landed: an adapter merges ``w + scale * a @ b`` into its
+    expert weights, so ``b`` = 0 changes nothing and a nonzero ``b`` gives
+    the layer of the merged weights (the JAX parity: test_torch_lora.py)."""
     _, tspec, _, tp = _moe_params(False)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tmoe.apply_moe(tp, torch.zeros((4, 64)), tspec, Runtime(),
-                       lora={"wg": {"a": None, "b": None}})
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((4, tp["wg"].shape[1]), generator=g)
+    E, d, f = tp["wu"].shape
+    a = torch.randn((E, d, 3), generator=g) * d**-0.5
+    zero = {"wu": {"a": a, "b": torch.zeros((E, 3, f))}}
+    y, _ = tmoe.apply_moe(tp, x, tspec, Runtime())
+    assert torch.equal(tmoe.apply_moe(tp, x, tspec, Runtime(), lora=zero, lora_scale=2.0)[0], y)
+    b = torch.randn((E, 3, f), generator=g)
+    y_lora, _ = tmoe.apply_moe(tp, x, tspec, Runtime(), lora={"wu": {"a": a, "b": b}},
+                               lora_scale=2.0)
+    merged = dict(tp, wu=tp["wu"] + 2.0 * a @ b)
+    torch.testing.assert_close(y_lora, tmoe.apply_moe(merged, x, tspec, Runtime())[0],
+                               rtol=1e-5, atol=1e-5)
+    assert not torch.allclose(y_lora, y, atol=1e-3)
 
 
 def _with_capacity(cfg, factor):
