@@ -86,16 +86,49 @@ From the root of a checkout, with CUDA available:
 10. writes a params-only checkpoint of olmoe-mini-smoke with the port's
    ``save_checkpoint``, serves it with ``launch.serve --ckpt`` on the card
    and asserts the tokens of the in-memory run;
-11. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+11. serves step 4's batch again through ``launch.serve.run(...,
+   predictor=True)``: the whole model on the card traces 32 more prompts
+   (``routing_trace``, 16 new tokens each), the activation predictor Psi
+   is trained on them, the traced model is freed, and the engine
+   prefetches Psi's scores; counters set to 0 just before. Gates: Psi's KL
+   falls, prefetch transfers > 0, tokens equal step 4's; it prints
+   transfers and hit rate with and without Psi;
+12. the gradient gate: full-width OLMoE cut to 2 layers in fp32 (random
+   weights from seed 0, LoRA ``b`` ~ N(0, 1/r)), one fine-tune loss and
+   its gradients (router, expert wg, LoRA a/b) through the kernels
+   (``TRAIN_KERNEL_BACKEND``: ``moe_gmm`` forward and backward,
+   ``GmmFn``) and through the plain versions, per leaf ||delta|| / ||ref||
+   <= ``GRAD_REL_TOL``, with exact launch counts; then ``GmmFn``'s
+   backward against ``gmm_ref`` under autograd at the fine-tune's shapes
+   (E 64, capacity 160) in bf16 and fp32, the ``dA`` and ``dB`` products
+   timed with their bounds, the transposed copies and ``torch.bmm`` at
+   the same shapes, and a capacity that is not a multiple of 8 (157),
+   whose ``dB`` leaves "tc" for "fma";
+13. the MELINOE fine-tune of full-width, full-depth OLMoE-1B-7B in bf16
+   (random base from seed 0), ``training.melinoe_finetune``, 4 steps at
+   batch 8 x 128 tokens of the synthetic ClusterLM corpus, counters set to
+   0 just before: the step-0 loss through the kernels against the plain
+   versions (``FINETUNE_LOSS_REL_TOL``), ``moe_gmm`` launches per step and
+   route exactly (48 forward, 46 dA, 48 dB, all "tc"), no ``flash_attn``,
+   every loss finite; it prints ms per step, tokens per second, the
+   cache-simulation scan's share of a step, loss / nll / cs / rm per step,
+   and peak device memory against the bytes of weights, trainable copies,
+   LoRA, gradients and moments;
+14. runs ``python -m repro_torch.launch.train --arch olmoe-mini --mode
+   both`` for a few steps on the card and reads both checkpoints back
+   (the ``_melinoe`` one as ``(params, lora)``);
+15. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -203,6 +236,18 @@ WAVE_BF16_LOGITS_REL_TOL = 3e-2
 # 4.5e-2); held first in fp32 at full width and depth to
 # FP32_LOGITS_REL_TOL, where only the order of sums differs.
 DEEPSEEK_BF16_LOGITS_REL_TOL = 4e-2
+# The MELINOE fine-tune (phases 12-13): batch 8 x 128 tokens, 4 steps.
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 128, 4
+# fp32 gradients of the 2-layer full-width fine-tune, kernels against plain
+# versions, per leaf: only the order of sums differs (as FP32_LOGITS_REL_TOL).
+GRAD_REL_TOL = 1e-4
+# The full-depth bf16 fine-tune's step-0 loss, kernels against plain versions,
+# relative. Its logits differ as the whole-model prefill's do (up to
+# LOGITS_REL_TOL in norm, bf16 round-off through 16 layers), but the loss is
+# a mean over 1024 tokens of per-token NLL errors of either sign (about 0.02
+# each on O(1) logits, so about 6e-4 / 10.8 = 6e-5 relative), plus the cs
+# and rm terms, which see only the router distributions.
+FINETUNE_LOSS_REL_TOL = 1e-3
 
 
 def check_path(path: str, launches: dict, routes: dict) -> None:
@@ -817,6 +862,20 @@ def _strip_experts(params) -> None:
                     bp["ffn"].pop(k, None)
 
 
+def _lora_b_drawn(cfg, dev, seed: int = 1):
+    """The port's LoRA init with ``b`` ~ N(0, 1/r) (fp32), so that every
+    adapter moves the output and has a gradient."""
+    from repro_torch.core.lora import init_lora
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lora = init_lora(cfg, cfg.melinoe, generator=g, device=dev)
+    for gt in lora.values():
+        for pt in gt.values():
+            for ab in pt.values():
+                ab["b"] = torch.randn(ab["b"].shape, generator=g, device=dev) * LORA_B_STD
+    return lora
+
+
 def serve_wave(arch: str = "olmoe", device: str = "cuda") -> dict:
     """Phase 8: full-width OLMoE-1B-7B offloaded behind the port's
     ``OffloadedWaveServer`` with LoRA on every MoE layer, under fcfs and
@@ -824,7 +883,7 @@ def serve_wave(arch: str = "olmoe", device: str = "cuda") -> dict:
     logits (see the module docstring). ``arch``/``device``: a smaller
     model or the CPU, to rehearse the phase's logic."""
     from repro_torch.configs import get_config
-    from repro_torch.core.lora import init_lora, lora_scale
+    from repro_torch.core.lora import lora_scale
     from repro_torch.core.offload_engine import OffloadedMoEEngine
     from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import make_prompts
@@ -841,12 +900,7 @@ def serve_wave(arch: str = "olmoe", device: str = "cuda") -> dict:
     prompts = make_prompts(cfg.vocab, n, SERVE_PROMPT)
     params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                          dtype=torch.bfloat16, device=dev)
-    g = torch.Generator(device=dev).manual_seed(1)
-    lora = init_lora(cfg, cfg.melinoe, generator=g, device=dev)  # fp32, as the reference's
-    for gt in lora.values():
-        for pt in gt.values():
-            for ab in pt.values():
-                ab["b"] = torch.randn(ab["b"].shape, generator=g, device=dev) * LORA_B_STD
+    lora = _lora_b_drawn(cfg, dev)  # fp32, as the reference's
     sc = lora_scale(cfg.melinoe)
     scores = prefill_expert_scores(cfg, params, [
         ServeRequest(rid=i, prompt=prompts[i], max_new_tokens=1) for i in range(n)],
@@ -1099,6 +1153,379 @@ def slab_dequant_ms(gen, C=16, d=2048, f=1024, g=32) -> float:
                             for p, s, z in mats], reps=5, warmup=1, graph=False)
 
 
+# ---------------------------------------------------------------------------
+# MELINOE training and the activation predictor (phases 11-14)
+# ---------------------------------------------------------------------------
+
+
+def _grad_leaves(tree, path=""):
+    """(path, gradient) of a gradient tree, per-repeat lists stacked."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _grad_leaves(v, f"{path}/{k}")
+    elif tree is not None:
+        yield path, torch.stack(tree) if isinstance(tree, list) else tree
+
+
+def _gmm_launches() -> dict:
+    from repro_torch.kernels import dispatch
+
+    return {"launches": dispatch.LAUNCHES["moe_gmm"],
+            "routes": dict(dispatch.ROUTE_LAUNCHES["moe_gmm"]),
+            "by_product": dict(dispatch.GRAD_LAUNCHES["moe_gmm"]),
+            "flash_attn": dispatch.LAUNCHES["flash_attn"]}
+
+
+def predictor_phase(main_tokens, main_stats: dict, serve_kw: dict,
+                    arch: str = "olmoe") -> dict:
+    """Phase 11: the main path's batch served again with the activation
+    predictor (``run(..., predictor=True)``, 32 training prompts): Psi's KL
+    falls, prefetch transfers > 0, tokens equal the run without it.
+    ``arch``: a smaller model, to rehearse the phase's logic."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import run
+
+    t_phase = time.perf_counter()
+    dispatch.reset_launches()
+    rep = run(arch, max_new=32, predictor=True, n_train_prompts=32, **serve_kw)
+    launches = dict(dispatch.LAUNCHES)
+    routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    kl = rep["predictor_kl"]
+    same = bool(np.array_equal(rep["tokens"], main_tokens))
+    stats = {"with_psi": {k: rep[k] for k in ("transfers", "prefetch_transfers", "hit_rate",
+                                              "modeled_time_s", "decode_tok_s",
+                                              "prefill_s")},
+             "without_psi": main_stats, "predictor_kl": kl, "trace_s": rep["trace_s"],
+             "predictor_train_s": rep["predictor_train_s"],
+             "tokens_equal_without_psi": same, "launches_total": launches,
+             "route_launches": routes}
+    print("predictor serve olmoe:", json.dumps(stats))
+    if not (kl[-1] < kl[0] and all(math.isfinite(x) for x in kl)):
+        raise AssertionError(f"predictor: KL did not fall: {kl}")
+    if not rep["prefetch_transfers"] > 0:
+        raise AssertionError("predictor: no prefetch transfers")
+    if not same:
+        raise AssertionError("predictor: tokens differ from the run without Psi")
+    if launches["moe_gmm"] <= 0 or launches["flash_attn"] <= 0:
+        raise AssertionError(f"predictor: launches {launches}")
+    for op, fast in FAST_ROUTES.items():
+        if set(routes[op]) - set(fast):
+            raise AssertionError(f"predictor: {op} routes {routes[op]}, want {fast}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["phase_s"] = time.perf_counter() - t_phase
+    print(f"predictor phase: {stats['phase_s']:.1f} s")
+    return stats
+
+
+def finetune_grad_gate(device: str = "cuda", depth: int = 2, arch: str = "olmoe") -> dict:
+    """Phase 12, first half: one fine-tune loss and its gradients of
+    full-width OLMoE cut to ``depth`` layers, fp32, through the kernels and
+    through the plain versions (per leaf ||delta|| / ||ref||)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import extract_base_routers, melinoe_trainable_mask
+    from repro_torch.data.synthetic import ClusterLM, SyntheticConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import build_finetune_step
+    from repro_torch.models.model import init_params
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.training import TRAIN_KERNEL_BACKEND, OptConfig
+
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, layout=(dataclasses.replace(cfg.layout[0],
+                                                               repeats=depth),))
+    dev = torch.device(device)
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev)
+    lora = _lora_b_drawn(cfg, dev)
+    mask = melinoe_trainable_mask(params)
+    base = extract_base_routers(params, cfg)
+    batch = next(ClusterLM(SyntheticConfig(vocab=cfg.vocab, seq_len=TRAIN_T, seed=0))
+                 .batches(TRAIN_B, seed=1))
+    out = {}
+    for spec in (TRAIN_KERNEL_BACKEND, "ref"):
+        step = build_finetune_step(cfg, Runtime(kernel_backend=spec, device=dev),
+                                   OptConfig(), mask)
+        dispatch.reset_launches()
+        loss, _, grads = step.loss_and_grads(params, lora, batch, base)
+        torch.cuda.synchronize()
+        out[spec] = (loss.item(), dict(_grad_leaves({"params": grads[0], "lora": grads[1]})),
+                     _gmm_launches())
+        if spec == TRAIN_KERNEL_BACKEND:
+            totals = (dict(dispatch.LAUNCHES),
+                      {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES})
+    (loss, grads, kl), (loss_r, grads_r, kl_r) = out.values()
+    rel = {p: ((g - grads_r[p]).norm() / grads_r[p].norm()).item() for p, g in grads.items()}
+    L = depth
+    want = {"launches": 3 * L + 6 * L - 2, "routes": {"fma": 3 * L + 6 * L - 2},
+            "by_product": {"dA": 3 * L - 2, "dB": 3 * L}, "flash_attn": 0}
+    rep = {"depth": depth, "loss": loss, "loss_ref": loss_r,
+           "loss_rel": abs(loss - loss_r) / abs(loss_r), "grad_rel": rel,
+           "launches": kl, "launches_ref": kl_r, "tol": GRAD_REL_TOL,
+           "launches_total": totals[0], "route_launches": totals[1]}
+    print("fine-tune gradient gate (fp32):", json.dumps(rep))
+    if kl != want or kl_r["launches"] or kl_r["flash_attn"]:
+        raise AssertionError(f"gradient gate: launches {kl} (plain {kl_r}), want {want}")
+    if len(rel) != 6 or not all(math.isfinite(r) and r <= GRAD_REL_TOL for r in rel.values()):
+        raise AssertionError(f"gradient gate: gradients disagree: {rel}")
+    if not rep["loss_rel"] <= GRAD_REL_TOL:
+        raise AssertionError(f"gradient gate: loss {loss} vs {loss_r}")
+    del params, lora, grads, grads_r, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep
+
+
+def gmm_backward_cases(gen) -> list:
+    """Phase 12, second half: ``GmmFn``'s backward against ``gmm_ref``
+    under autograd at the fine-tune's shapes (E 64, top-8 of a random route
+    of B x T tokens, capacity ceil(8 B T / 64 x 1.25)), bf16 and fp32; the
+    dA and dB products timed apart, with their bounds, the transposed
+    copies and ``torch.bmm`` at the same shapes."""
+    from repro_torch.kernels.moe_gmm import gmm, gmm_hopper, gmm_ref
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for n_tok, (K, F) in ((1024, (2048, 1024)), (1024, (1024, 2048)),
+                              (1000, (2048, 1024))):
+            E = 64
+            cap = math.ceil(n_tok * 8 / E * 1.25)
+            eids = torch.randn(n_tok, E, generator=gen, device="cuda").topk(8, dim=-1).indices
+            sizes = torch.clamp(torch.bincount(eids.reshape(-1), minlength=E), max=cap
+                                ).to(torch.int32)
+            live = (torch.arange(cap, device="cuda")[None, :, None] < sizes[:, None, None])
+            a = (torch.randn(E, cap, K, generator=gen, device="cuda") * live).to(dtype)
+            b = (torch.randn(E, K, F, generator=gen, device="cuda") * K**-0.5).to(dtype)
+            dy = (torch.randn(E, cap, F, generator=gen, device="cuda") * live).to(dtype)
+            got = []
+            for backend in ("hopper", "ref"):
+                aa, bb = a.clone().requires_grad_(), b.clone().requires_grad_()
+                gmm(aa, bb, sizes, backend=backend).backward(dy)
+                got.append((aa.grad, bb.grad))
+            torch.cuda.synchronize()
+            label = f"gmm backward {str(dtype)[6:]} a({E},{cap},{K}) b({E},{K},{F})"
+            err_da = check(label + " dA", got[0][0], got[1][0], TOL[dtype])
+            err_db = check(label + " dB", got[0][1], got[1][1], TOL[dtype])
+            bT, aT = b.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous()
+            route_da = route_of("moe_gmm", lambda: gmm_hopper(dy, bT, sizes))
+            route_db = route_of("moe_gmm", lambda: gmm_hopper(aT, dy))
+            rows, act = int(sizes.sum()), int((sizes > 0).sum())
+            it = a.element_size()
+            # dA: dY's live rows, B of the live groups, dA written whole
+            bd_a = bound((rows * F + act * F * K + E * cap * K) * it, 2.0 * rows * F * K,
+                         dtype)
+            # dB: A's and dY's live rows, dB written whole
+            bd_b = bound((rows * K + rows * F + E * K * F) * it, 2.0 * rows * K * F, dtype)
+            cases.append({
+                "case": label, "capacity": cap, "dtype": str(dtype)[6:],
+                "max_abs_err": max(err_da, err_db), "max_abs_err_dA": err_da,
+                "max_abs_err_dB": err_db, "tol": TOL[dtype], "route_dA": route_da,
+                "route_dB": route_db,
+                "dA_ms": time_ms(lambda: gmm_hopper(dy, bT, sizes)),
+                "dB_ms": time_ms(lambda: gmm_hopper(aT, dy)),
+                "copy_bT_ms": time_ms(lambda: b.transpose(1, 2).contiguous()),
+                "copy_aT_ms": time_ms(lambda: a.transpose(1, 2).contiguous()),
+                "dA_plain_ms": time_ms(lambda: gmm_ref(dy, bT), graph=False),
+                "dB_plain_ms": time_ms(lambda: gmm_ref(aT, dy), graph=False),
+                "dA_library_ms": time_ms(lambda: torch.bmm(dy, bT)),
+                "dB_library_ms": time_ms(lambda: torch.bmm(aT, dy)),
+                "dA_bound_ms": bd_a[0], "dA_bound_by": bd_a[1],
+                "dB_bound_ms": bd_b[0], "dB_bound_by": bd_b[1]})
+            print(f"  {label}: dA {route_da} {cases[-1]['dA_ms']:.4f} ms (bound "
+                  f"{bd_a[0]:.4f}, bmm {cases[-1]['dA_library_ms']:.4f}), dB {route_db} "
+                  f"{cases[-1]['dB_ms']:.4f} ms (bound {bd_b[0]:.4f}, bmm "
+                  f"{cases[-1]['dB_library_ms']:.4f}); copies Bt "
+                  f"{cases[-1]['copy_bT_ms']:.4f} At {cases[-1]['copy_aT_ms']:.4f} ms; "
+                  f"err {cases[-1]['max_abs_err']:.3g}")
+            del got, a, b, dy, aT, bT
+    # bf16 takes the tensor cores, but dB's inner dimension is the capacity:
+    # one that is not a multiple of 8 falls back to the CUDA-core kernel
+    want = {c["case"]: ("tc", "tc" if c["capacity"] % 8 == 0 else "fma") for c in cases
+            if c["dtype"] == "bfloat16"}
+    got = {c["case"]: (c["route_dA"], c["route_dB"]) for c in cases if c["case"] in want}
+    if got != want:
+        raise AssertionError(f"gmm backward routes {got}, want {want}")
+    return cases
+
+
+def _cs_scan_ms(cfg, dev, B: int, T: int, impl: str, reps: int = 3) -> float:
+    """Device-synchronized ms of the cache-simulation loss, forward and
+    backward, of every MoE layer of ``cfg`` on (B, T, E) router
+    distributions (what one fine-tune step computes for L_cs)."""
+    from repro_torch.core.cache_sim import cache_sim_loss
+
+    spec, moe = cfg.melinoe, cfg.moe_spec
+    p = torch.softmax(torch.randn(B, T, moe.num_experts, device=dev), -1).requires_grad_()
+    kw = dict(top_k=moe.top_k, gamma=spec.gamma, cache_capacity=cfg.melinoe_cache_capacity(),
+              request_mode=spec.request_mode, impl=impl)
+    out = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cfg.n_moe_layers):
+            torch.autograd.grad(cache_sim_loss(p, **kw), p)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return float(np.mean(out[1:]))
+
+
+def finetune_phase(device: str = "cuda", arch: str = "olmoe", steps: int = TRAIN_STEPS) -> dict:
+    """Phase 13: ``training.melinoe_finetune`` of full-width, full-depth
+    OLMoE-1B-7B in bf16 (random base from seed 0), ``steps`` steps at batch
+    TRAIN_B x TRAIN_T (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import (extract_base_routers, init_lora,
+                                       melinoe_trainable_mask)
+    from repro_torch.data.synthetic import ClusterLM, SyntheticConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import build_finetune_step
+    from repro_torch.models.model import init_params
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.training import (TRAIN_KERNEL_BACKEND, OptConfig, melinoe_finetune,
+                                      train_runtime)
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev)
+    lm = ClusterLM(SyntheticConfig(vocab=cfg.vocab, seq_len=TRAIN_T, seed=0))
+    mask = melinoe_trainable_mask(params)
+    # step 0's loss through the kernels and the plain versions: the adapters
+    # and the first batch that melinoe_finetune draws (seed + 1, data seed 2)
+    lora0 = init_lora(cfg, cfg.melinoe, generator=torch.Generator(device=dev).manual_seed(1),
+                      device=dev)
+    batch0 = next(lm.batches(TRAIN_B, seed=2))
+    base = extract_base_routers(params, cfg)
+    loss0 = {}
+    with torch.no_grad():
+        for spec in (TRAIN_KERNEL_BACKEND, "ref"):
+            step = build_finetune_step(cfg, Runtime(kernel_backend=spec, device=dev),
+                                       OptConfig(), mask)
+            loss0[spec] = {k: float(v) for k, v in step.loss(params, lora0, batch0, base)[1]
+                           .items()}
+    del lora0, base
+    rel0 = abs(loss0[TRAIN_KERNEL_BACKEND]["loss"] - loss0["ref"]["loss"]) / abs(
+        loss0["ref"]["loss"])
+    print(f"fine-tune step-0 loss kernels vs plain: {loss0} rel {rel0:.3g} "
+          f"(tol {FINETUNE_LOSS_REL_TOL})")
+    if not (math.isfinite(rel0) and rel0 <= FINETUNE_LOSS_REL_TOL):
+        raise AssertionError(f"fine-tune: step-0 loss disagrees: rel {rel0}")
+
+    def nbytes(tree, m=True):
+        if isinstance(tree, dict):
+            return sum(nbytes(v, m[k] if isinstance(m, dict) else m) for k, v in tree.items())
+        return tree.numel() * tree.element_size() if m else 0
+
+    def numel(tree, m=True):
+        if isinstance(tree, dict):
+            return sum(numel(v, m[k] if isinstance(m, dict) else m) for k, v in tree.items())
+        return tree.numel() if m else 0
+
+    weight_bytes, trainable_bytes = nbytes(params), nbytes(params, mask)
+    rt = train_runtime(dev)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dispatch.reset_launches()
+    res = melinoe_finetune(cfg, params, lm.batches(TRAIN_B, seed=2), steps=steps, rt=rt,
+                           seed=0, log_every=1)
+    torch.cuda.synchronize()
+    kl = _gmm_launches()
+    totals = (dict(dispatch.LAUNCHES),
+              {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES})
+    peak = torch.cuda.max_memory_allocated(dev)
+    L = cfg.n_moe_layers
+    per_step = {"forward": 3 * L, "dA": 3 * L - 2, "dB": 3 * L}
+    n = steps * sum(per_step.values())
+    want = {"launches": n, "routes": {"tc": n},
+            "by_product": {"dA": steps * per_step["dA"], "dB": steps * per_step["dB"]},
+            "flash_attn": 0}
+    hist = res.history
+    times = [h["time"] for h in hist]
+    step_ms = [1e3 * (t - p) for t, p in zip(times, [0.0] + times[:-1])]
+    ms = float(np.mean(step_ms[1:]))
+    lora_bytes = nbytes(res.lora)
+    n_train = numel(params, mask) + numel(res.lora)
+    rep = {
+        "arch": arch, "batch": TRAIN_B, "seq": TRAIN_T, "steps": steps,
+        "kernel_backend": TRAIN_KERNEL_BACKEND, "step_ms": step_ms,
+        "ms_per_step": ms, "tokens_per_s": TRAIN_B * TRAIN_T / (ms / 1e3),
+        "history": [{k: h[k] for k in ("loss", "nll", "cs_loss", "rm_loss")} for h in hist],
+        "launches": kl, "launches_per_step": per_step, "step0_loss_rel": rel0,
+        "launches_total": totals[0], "route_launches": totals[1],
+        "max_memory_allocated": peak, "weight_bytes": weight_bytes,
+        "trainable_copy_bytes": trainable_bytes, "lora_bytes": lora_bytes,
+        "grad_bytes": trainable_bytes + lora_bytes, "moment_bytes": 2 * 4 * n_train,
+    }
+    print("fine-tune olmoe:", json.dumps(rep))
+    if kl != want:
+        raise AssertionError(f"fine-tune: launches {kl}, want {want}")
+    if not all(math.isfinite(h[k]) for h in hist for k in ("loss", "nll", "cs_loss",
+                                                           "rm_loss")):
+        raise AssertionError(f"fine-tune: non-finite loss {hist}")
+    if len(hist) != steps:
+        raise AssertionError(f"fine-tune: {len(hist)} logged steps, want {steps}")
+    del res, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep["cs_scan_ms"] = _cs_scan_ms(cfg, dev, TRAIN_B, TRAIN_T, "scan")
+    rep["cs_assoc_ms"] = _cs_scan_ms(cfg, dev, TRAIN_B, TRAIN_T, "assoc")
+    rep["cs_scan_share"] = rep["cs_scan_ms"] / ms
+    rep["phase_s"] = time.perf_counter() - t_phase
+    print(f"fine-tune olmoe: {ms:.1f} ms a step, {rep['tokens_per_s']:.1f} tokens/s; "
+          f"cache-sim loss (scan, fwd+bwd, {L} layers) {rep['cs_scan_ms']:.1f} ms = "
+          f"{100 * rep['cs_scan_share']:.1f}% of a step (assoc {rep['cs_assoc_ms']:.1f} ms); "
+          f"peak {peak} B; phase {rep['phase_s']:.1f} s")
+    return rep
+
+
+def train_launcher_phase(device: str = "cuda") -> dict:
+    """Phase 14: ``python -m repro_torch.launch.train --mode both`` on
+    olmoe-mini for a few steps on the card; both checkpoints read back."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.models.model import init_params
+    from repro_torch.training import load_checkpoint
+
+    arch = "olmoe-mini"
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--mode",
+               "both", "--steps", "3", "--ft-steps", "3", "--batch", "4", "--seq", "64",
+               "--device", device, "--out", d]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                                   if os.environ.get("PYTHONPATH") else [])))
+        out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600,
+                             cwd=str(ROOT))
+        if out.returncode != 0 or "done" not in out.stdout:
+            raise AssertionError(f"launch.train exited {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        like = init_params(cfg, generator=torch.Generator(), dtype=torch.float32,
+                           device="meta")
+        lora_like = init_lora(cfg, cfg.melinoe, generator=torch.Generator(), device="meta")
+        base, step_b, meta_b = load_checkpoint(Path(d) / f"{arch}_base.ckpt", like)
+        (fp, fl), step_f, meta_f = load_checkpoint(Path(d) / f"{arch}_melinoe.ckpt",
+                                                   (like, lora_like))
+        hist = json.loads((Path(d) / f"{arch}_melinoe_history.json").read_text())
+    leaves = [t for tr in (base, fp, fl) for _, t in _grad_leaves(tr)]
+    ok = (step_b == 3 and step_f == 3 and meta_b["stage"] == "pretrain"
+          and meta_f["stage"] == "melinoe" and all(torch.isfinite(t).all() for t in leaves)
+          and not torch.equal(fp["groups"]["g0"]["p0"]["ffn"]["router"],
+                              base["groups"]["g0"]["p0"]["ffn"]["router"]))
+    rep = {"arch": arch, "leaves": len(leaves), "finetune_history": hist,
+           "wall_s": time.perf_counter() - t0, "ok": ok}
+    print("launch.train olmoe-mini:", json.dumps(rep))
+    if not ok:
+        raise AssertionError("launch.train: checkpoints not as written")
+    return rep
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it. ``source`` is the kernel the
@@ -1132,7 +1559,7 @@ def main() -> int:
     from repro_torch.kernels import _build, dispatch
     from repro_torch.launch.serve import run
 
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     _build.lib()
     print(f"kernel build and load: {time.perf_counter() - t0:.1f} s")
 
@@ -1169,6 +1596,8 @@ def main() -> int:
     print("serve olmoe:", json.dumps({k: v for k, v in rep.items()
                                       if k not in ("tokens", "prefill_logits")}))
     print(f"launches on the main path: {launches}")
+    main_stats = {k: rep[k] for k in ("transfers", "prefetch_transfers", "hit_rate",
+                                      "modeled_time_s", "decode_tok_s", "prefill_s")}
 
     ref = run("olmoe", max_new=1, kernel_backend="ref", **serve_kw)
     diff = (logits - ref["prefill_logits"]).float()
@@ -1235,6 +1664,16 @@ def main() -> int:
     d_rep = serve_deepseek()
     checkpoint_phase()
 
+    # ---- the activation predictor, and MELINOE training through moe_gmm
+    p_rep = predictor_phase(tokens, main_stats, serve_kw)
+    from repro_torch.training import TRAIN_KERNEL_BACKEND
+
+    print(f"training kernel spec: {TRAIN_KERNEL_BACKEND}")
+    gg_rep = finetune_grad_gate()
+    gb_cases = gmm_backward_cases(gen)
+    ft_rep = finetune_phase()
+    train_launcher_phase()
+
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
@@ -1263,19 +1702,38 @@ def main() -> int:
              "continuous-olmoe": c_rep["launches_total"],
              "wave-olmoe-fcfs": w_rep["fcfs"]["launches_total"],
              "wave-olmoe-affinity": w_rep["affinity"]["launches_total"],
-             "deepseek-offloaded": d_rep["launches_total"]}
+             "deepseek-offloaded": d_rep["launches_total"],
+             "predictor-serve": p_rep["launches_total"],
+             "finetune-grad-gate": gg_rep["launches_total"],
+             "finetune": ft_rep["launches_total"]}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
               "wave-olmoe-fcfs": w_rep["fcfs"]["route_launches"],
               "wave-olmoe-affinity": w_rep["affinity"]["route_launches"],
-              "deepseek-offloaded": d_rep["route_launches_total"]}
+              "deepseek-offloaded": d_rep["route_launches_total"],
+              "predictor-serve": p_rep["route_launches"],
+              "finetune-grad-gate": gg_rep["route_launches"],
+              "finetune": ft_rep["route_launches"]}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:
             k["routes_by_path"] = {p: r[k["name"]] for p, r in routes.items()}
         if k["name"] == "int4_matmul":
             k["int4_path_by_phase"] = int4_phases
+        if k["name"] == "moe_gmm":  # GmmFn: the fine-tune's backward launches
+            main_bwd = next(c for c in gb_cases
+                            if c["case"] == "gmm backward bfloat16 a(64,160,2048) b(64,2048,1024)")
+            k["backward"] = {
+                "launches_per_finetune_step": ft_rep["launches_per_step"],
+                "finetune_by_product": ft_rep["launches"]["by_product"],
+                "grad_gate_by_product": gg_rep["launches"]["by_product"],
+                "main_case": main_bwd["case"],
+                **{f: main_bwd[f] for f in ("dA_ms", "dB_ms", "dA_bound_ms", "dB_bound_ms",
+                                            "dA_library_ms", "dB_library_ms", "copy_bT_ms",
+                                            "copy_aT_ms", "route_dA", "route_dB")},
+                "cases": gb_cases}
+    print(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,8 @@ store into the port engine's ``quantized_experts`` argument, so that the
 two packages compute on the same codes.
 
 LoRA trees cross with :func:`lora_from_jax` (``{g: {p: {"wu"|"wd":
-{"a": (R, E, din, r), "b": (R, E, r, dout)}}}}``, numpy leaves).
+{"a": (R, E, din, r), "b": (R, E, r, dout)}}}}``, numpy leaves), the
+activation predictor's weights with :func:`predictor_from_jax`.
 """
 from __future__ import annotations
 
@@ -106,6 +107,15 @@ def lora_from_jax(cfg: ModelConfig, tree, *, dtype=None, device="cpu"):
                     raise ValueError(f"lora {g}/{p}/{t}: a {a.shape} b {bb.shape} do not "
                                      f"fit (R={group.repeats}, E={E}, {din}->{dout})")
                 out[g][p][t] = {"a": _to_torch(a, dt, device), "b": _to_torch(bb, dt, device)}
+    return out
+
+
+def predictor_from_jax(tree, *, device="cpu") -> dict:
+    """A JAX ``init_predictor``/``train_predictor`` tree (``w1``, ``b1``,
+    ``w2``, ``b2`` as arrays, ``_dims`` (L, E)) -> the port's, fp32 on
+    ``device``."""
+    out = {k: _to_torch(tree[k], torch.float32, device) for k in ("w1", "b1", "w2", "b2")}
+    out["_dims"] = tuple(int(d) for d in tree["_dims"])
     return out
 
 

@@ -113,3 +113,18 @@ class ServingEngine:
             completions.append(Completion(tokens=toks_i, router_probs=rp,
                                           finish_reason=reason))
         return completions
+
+
+def routing_trace(cfg: ModelConfig, params, prompts: np.ndarray, *, max_new: int = 32,
+                  rt: Optional[Runtime] = None, lora=None, lora_scale: float = 1.0):
+    """Greedy-decode every prompt in one batch, returning (tokens (B,
+    max_new), probs (B, L, max_new - 1, E)): the router distributions of
+    every decode step, the dataset of the activation predictor (Sec
+    3.1.2) and of the transfer-count benchmarks."""
+    eng = ServingEngine(cfg, params, rt=rt, lora=lora, lora_scale=lora_scale,
+                        max_batch=len(prompts))
+    reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+    comps = eng.generate_batch(reqs, collect_probs=True)
+    toks = np.stack([c.tokens for c in comps])
+    probs = np.stack([c.router_probs for c in comps])
+    return toks, probs

@@ -19,12 +19,20 @@ streaming routes beside the CUDA-core one, "fma"), and each launch also
 counts under its route in :data:`ROUTE_LAUNCHES`, so a shape that leaves
 the fast route does so visibly. A call that starts several kernels
 (``ssd_scan`` "tc", ``int4_matmul`` "stream" with its split reduction)
-counts once.
+counts once. Launches made by a backward pass (``moe_gmm``'s
+``GmmFn``) count there like any other, and again, by the product they
+compute, in :data:`GRAD_LAUNCHES`.
+
+A kernel wrapper never returns a tensor that drops a gradient: under
+grad mode, with an input that requires grad, it either has a backward
+(``moe_gmm``) or raises (:func:`refuse_grad`).
 """
 from __future__ import annotations
 
 import os
 from typing import Optional
+
+import torch
 
 # Every kernel family of the repo; unknown names are an error.
 OPS = ("flash_attn", "int4_matmul", "moe_gmm", "ssd_scan")
@@ -37,12 +45,33 @@ ENV_VAR = "REPRO_TORCH_KERNEL_BACKEND"
 # reset_launches()
 LAUNCHES = {op: 0 for op in OPS}
 ROUTE_LAUNCHES: dict = {op: {} for op in OPS}
+# launches of a backward pass per op and product ("dA", "dB"), a breakdown
+# of LAUNCHES
+GRAD_LAUNCHES: dict = {op: {} for op in OPS}
 
 
 def count_launch(op: str, route: Optional[str] = None) -> None:
     LAUNCHES[op] += 1
     if route is not None:
         ROUTE_LAUNCHES[op][route] = ROUTE_LAUNCHES[op].get(route, 0) + 1
+
+
+def count_grad(op: str, product: str) -> None:
+    GRAD_LAUNCHES[op][product] = GRAD_LAUNCHES[op].get(product, 0) + 1
+
+
+def refuse_grad(op: str, *tensors) -> None:
+    """Raise where a kernel without a backward would be launched on an
+    input that requires grad under grad mode: its output would carry no
+    ``grad_fn`` and every gradient through it would be lost without an
+    error. Run such an op through its plain version (``op=ref`` in the
+    backend spec) or under ``torch.no_grad()``."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op}: the Hopper kernel has no backward, and an input requires grad; "
+            f"name the plain version in the backend spec (e.g. 'auto,{op}=ref') or "
+            f"run under torch.no_grad()")
 
 
 def on_one_cuda_device(*tensors) -> bool:
@@ -68,6 +97,7 @@ def reset_launches() -> None:
     for op in LAUNCHES:
         LAUNCHES[op] = 0
         ROUTE_LAUNCHES[op].clear()
+        GRAD_LAUNCHES[op].clear()
 
 
 def parse_spec(spec: Optional[str]) -> dict:

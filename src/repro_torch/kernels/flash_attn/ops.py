@@ -64,6 +64,7 @@ def flash_hopper(q, k, v, *, softcap: Optional[float] = None,
     """Launch the Hopper kernel that :func:`route` picks, or
     ``force_route`` (to time one route against another; a route that
     cannot take the inputs raises)."""
+    dispatch.refuse_grad("flash_attn", q, k, v)
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash: want q (B,T,Hkv,G,hd), k/v (B,S,Hkv,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

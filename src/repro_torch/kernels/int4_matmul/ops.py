@@ -124,6 +124,7 @@ def int4_matmul_hopper(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
     """Launch the Hopper kernel that :func:`route` picks on x (M, K), or
     ``force_route`` (to time one route against another; a route that
     cannot take the inputs raises, as does anything no kernel takes)."""
+    dispatch.refuse_grad("int4_matmul", x, scale, zero)
     if x.dim() != 2 or packed.dim() != 2:
         raise ValueError(f"int4_matmul: want x (M,K), packed (K//2,N); got "
                          f"{tuple(x.shape)}, {tuple(packed.shape)}")

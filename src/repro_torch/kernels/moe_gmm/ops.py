@@ -7,7 +7,11 @@ a CUDA tensor, the plain version for a CPU tensor (see
   tc     — bf16, M > 16 (prefill): 128 x 128 tensor-core tiles
            (``csrc/gmm_tc.cu``);
   fma    — everything else (fp32, unaligned widths or pointers): the
-           CUDA-core kernel (``csrc/gmm.cu``)."""
+           CUDA-core kernel (``csrc/gmm.cu``).
+
+Under grad, :class:`GmmFn` carries the kernel's gradient: its backward
+launches the same kernels for ``dA = dY Bᵀ`` (with the group sizes) and
+``dB = Aᵀ dY``, each only where autograd asks for it."""
 from __future__ import annotations
 
 import ctypes
@@ -35,10 +39,48 @@ def gmm(a: torch.Tensor, b: torch.Tensor,
     ``group_sizes`` (E,): valid rows per group; rows past the count must
     already be zero in ``a`` (slot-dispatch buffers guarantee it). The
     kernel then skips every M-tile past the count without reading the
-    group's weights; the plain version needs no such skip."""
+    group's weights; the plain version needs no such skip. Under grad
+    mode, with an input that requires grad, the kernel runs through
+    :class:`GmmFn`; otherwise it saves nothing for a backward."""
     if not dispatch.use_kernel("moe_gmm", backend, a.device):
         return gmm_ref(a, b)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return GmmFn.apply(a, b, group_sizes)
     return gmm_hopper(a, b, group_sizes)
+
+
+class GmmFn(torch.autograd.Function):
+    """``gmm_hopper`` with a gradient, by the same Hopper kernels:
+
+      dA = gmm_hopper(dY, Bᵀ, group_sizes)  (E, M, K)
+      dB = gmm_hopper(Aᵀ, dY)               (E, K, N), no group sizes
+
+    each launched only where ``ctx.needs_input_grad`` asks. Rows of dA
+    past a group's count come out zero: they belong to dispatch slots that
+    no token owns, whose gradient the dispatch discards. dB needs no group
+    sizes: the rows of A past the count are zero. The transposes are
+    contiguous copies (one of B per dA, one of A per dB). Each backward
+    launch also counts in ``dispatch.GRAD_LAUNCHES["moe_gmm"]`` by
+    product. The plain version under autograd is ``gmm_ref``."""
+
+    @staticmethod
+    def forward(ctx, a, b, group_sizes):
+        need_a, need_b = ctx.needs_input_grad[:2]
+        ctx.save_for_backward(a if need_b else None, b if need_a else None, group_sizes)
+        return gmm_hopper(a, b, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        a, b, group_sizes = ctx.saved_tensors
+        dy = dy.contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = gmm_hopper(dy, b.transpose(1, 2).contiguous(), group_sizes)
+            dispatch.count_grad("moe_gmm", "dA")
+        if ctx.needs_input_grad[1]:
+            db = gmm_hopper(a.transpose(1, 2).contiguous(), dy)
+            dispatch.count_grad("moe_gmm", "dB")
+        return da, db, None
 
 
 def route(M: int, K: int, N: int, dtype: torch.dtype, ptrs=(),
@@ -71,7 +113,10 @@ def gmm_hopper(a: torch.Tensor, b: torch.Tensor,
                force_route: Optional[str] = None) -> torch.Tensor:
     """Launch the Hopper kernel that :func:`route` picks, or
     ``force_route`` (to time one route against another; a route that
-    cannot take the inputs raises)."""
+    cannot take the inputs raises). The output has no gradient: under
+    grad, with an input that requires it, this raises (:func:`gmm` takes
+    :class:`GmmFn` there)."""
+    dispatch.refuse_grad("moe_gmm", a, b)
     if a.dim() != 3 or b.dim() != 3:
         raise ValueError(f"gmm: want a (E,M,K), b (E,K,N); got {a.shape}, {b.shape}")
     E, M, K = a.shape

@@ -73,6 +73,7 @@ def ssd_hopper(x, dt, A, Bm, Cm, init=None, *, D=None, chunk: int = 128,
     ``force_route`` (to time one route against another; a route that
     cannot take the inputs raises, as does anything no kernel takes). The
     chunk is min(chunk, T) rows; the last chunk's tail is masked."""
+    dispatch.refuse_grad("ssd_scan", x, dt, A, Bm, Cm, init, D)
     if Bm.dim() == 3:  # shared across heads == one group
         Bm, Cm = Bm[:, :, None], Cm[:, :, None]
     if x.dim() != 4 or Bm.dim() != 4:

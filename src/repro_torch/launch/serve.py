@@ -26,8 +26,13 @@ measured prefill seconds and decode tokens/s. ``--quantized`` keeps
 every expert in HQQ INT4 (paper Sec 3.2, group 32); the report then
 also gives ``quantize_s``, the seconds spent building the INT4 store
 (not part of ``prefill_s``). Runs on ``cuda`` unless ``--device cpu``.
-Counterpart of ``repro.launch.serve`` without ``--predictor`` (it needs
-``core/predictor.py``).
+
+``--predictor`` (with ``--n-train-prompts N``) trains the activation
+predictor Psi first, as ``repro.launch.serve`` does: the whole model on
+the device traces N more prompts of the same stream (``routing_trace``,
+16 new tokens each), Psi is fit to their per-layer mean router
+distributions, the traced model is freed, and the engine prefetches
+Psi's scores for the batch's mean prompt embedding before ``generate``.
 """
 from __future__ import annotations
 
@@ -42,6 +47,9 @@ from ..configs import get_config
 from ..core.offload_engine import HardwareProfile, OffloadedMoEEngine
 from ..bridge import params_from_jax
 from ..data.synthetic import ClusterLM, SyntheticConfig
+from ..core.predictor import (PromptEmbedder, init_predictor, predict_scores,
+                              train_predictor)
+from ..inference.engine import routing_trace
 from ..inference.sampling import greedy
 from ..kernels import _build, dispatch
 from ..models.common import cdtype
@@ -70,11 +78,49 @@ def load_params(cfg, ckpt, *, dtype, device):
     return params_from_jax(tree, cfg, dtype=dtype, device=device), meta
 
 
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def train_psi(cfg, params, train_prompts, prompts, *, device, kernel_backend="auto",
+              predictor_init=None, trace_new: int = 16) -> tuple:
+    """The reference launcher's predictor step: trace ``train_prompts``
+    through the whole model (a device copy of ``params``, freed before
+    this returns), fit Psi (``predictor_init``, else drawn from seed 1) to
+    the per-layer mean router distributions, and score the mean
+    embedding of ``prompts``. Returns ((L, E) scores, report)."""
+    dev = torch.device(device)
+    emb = PromptEmbedder(cfg.vocab, device=dev)
+    t0 = time.perf_counter()
+    traced = _tree_to(params, dev)
+    _, probs = routing_trace(cfg, traced, train_prompts, max_new=trace_new,
+                             rt=Runtime(kernel_backend=kernel_backend, device=dev,
+                                        zero_drop=True))
+    del traced
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    trace_s = time.perf_counter() - t0
+    targets = probs.mean(axis=2)  # (N, L, E)
+    embs = torch.stack([emb(p) for p in train_prompts])
+    pp = predictor_init or init_predictor(
+        targets.shape[1], targets.shape[2],
+        generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    t1 = time.perf_counter()
+    pp, hist = train_predictor(pp, embs, targets)
+    scores = predict_scores(pp, emb(prompts).mean(0))
+    return scores, {"predictor_kl": hist, "trace_s": trace_s,
+                    "predictor_train_s": time.perf_counter() - t1,
+                    "n_train_prompts": len(train_prompts)}
+
+
 def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         prompt_len: int = 32, max_new: int = 64, dtype=None, device=None,
         seed: int = 0, kernel_backend: str = "auto", quantized: bool = False,
         quantized_experts=None, keep_store: bool = False, host_store=None,
-        ckpt=None) -> dict:
+        ckpt=None, predictor: bool = False, n_train_prompts: int = 32,
+        predictor_init=None) -> dict:
     """Build a random-init model (or read ``ckpt``), serve one batch
     through the offloaded engine, and return the report (scalars, plus
     ``tokens`` and the last prompt position's ``prefill_logits``).
@@ -100,6 +146,17 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         params = init_params(cfg, generator=gen, dtype=dt, device=dev,
                              expert_device="cpu" if host_store is None else "meta")
     capacity = capacity or cfg.melinoe_cache_capacity()
+    # the training prompts continue the batch's stream, as the reference's
+    all_prompts = make_prompts(cfg.vocab, batch + (n_train_prompts if predictor else 0),
+                               prompt_len)
+    prompts = all_prompts[:batch]
+    psi = {}
+    if predictor:
+        if host_store is not None:
+            raise ValueError("predictor: the routing trace needs the experts of params")
+        scores, psi = train_psi(cfg, params, all_prompts[batch:], prompts, device=dev,
+                                kernel_backend=kernel_backend,
+                                predictor_init=predictor_init)
     engine = OffloadedMoEEngine(cfg, params, capacity=capacity, policy=policy,
                                 quantized=quantized,
                                 quantized_experts=quantized_experts,
@@ -109,7 +166,8 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
     del params  # the engine holds the experts in its pinned store
     if dev.type == "cuda":
         _build.lib()  # build the kernels now, not inside the timed prefill
-    prompts = make_prompts(cfg.vocab, batch, prompt_len)
+    if predictor:
+        engine.prefetch(scores)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     res = engine.generate(prompts, max_new_tokens=max_new)
@@ -140,6 +198,7 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         "slab_bytes": engine.slab_bytes, "host_store_bytes": engine.host_store_bytes,
         "tokens": res["tokens"].cpu().numpy(),
         "prefill_logits": res["prefill_logits"].cpu(),
+        **psi,
     }
     if keep_store:
         rep["host_store"] = engine.host_store
@@ -239,10 +298,12 @@ def main(argv=None):
     ap.add_argument("--ckpt", default=None,
                     help="params-only checkpoint (save_checkpoint of the parameter "
                          "tree, e.g. a merge_lora'd fine-tune) instead of random weights")
+    ap.add_argument("--predictor", action="store_true", help="train + use Psi prefetch")
+    ap.add_argument("--n-train-prompts", type=int, default=32)
     args = ap.parse_args(argv)
     if not get_config(args.arch).has_router:
-        if args.quantized:
-            ap.error("--quantized applies to the offloaded MoE path")
+        if args.quantized or args.predictor:
+            ap.error("--quantized and --predictor apply to the offloaded MoE path")
         rep = run_full(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                        max_new=args.max_new, dtype=args.dtype, device=args.device,
                        seed=args.seed, ckpt=args.ckpt)
@@ -255,9 +316,13 @@ def main(argv=None):
     rep = run(args.arch, capacity=args.capacity, policy=args.policy,
               batch=args.batch, prompt_len=args.prompt_len, max_new=args.max_new,
               dtype=args.dtype, device=args.device, seed=args.seed,
-              quantized=args.quantized, ckpt=args.ckpt)
+              quantized=args.quantized, ckpt=args.ckpt, predictor=args.predictor,
+              n_train_prompts=args.n_train_prompts)
     if args.ckpt:
         print(f"loaded {args.ckpt}")
+    if args.predictor:
+        kl = rep["predictor_kl"]
+        print(f"predictor KL {kl[0]:.4f} -> {kl[-1]:.4f}")
     print(f"generated {rep['decode_tokens']} tokens x batch {args.batch} "
           f"on {rep['device_name']}")
     print(f"transfers={rep['transfers']} ({rep['transfers_per_layer']:.1f}/layer), "

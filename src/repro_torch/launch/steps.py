@@ -1,0 +1,193 @@
+"""Training step builders, counterpart of the training half of
+``repro/launch/steps.py`` (single device: the pjit shardings of
+``train_shardings``/``decode_shardings`` wait for ``distributed/``).
+
+A step is a plain function: the forward pass, ``torch.autograd.grad``
+over the trainable leaves only, then the masked AdamW update
+(``training.optim``), in place. The trainable leaves enter the forward
+as detached views that require grad, one per repeat of a stacked leaf,
+so that each repeat's gradient is its own tensor (no full-size zero
+tensor per repeat, as indexing one stacked autograd leaf would give).
+The trees passed in come back updated; nothing else is copied. Frozen
+leaves get no gradient at all (the reference computes theirs and masks
+them to zero, which leaves the same update and clip norm).
+"""
+from __future__ import annotations
+
+from typing import Callable, List
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.losses import combine, nll_loss
+from ..models.model import MelinoeRun, apply_model
+from ..models.runtime import Runtime
+from ..training.optim import OptConfig, adamw_update, global_norm
+
+
+def _shift_loss(logits, tokens, labels, prefix_len: int):
+    """Next-token NLL with the prefix-embedding offset."""
+    if prefix_len:
+        pred = logits[:, prefix_len - 1: -1]
+        tgt = labels
+    else:
+        pred = logits[:, :-1]
+        tgt = labels[:, 1:]
+    return nll_loss(pred, tgt)
+
+
+def device_batch(batch: dict, device) -> dict:
+    """A batch of numpy arrays (``data.synthetic``) as integer tensors on
+    ``device``; the ``cluster`` labels are dropped."""
+    return {k: torch.as_tensor(v, dtype=torch.long, device=device)
+            for k, v in batch.items() if k != "cluster"}
+
+
+def make_loss_fn(cfg: ModelConfig, rt: Runtime, *, melinoe: bool):
+    """loss_fn(params, batch) -> (loss, metrics). With ``melinoe`` (and a
+    config that has a router and a MELINOE spec) the loss is Eq. 6, the
+    base routers being the current ones, detached."""
+    use_mel = melinoe and cfg.has_router and cfg.melinoe is not None
+
+    def loss_fn(params, batch):
+        mel = None
+        if use_mel:
+            from ..core.lora import extract_base_routers
+
+            mel = MelinoeRun(spec=cfg.melinoe, cache_capacity=cfg.melinoe_cache_capacity(),
+                             base_routers=extract_base_routers(params, cfg))
+        logits, aux = apply_model(params, cfg, batch["tokens"], rt,
+                                  prefix_embed=batch.get("prefix_embed"), melinoe=mel)
+        nll = _shift_loss(logits, batch["tokens"], batch["labels"], cfg.prefix_len)
+        if use_mel:
+            total = combine(nll, aux["cs_loss"], aux["rm_loss"], cfg.melinoe)
+            return total, {"nll": nll, "cs_loss": aux["cs_loss"],
+                           "rm_loss": aux["rm_loss"], "loss": total}
+        return nll, {"nll": nll, "loss": nll}
+
+    return loss_fn
+
+
+class _Views:
+    """A tree's trainable leaves as autograd leaves: :meth:`tree` is a copy
+    of the dict structure in which each trainable leaf is a detached view
+    that requires grad (a list of one view per repeat where the leaf is
+    stacked), frozen leaves as they are; :meth:`grads` turns the gradients
+    of :attr:`inputs` back into a tree of the same shape (``None`` at
+    frozen leaves, a list of per-repeat gradients at stacked ones)."""
+
+    def __init__(self, tree, mask, stacked: Callable[[str], bool]):
+        self.inputs: List[torch.Tensor] = []
+
+        def walk(t, m, path):
+            if isinstance(t, dict):
+                return {k: walk(v, m[k] if isinstance(m, dict) else m,
+                                f"{path}/{k}" if path else k) for k, v in t.items()}
+            if not m:
+                return t
+            if stacked(path):
+                vs = [x.detach().requires_grad_() for x in t]
+                self.inputs += vs
+                return vs
+            v = t.detach().requires_grad_()
+            self.inputs.append(v)
+            return v
+
+        self.tree = walk(tree, mask, "")
+
+    def grads(self, grads_by_id: dict):
+        def walk(t):
+            if isinstance(t, dict):
+                return {k: walk(v) for k, v in t.items()}
+            if isinstance(t, list):
+                return [grads_by_id[id(x)] for x in t]
+            return grads_by_id.get(id(t))
+
+        return walk(self.tree)
+
+
+def _grads(loss, views: List[_Views]) -> list:
+    inputs = [x for v in views for x in v.inputs]
+    gs = torch.autograd.grad(loss, inputs, allow_unused=True, materialize_grads=True)
+    by_id = {id(x): g for x, g in zip(inputs, gs)}
+    return [v.grads(by_id) for v in views]
+
+
+def _params_stacked(path: str) -> bool:
+    return path.startswith("groups/")
+
+
+def _detached(metrics: dict) -> dict:
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def build_train_step(cfg: ModelConfig, rt: Runtime, opt_cfg: OptConfig, *,
+                     melinoe: bool = True):
+    """Full-parameter training step (pretrain / integrated-technique mode).
+    fn(params, opt_state, batch) -> (params, opt_state, metrics); params
+    and opt_state are updated in place (``opt_state`` from
+    ``training.optim.init_opt_state(params)``)."""
+    loss_fn = make_loss_fn(cfg, rt, melinoe=melinoe)
+
+    def step(params, opt_state, batch):
+        batch = device_batch(batch, params["embed"].device)
+        views = _Views(params, True, _params_stacked)
+        loss, metrics = loss_fn(views.tree, batch)
+        (grads,) = _grads(loss, [views])
+        gn = global_norm(grads)
+        _, opt_state, om = adamw_update(grads, opt_state, params, opt_cfg)
+        return params, opt_state, dict(_detached(metrics), grad_norm=gn, lr=om["lr"])
+
+    return step
+
+
+def build_finetune_step(cfg: ModelConfig, rt: Runtime, opt_cfg: OptConfig, mask):
+    """MELINOE fine-tuning step (router + expert gate + LoRA trainable; Sec
+    3.1.1). fn(params, lora, opt_state, batch, base_routers) -> (params,
+    lora, opt_state, metrics); the trainable leaves of ``params`` (those
+    ``mask``, ``core.lora.melinoe_trainable_mask``, marks), the LoRA tree
+    and ``opt_state`` (``init_opt_state((params, lora), (mask, True))``)
+    are updated in place. ``base_routers``: the frozen base routers
+    (``core.lora.extract_base_routers`` of the base model).
+    ``step.loss_and_grads(params, lora, batch, base_routers)`` gives the
+    loss, metrics and gradients without updating anything, ``step.loss``
+    the loss and metrics of the forward pass alone."""
+    assert cfg.has_router and cfg.melinoe is not None
+    from ..core.lora import lora_scale
+
+    spec = cfg.melinoe
+    scale = lora_scale(spec)
+
+    def loss_fn(params, lora, batch, base_routers):
+        mel = MelinoeRun(spec=spec, cache_capacity=cfg.melinoe_cache_capacity(),
+                         base_routers=base_routers)
+        logits, aux = apply_model(params, cfg, batch["tokens"], rt,
+                                  prefix_embed=batch.get("prefix_embed"), melinoe=mel,
+                                  lora=lora, lora_scale=scale)
+        nll = _shift_loss(logits, batch["tokens"], batch["labels"], cfg.prefix_len)
+        total = combine(nll, aux["cs_loss"], aux["rm_loss"], spec)
+        return total, {"nll": nll, "cs_loss": aux["cs_loss"], "rm_loss": aux["rm_loss"],
+                       "loss": total}
+
+    def loss_and_grads(params, lora, batch, base_routers):
+        """(loss, metrics, (params grads, lora grads)) at the current
+        weights, no update: ``None`` at frozen leaves, per-repeat lists at
+        stacked ones."""
+        batch = device_batch(batch, params["embed"].device)
+        pv = _Views(params, mask, _params_stacked)
+        lv = _Views(lora, True, lambda path: True)
+        loss, metrics = loss_fn(pv.tree, lv.tree, batch, base_routers)
+        return loss, metrics, tuple(_grads(loss, [pv, lv]))
+
+    def loss(params, lora, batch, base_routers):
+        """(loss, metrics) at the current weights, the forward pass only."""
+        return loss_fn(params, lora, device_batch(batch, params["embed"].device),
+                       base_routers)
+
+    def step(params, lora, opt_state, batch, base_routers):
+        _, metrics, grads = loss_and_grads(params, lora, batch, base_routers)
+        adamw_update(grads, opt_state, (params, lora), opt_cfg, mask=(mask, True))
+        return params, lora, opt_state, _detached(metrics)
+
+    step.loss, step.loss_and_grads = loss, loss_and_grads
+    return step

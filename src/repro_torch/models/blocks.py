@@ -56,8 +56,8 @@ def effective_window(b: BlockSpec, window_override: Optional[int]) -> Optional[i
 def _ffn(params, b: BlockSpec, h2, rt: Runtime, aux: dict, want_probs: bool,
          lora, lora_scale: float):
     """The block's FFN on h2 (B, T, d): the MoE layer for ``attn_moe`` (its
-    router distribution into ``aux["probs"]`` when ``want_probs``), else
-    the dense MLP."""
+    router distribution into ``aux["probs"]`` and the router's input into
+    ``aux["moe_h"]`` when ``want_probs``), else the dense MLP."""
     if b.kind != "attn_moe":
         return apply_mlp(params["ffn"], h2)
     B, T, dm = h2.shape
@@ -67,6 +67,7 @@ def _ffn(params, b: BlockSpec, h2, rt: Runtime, aux: dict, want_probs: bool,
                       probs=probs)
     if want_probs:
         aux["probs"] = probs.reshape(B, T, -1)
+        aux["moe_h"] = h2
     return y2.reshape(B, T, dm)
 
 
@@ -76,7 +77,8 @@ def apply_block_full(params, cfg: ModelConfig, b: BlockSpec, x, positions, rt: R
                      lora_scale: float = 1.0) -> tuple:
     """Full-sequence (prefill) application. x (B, T, d). Returns (x, aux);
     ``aux["kv"]`` is the block's cache when ``want_cache``, ``aux["probs"]``
-    an ``attn_moe`` block's router distribution when ``want_probs``."""
+    an ``attn_moe`` block's router distribution and ``aux["moe_h"]`` the
+    hidden states fed to its router when ``want_probs``."""
     aux = {}
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
     if b.kind == "mamba":

@@ -27,18 +27,37 @@ Router probes (``collect_probs``) come back in the JAX layout: a list of
 
 LoRA trees (``lora``, from ``core.lora`` or ``bridge.lora_from_jax``)
 mirror ``params["groups"]``; each repeat takes its slice of the stacked
-adapters, as the reference's scan does.
+adapters, as the reference's scan does. A stacked leaf may also be given
+as a list of its per-repeat slices (the training steps hand in views of
+that kind, each its own autograd leaf).
+
+Training (``apply_model(melinoe=MelinoeRun(...))``) adds the per-layer
+cache-simulation and rank-matching losses of every MoE block, the JAX
+``_melinoe_layer``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ModelConfig
+from ..configs.base import MelinoeSpec, ModelConfig
 from .blocks import apply_block_decode, apply_block_full, init_block, init_block_cache
 from .common import cdtype, dense_init, embed_init, rms_norm, rms_norm_init, softcap
 from .runtime import Runtime, resolve_device
+
+
+@dataclass(frozen=True)
+class MelinoeRun:
+    """MELINOE auxiliary-loss request threaded through the forward pass."""
+
+    spec: MelinoeSpec
+    cache_capacity: int
+    # stacked base-router weights per group/position (same_trajectory
+    # mode); None disables the rank-matching term
+    base_routers: Optional[Dict[str, Dict[str, torch.Tensor]]] = None
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator, dtype=None,
@@ -121,48 +140,84 @@ def _block_lora(lora_g, pi: int, r: int):
     return _index(lora_g[f"p{pi}"], r)
 
 
+def _melinoe_layer(losses, aux, base_router, mel: "MelinoeRun", top_k: int):
+    from ..core.losses import melinoe_layer_losses
+
+    cs, rm = melinoe_layer_losses(probs=aux["probs"], moe_h=aux.get("moe_h"),
+                                  base_router=base_router, spec=mel.spec,
+                                  cache_capacity=mel.cache_capacity, top_k=top_k)
+    return losses[0] + cs, losses[1] + rm
+
+
 def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=None,
-                melinoe=None, collect_probs: bool = False, want_cache: bool = False,
-                cache_slots: int = 0, window_override: Optional[int] = None,
-                lora=None, lora_scale: float = 1.0, remat: bool = False):
+                melinoe: Optional[MelinoeRun] = None, collect_probs: bool = False,
+                want_cache: bool = False, cache_slots: int = 0,
+                window_override: Optional[int] = None, lora=None,
+                lora_scale: float = 1.0, remat: bool = False):
     """tokens (B, T) -> (logits (B, T, V) fp32, aux); ``aux["cache"]``
     holds the per-group stacked block caches when ``want_cache``,
-    ``aux["probs"]`` the router distributions when ``collect_probs``.
+    ``aux["probs"]`` the router distributions when ``collect_probs``, and
+    ``aux["cs_loss"]``/``aux["rm_loss"]`` the MELINOE losses (summed over
+    the MoE layers in order, divided by their number) when ``melinoe``.
 
-    Tokens only: ``prefix_embed``, ``melinoe`` and ``remat`` raise until
-    their slices are ported."""
-    unported = {"prefix_embed": prefix_embed is not None, "melinoe": melinoe is not None,
-                "remat": remat}
-    if any(unported.values()):
-        raise NotImplementedError(
-            f"apply_model: {[k for k, v in unported.items() if v]} not ported yet")
+    ``remat`` recomputes each repeat's blocks in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant): activation memory of one
+    repeat instead of all. ``prefix_embed`` raises until it is ported."""
+    if prefix_embed is not None:
+        raise NotImplementedError("apply_model: prefix_embed not ported yet")
     x = embed_tokens(params, cfg, tokens)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
+    want_probs = collect_probs or melinoe is not None
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    losses = (zero, zero)
     cache, probs_out = {}, []
     for gi, g in enumerate(cfg.layout):
         gparams = params["groups"][f"g{gi}"]
         lora_g = lora.get(f"g{gi}") if lora is not None else None
-        kv = [[] for _ in g.pattern]
-        probs = [[] for _ in g.pattern]
-        for r in range(g.repeats):
+        base_g = None
+        if melinoe is not None and melinoe.base_routers is not None:
+            base_g = melinoe.base_routers.get(f"g{gi}")
+
+        # the group's values are bound now: remat recomputes the body in the
+        # backward pass, after this loop has moved on to later groups
+        def body(x, losses, r, g=g, gparams=gparams, lora_g=lora_g, base_g=base_g):
+            kv, probs = {}, {}
             for pi, bname in enumerate(g.pattern):
                 b = cfg.block_defs[bname]
                 x, aux = apply_block_full(
                     _block_params(params, gparams, b, pi, r), cfg, b, x, positions, rt,
                     window_override=window_override, want_cache=want_cache,
-                    cache_slots=cache_slots,
-                    want_probs=collect_probs and b.moe is not None,
+                    cache_slots=cache_slots, want_probs=want_probs and b.moe is not None,
                     lora=_block_lora(lora_g, pi, r), lora_scale=lora_scale)
+                if b.moe is not None and melinoe is not None:
+                    br = _block_lora(base_g, pi, r)  # this repeat's base router
+                    losses = _melinoe_layer(losses, aux, br, melinoe, b.moe.top_k)
                 if want_cache:
-                    kv[pi].append(aux["kv"])
-                if "probs" in aux:
-                    probs[pi].append(aux["probs"])
+                    kv[pi] = aux["kv"]
+                if collect_probs and "probs" in aux:
+                    probs[pi] = aux["probs"]
+            return x, losses, kv, probs
+
+        kvs = [[] for _ in g.pattern]
+        probs = [[] for _ in g.pattern]
+        for r in range(g.repeats):
+            if remat:
+                x, losses, kv, pr = checkpoint(body, x, losses, r, use_reentrant=False)
+            else:
+                x, losses, kv, pr = body(x, losses, r)
+            for pi, v in kv.items():
+                kvs[pi].append(v)
+            for pi, v in pr.items():
+                probs[pi].append(v)
         if want_cache:
-            cache[f"g{gi}"] = {f"p{pi}": _stack(c) for pi, c in enumerate(kv)}
+            cache[f"g{gi}"] = {f"p{pi}": _stack(c) for pi, c in enumerate(kvs)}
         probs_out += [torch.stack(p) for p in probs if p]
     logits = compute_logits(params, cfg, x)
     aux = {}
+    if melinoe is not None:
+        n_moe = max(cfg.n_moe_layers, 1)
+        aux["cs_loss"], aux["rm_loss"] = losses[0] / n_moe, losses[1] / n_moe
     if collect_probs:
         aux["probs"] = probs_out
     if want_cache:

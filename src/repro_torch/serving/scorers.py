@@ -7,7 +7,7 @@ as ``core.predictor``:
   layer. No training needed; this is the upper bound the Psi predictor
   approximates (Sec 3.1.2).
 * ``predictor_expert_scores`` — the trained Psi_MLP over the frozen
-  prompt embedder (Eq. 7); raises until ``core/predictor.py`` is ported.
+  prompt embedder (Eq. 7).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.predictor import PromptEmbedder, predict_scores
 from ..models.model import apply_model
 from ..models.runtime import Runtime
 from .request import ServeRequest
@@ -52,9 +53,12 @@ def prefill_expert_scores(cfg: ModelConfig, params,
     return scores
 
 
-def predictor_expert_scores(predictor_params, embedder,
+def predictor_expert_scores(predictor_params, embedder: PromptEmbedder,
                             requests: Sequence[ServeRequest]) -> List[np.ndarray]:
-    """Annotate ``requests`` with Psi predictor scores (Eq. 7): needs
-    ``core/predictor.py``, which is not ported yet."""
-    raise NotImplementedError("predictor_expert_scores needs core/predictor.py, "
-                              "not ported yet")
+    """Annotate ``requests`` in place with Psi predictor scores (Eq. 7)."""
+    scores = []
+    for r in requests:
+        s = predict_scores(predictor_params, embedder(r.prompt))
+        r.expert_scores = s
+        scores.append(s)
+    return scores

@@ -652,3 +652,124 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,M,K,N", [
+    (8, 160, 2048, 1024),  # the fine-tune's wg/wu product (cap 160 at B 8 x T 128)
+    (8, 160, 1024, 2048),  # its wd product
+    (4, 37, 256, 128),  # a capacity that is not a multiple of 8: dB leaves "tc"
+])
+def test_gmm_backward_matches_plain_autograd(cuda, dtype, E, M, K, N):
+    """``GmmFn``'s dA and dB against ``gmm_ref`` under autograd on the same
+    ragged inputs and upstream gradient (zero past each group's count, as
+    the dispatch gives it); one dA and one dB launch, each counted."""
+    sizes = [M, 0, M // 3, 1] + [M // 2] * (E - 4)
+    a, b = _ragged(E, M, K, N, sizes, dtype, cuda)
+    rng = np.random.default_rng(1)
+    dy = torch.from_numpy(rng.standard_normal((E, M, N)).astype(np.float32))
+    dy = (dy * (torch.arange(M)[None, :, None] < torch.tensor(sizes)[:, None, None])
+          ).to(cuda, dtype)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    grads = []
+    for backend in ("hopper", "ref"):
+        aa, bb = a.clone().requires_grad_(), b.clone().requires_grad_()
+        dispatch.reset_launches()
+        y = gmm(aa, bb, gs, backend=backend)
+        y.backward(dy)
+        grads.append((y.detach(), aa.grad, bb.grad, dict(dispatch.GRAD_LAUNCHES["moe_gmm"]),
+                      dict(dispatch.ROUTE_LAUNCHES["moe_gmm"])))
+    (y, da, db, by_product, routes), (yr, dar, dbr, none, _) = grads
+    tol = TOL[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), **tol)
+    torch.testing.assert_close(da.float(), dar.float(), **tol)
+    # dB sums over the M rows: bf16 rounds its output once, as gmm_ref does
+    torch.testing.assert_close(db.float(), dbr.float(), **tol)
+    assert by_product == {"dA": 1, "dB": 1} and not none
+    fast = dtype == torch.bfloat16 and M % 8 == 0
+    assert sum(routes.values()) == 3 and (set(routes) == {"tc"} if fast else "fma" in routes)
+    # only the gradient that is asked for is launched
+    dispatch.reset_launches()
+    gmm(a, b.clone().requires_grad_(), gs).sum().backward()
+    assert dispatch.GRAD_LAUNCHES["moe_gmm"] == {"dB": 1}
+
+
+def test_kernels_without_a_backward_refuse_grad(cuda):
+    """Under grad, a kernel wrapper either has a backward (``moe_gmm``,
+    through ``gmm``) or raises: ``flash_attn``, ``ssd_scan`` and
+    ``int4_matmul`` have none, and ``gmm_hopper`` called directly has
+    none either. Without grad they run."""
+    q = torch.randn(1, 16, 2, 1, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 16, 2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash(q, k, k)
+    with torch.no_grad():
+        assert flash(q, k, k).shape == q.shape
+    x = torch.randn(1, 16, 2, 8, device=cuda, requires_grad=True)
+    dt = torch.full((1, 16, 2), 0.01, device=cuda)
+    A, Bm = -torch.ones(2, device=cuda), torch.randn(1, 16, 8, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd(x, dt, A, Bm, Bm)
+    w = torch.randn(64, 32, device=cuda) * 0.1
+    packed, scale, zero, _ = quantize_matmul_weight(w, 32)
+    xi = torch.randn(4, 64, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        int4_matmul(xi, packed, scale, zero, group=32)
+    a = torch.randn(2, 4, 64, device=cuda, requires_grad=True)
+    b = torch.randn(2, 64, 32, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gmm_hopper(a, b)
+    assert gmm(a, b).grad_fn is not None  # through GmmFn
+
+
+def test_finetune_step_through_kernels_matches_plain(cuda):
+    """One MELINOE fine-tune step's loss and gradients on olmoe-mini in
+    fp32 (router, expert wg, LoRA a and b): moe_gmm forward and backward
+    on the card (the trainer's spec, flash_attn plain) against every op
+    plain, ||delta|| / ||ref|| <= 1e-4 per leaf; 3 forward gmm per MoE
+    layer, and backward dB 3 per layer, dA 3 per layer but 1 in the
+    first (its dispatch buffer needs no gradient: embedding and attention
+    are frozen)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lora import extract_base_routers, melinoe_trainable_mask
+    from repro_torch.data.synthetic import ClusterLM, SyntheticConfig
+    from repro_torch.launch.steps import build_finetune_step
+    from repro_torch.models.model import init_params
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.training import TRAIN_KERNEL_BACKEND, OptConfig
+
+    cfg = get_config("olmoe-mini")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(0),
+                         dtype=torch.float32, device="cpu")
+    params = _tree_to(params, cuda)
+    lora = _tree_to(_lora_nonzero(cfg, 2), cuda)
+    mask = melinoe_trainable_mask(params)
+    base = extract_base_routers(params, cfg)
+    batch = next(ClusterLM(SyntheticConfig(vocab=cfg.vocab, seq_len=32, seed=0)).batches(4))
+    out = {}
+    for spec in (TRAIN_KERNEL_BACKEND, "ref"):
+        step = build_finetune_step(cfg, Runtime(kernel_backend=spec, device=cuda),
+                                   OptConfig(), mask)
+        dispatch.reset_launches()
+        loss, _, grads = step.loss_and_grads(params, lora, batch, base)
+        out[spec] = (loss.item(), grads, dict(dispatch.LAUNCHES),
+                     dict(dispatch.GRAD_LAUNCHES["moe_gmm"]))
+    (loss, grads, launches, by_product), (loss_r, grads_r, launches_r, _) = out.values()
+    L = cfg.n_moe_layers
+    assert launches["moe_gmm"] == 3 * L + 6 * L - 2 and launches["flash_attn"] == 0
+    assert by_product == {"dA": 3 * L - 2, "dB": 3 * L}
+    assert not any(launches_r.values())
+    assert abs(loss - loss_r) <= 1e-5 * abs(loss_r)
+
+    def leaves(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                yield from leaves(v)
+        elif t is not None:
+            yield torch.stack(t) if isinstance(t, list) else t
+
+    n = 0
+    for g, r in zip(leaves(dict(enumerate(grads))), leaves(dict(enumerate(grads_r)))):
+        assert ((g - r).norm() / r.norm()).item() <= 1e-4
+        n += 1
+    assert n == 2 + 4  # router and wg of the one stacked group, LoRA a/b of wu and wd

@@ -112,7 +112,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.serving.scorers", "repro_torch.serving.profiling",
             "repro_torch.serving.queue", "repro_torch.serving.request",
             "repro_torch.serving.scheduler", "repro_torch.serving.batch",
-            "repro_torch.serving.metrics", "repro_torch.launch.bench_serve"} <= set(mods)
+            "repro_torch.serving.metrics", "repro_torch.launch.bench_serve",
+            "repro_torch.core.cache_sim", "repro_torch.core.rank_match",
+            "repro_torch.core.losses", "repro_torch.core.predictor",
+            "repro_torch.training.optim", "repro_torch.training.trainer",
+            "repro_torch.launch.steps", "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"

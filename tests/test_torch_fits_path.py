@@ -155,15 +155,17 @@ def test_engine_and_full_path_refuse_what_is_not_ported(bridged):
     """Sampling and router probes are ported (tests/test_torch_serving.py,
     tests/test_torch_moe.py), and so is LoRA (tests/test_torch_lora.py:
     here a model without experts, where a LoRA tree has nothing to
-    adapt); remat and prefix embeddings raise."""
+    adapt), and remat (tests/test_torch_train.py; here it gives the
+    logits of the plain forward); prefix embeddings raise."""
     _, tcfg, _, params = bridged
     toks = torch.zeros((1, 4), dtype=torch.long)
     req = [Request(np.arange(4, dtype=np.int32), 3)]
     np.testing.assert_array_equal(
         ServingEngine(tcfg, params, lora={}).generate_batch(req)[0].tokens,
         ServingEngine(tcfg, params).generate_batch(req)[0].tokens)
-    with pytest.raises(NotImplementedError, match="remat"):
-        tmodel.apply_model(params, tcfg, toks, CPU, remat=True)
+    torch.testing.assert_close(tmodel.apply_model(params, tcfg, toks, CPU, remat=True)[0],
+                               tmodel.apply_model(params, tcfg, toks, CPU)[0],
+                               rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="prefix_embed"):
         tmodel.apply_model(params, tcfg, toks, CPU, prefix_embed=torch.zeros((1, 2, 8)))
     caches = [tmodel.prefill(params, tcfg, toks, CPU, n_slots=6)[1] for _ in range(2)]

@@ -173,8 +173,8 @@ def test_unported_knobs_raise(setup):
         OffloadedMoEEngine(cfg, params, capacity=2, device="cpu", little_experts=True)
     with pytest.raises(NotImplementedError, match="obs"):
         ServerMetrics().publish()
-    with pytest.raises(NotImplementedError, match="predictor"):
-        predictor_expert_scores(None, None, [])
+    # the predictor scorer is ported (tests/test_torch_predictor.py)
+    assert predictor_expert_scores(None, None, []) == []
 
 
 def test_on_step_and_should_drain(setup):
