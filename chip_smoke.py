@@ -117,7 +117,36 @@ From the root of a checkout, with CUDA available:
 14. runs ``python -m repro_torch.launch.train --arch olmoe-mini --mode
    both`` for a few steps on the card and reads both checkpoints back
    (the ``_melinoe`` one as ``(params, lora)``);
-15. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+15. the paper's comparison systems (Sec 4.2, Fig 3): step 4's batch and
+   weights through every ``core.baselines.BASELINES`` entry via
+   ``make_engine`` (C = 16; the bf16 ones on one pinned store, quant_cache
+   INT4 at C = 48 quantized here, melinoe prefetching step 11's Psi
+   scores), counters set to 0 just before each serve. It prints one row
+   per baseline (transfers, ``host_executed``, hit rate, both Eq.-3 clocks
+   and modeled tok/s, measured prefill s and decode tok/s, peak memory,
+   launches by phase and route) and asserts: ``stream_all`` charges
+   exactly layers x top-k x (4 x 128 + 4 x 31) transfers; ``cpu_execute``
+   charges none and host-executes exactly ``static_lfu``'s transfers;
+   every bf16 baseline gives step 4's tokens; launch totals by phase and
+   route (``BASELINE_GMM``: tensor-core routes only; the empty slab of
+   stream_all and cpu_execute launches nothing, their prefill overflow
+   group holds all 64 experts); ``stream_all``'s prefill logits against a
+   plain run within ``LOGITS_REL_TOL``;
+16. the little-expert tier on the same batch and weights: a rank-8 bank
+   (fp32 factors, ``LITTLE_BANK_BYTES``) built on the card, printed with
+   its build seconds; served at quality 1.0 (the bank is inert: step 4's
+   tokens, transfers and launches), 0.5 and 0.0 (no transfer, little
+   substitutions, a lower modeled clock), then under a deadline of half
+   the quality-1.0 run's serial modeled seconds (the prefill spends it:
+   the call stops after the prefill) and under one that the prefill and
+   the first decode step take past ``pressure_frac`` of (deadline
+   pressure: every later miss goes little, uncharged, and the call runs
+   to its end inside its budget); each run's prefill-logits distance
+   from the exact run and decode tok/s are printed, not gated; then
+   ``launch.bench_serve
+   --offloaded --little --quality 0.5`` at full width (4 requests), whose
+   summary must count degraded requests;
+17. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -248,6 +277,29 @@ GRAD_REL_TOL = 1e-4
 # each on O(1) logits, so about 6e-4 / 10.8 = 6e-5 relative), plus the cs
 # and rm terms, which see only the router distributions.
 FINETUNE_LOSS_REL_TOL = 1e-3
+# The paper's comparison systems (phase 15) on the main path's batch and
+# weights, C = 16. moe_gmm per layer-step: 6 where the step's experts fill
+# the slab and overflow it (every step of this batch: 64 experts in the
+# prefill, 25-28 in each decode step against C = 16), 3 where only one
+# group set serves (stream_all and cpu_execute keep the slab empty: the
+# overflow group alone, all 64 experts in the prefill; quant_cache's INT4
+# slab at C = 48, its spilled experts on int4_matmul), by phase and route.
+BASELINE_GMM = {"six": {"prefill": {"tc": 16 * 6}, "decode": {"stream": 31 * 16 * 6}},
+                "three": {"prefill": {"tc": 16 * 3}, "decode": {"stream": 31 * 16 * 3}}}
+BASELINE_SETS = {"static_lru": "six", "static_lfu": "six", "profile_prefetch": "six",
+                 "melinoe": "six", "stream_all": "three", "cpu_execute": "three",
+                 "quant_cache": "three"}
+for _name, _sets in BASELINE_SETS.items():
+    PATH_LAUNCHES[f"baseline-{_name}"] = {
+        "moe_gmm": sum(n for ph in BASELINE_GMM[_sets].values() for n in ph.values()),
+        "flash_attn": 16, "int4_matmul": None if _name == "quant_cache" else 0}
+# The little tier (phase 16): at quality 1.0 the bank is inert, so the
+# launches are the main path's.
+PATH_LAUNCHES["little-q1.0"] = PATH_LAUNCHES["bf16"]
+# rank-8 fp32 factors of OLMoE's 16 layers: 3 projections x
+# (64 x 2048 x 8 + 64 x 8 x 1024) x 4 B a layer
+LITTLE_RANK = 8
+LITTLE_BANK_BYTES = 16 * 3 * (64 * 2048 * 8 + 64 * 8 * 1024) * 4
 
 
 def check_path(path: str, launches: dict, routes: dict) -> None:
@@ -1215,6 +1267,7 @@ def predictor_phase(main_tokens, main_stats: dict, serve_kw: dict,
     torch.cuda.empty_cache()
     stats["phase_s"] = time.perf_counter() - t_phase
     print(f"predictor phase: {stats['phase_s']:.1f} s")
+    stats["psi_scores"] = rep["predictor_scores"]  # melinoe's prefetch in phase 15
     return stats
 
 
@@ -1526,6 +1579,251 @@ def train_launcher_phase(device: str = "cuda") -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# The paper's comparison systems and the little-expert tier (phases 15-16)
+# ---------------------------------------------------------------------------
+
+
+def _check_phases(path: str, by_phase: dict, want: dict) -> None:
+    """moe_gmm launches of a serve by phase and route, exactly ``want``."""
+    got = {ph: r.get("moe_gmm", {}) for ph, r in by_phase.items()}
+    if got != want:
+        raise AssertionError(f"{path}: moe_gmm by phase {got}, want {want}")
+
+
+def _serve_row(eng, prompts, dev, **gen_kw) -> tuple:
+    """One ``generate`` of ``eng``, counters set to 0 just before: (its
+    result, a row of its numbers)."""
+    from repro_torch.kernels import dispatch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dispatch.reset_launches()
+    res = eng.generate(prompts, max_new_tokens=32, **gen_kw)
+    torch.cuda.synchronize()
+    m, st = res["metrics"], res["cache_stats"]
+    row = {"capacity": eng.capacity, "transfers": m.transfers,
+           "host_executed": m.host_executed, "degraded_uses": m.degraded_uses,
+           "hit_rate": st.hit_rate, "hits": st.hits, "misses": st.misses,
+           "modeled_time_s": res["modeled_time_s"],
+           "modeled_time_overlapped_s": res["modeled_time_overlapped_s"],
+           "modeled_tok_s": res["throughput_tok_s"],
+           "modeled_overlapped_tok_s": res["throughput_overlapped_tok_s"],
+           "prefill_s": res["prefill_s"], "decode_tok_s": res["decode_tok_s"],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "slab_bytes": eng.slab_bytes, "quantize_s": eng.quantize_s,
+           "stopped_early": res["stopped_early"],
+           "launches_total": dict(dispatch.LAUNCHES),
+           "route_launches": {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES},
+           "by_phase": res["route_launches"]}
+    return res, row
+
+
+def serve_baselines(main_tokens, psi_scores, arch: str = "olmoe",
+                    device: str = "cuda") -> tuple:
+    """Phase 15: the main path's batch (4 x (128 + 32) tokens, weights of
+    seed 0, bf16, C = 16) through every ``core.baselines.BASELINES`` entry
+    via ``make_engine``: the bf16 ones on one pinned store, quant_cache on
+    its own INT4 store (phase 5's is gone by now: quantized here, with
+    ``quantize_s``), melinoe prefetching phase 11's Psi scores. Gates (see
+    the module docstring). Returns (report, (params, store, prompts)) for
+    phase 16 (a list, which phase 16 empties). ``arch``/``device``: a
+    smaller model or the CPU, to rehearse the phase's logic."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.baselines import BASELINES, make_engine
+    from repro_torch.core.offload_engine import HardwareProfile
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import init_params
+
+    t_phase = time.perf_counter()
+    print(f"baselines phase: host memory available {_host_available_gib():.1f} GiB")
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    B, T, new, C = 4, 128, 32, 16
+    prompts = make_prompts(cfg.vocab, B, T)
+    # the main path's weights: launch.serve.run's draw, experts on the host
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev, expert_device="cpu")
+    rows, store, logits = {}, None, {}
+    for name, spec in BASELINES.items():
+        path = f"baseline-{name}"
+        eng = make_engine(cfg, params, spec, capacity=C, hw=HardwareProfile(), device=dev,
+                          **({} if spec.quantized else {"host_store": store}))
+        if store is None and not spec.quantized:
+            store = eng.host_store
+        if spec.use_predictor:
+            eng.prefetch(psi_scores)
+        res, row = _serve_row(eng, prompts, dev)
+        check_path(path, row["launches_total"], row["route_launches"])
+        _check_phases(path, row["by_phase"], BASELINE_GMM[BASELINE_SETS[name]])
+        if spec.quantized:
+            int4 = {ph: r["int4_matmul"] for ph, r in row["by_phase"].items()}
+            if any(set(r) - set(INT4_PHASE_ROUTES[ph]) for ph, r in int4.items()):
+                raise AssertionError(f"{path}: int4_matmul by phase {int4}")
+        toks = res["tokens"].cpu().numpy()
+        row["tokens_equal_main"] = bool(np.array_equal(toks, main_tokens))
+        row["prefetch_transfers"] = res["metrics"].prefetch_transfers
+        logits[name] = res["prefill_logits"].float().cpu()
+        rows[name] = row
+        print(f"{path}:", json.dumps({k: v for k, v in row.items() if k != "by_phase"}),
+              f"by phase {row['by_phase']}")
+        del eng, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    _strip_experts(params)  # the shared store holds them
+    gc.collect()
+    # the plain run of stream_all's prefill: every expert through the overflow
+    # group, without kernels
+    plain = make_engine(cfg, params, BASELINES["stream_all"], capacity=C, hw=HardwareProfile(),
+                        device=dev, host_store=store, kernel_backend="ref")
+    plain_logits = plain.generate(prompts, max_new_tokens=1)["prefill_logits"].float().cpu()
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    stream_rel = _rel(logits["stream_all"], plain_logits)
+
+    print("baseline            transfers  host_exec  hit_rate  serial_s  overlap_s  "
+          "model_tok/s  prefill_s  decode_tok/s  peak_GB  gmm(pre/dec)  int4")
+    for name, r in rows.items():
+        ph = r["by_phase"]
+        print(f"{name:18s} {r['transfers']:10d} {r['host_executed']:10d} "
+              f"{r['hit_rate']:9.4f} {r['modeled_time_s']:9.4f} "
+              f"{r['modeled_time_overlapped_s']:10.4f} {r['modeled_tok_s']:12.2f} "
+              f"{r['prefill_s']:10.4f} {r['decode_tok_s']:13.2f} "
+              f"{r['max_memory_allocated'] / 1e9:8.2f}  "
+              f"{ph['prefill'].get('moe_gmm')}/{ph['decode'].get('moe_gmm')}  "
+              f"{ph['prefill'].get('int4_matmul')}/{ph['decode'].get('int4_matmul')}")
+    L, K = cfg.n_moe_layers, cfg.moe_spec.top_k
+    want_stream = L * K * (B * T + B * (new - 1))
+    print(f"stream_all transfers {rows['stream_all']['transfers']} (want {want_stream}); "
+          f"cpu_execute transfers {rows['cpu_execute']['transfers']}, host_executed "
+          f"{rows['cpu_execute']['host_executed']} (static_lfu transfers "
+          f"{rows['static_lfu']['transfers']}); stream_all prefill logits kernel vs plain "
+          f"rel {stream_rel:.3g} (tol {LOGITS_REL_TOL})")
+    if rows["stream_all"]["transfers"] != want_stream:
+        raise AssertionError(f"stream_all: {rows['stream_all']['transfers']} transfers, "
+                             f"want {want_stream}")
+    if not (rows["cpu_execute"]["transfers"] == 0 and rows["cpu_execute"]["host_executed"]
+            == rows["static_lfu"]["transfers"] > 0):
+        raise AssertionError(f"cpu_execute: {rows['cpu_execute']}")
+    bad = [n for n, r in rows.items() if n != "quant_cache" and not r["tokens_equal_main"]]
+    if bad:
+        raise AssertionError(f"baselines {bad}: tokens differ from the main path's")
+    if not (math.isfinite(stream_rel) and stream_rel <= LOGITS_REL_TOL):
+        raise AssertionError(f"stream_all prefill logits disagree: rel {stream_rel}")
+    rep = {"rows": rows, "stream_all_logits_rel": stream_rel,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"baselines phase: {rep['phase_s']:.1f} s")
+    return rep, [params, store, prompts]
+
+
+def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmoe",
+                 device: str = "cuda") -> dict:
+    """Phase 16: the little-expert tier on the main path's batch and
+    weights (``shared``: phase 15's params, pinned store and prompts), C =
+    16, gamma: a rank-8 bank built on the card, then serves at quality 1.0,
+    0.5 and 0.0 and under a deadline of half the quality-1.0 run's serial
+    modeled seconds (each on a fresh engine serving the same bank), then
+    ``bench_serve --offloaded --little --quality 0.5`` at full width."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import OffloadedMoEEngine
+    from repro_torch.launch import bench_serve
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    params, store, prompts = shared
+    shared.clear()  # this phase frees them before bench_serve's own model
+    eng_kw = dict(capacity=16, policy="gamma", host_store=store, device=dev)
+    eng = OffloadedMoEEngine(cfg, params, little_experts=True, little_rank=LITTLE_RANK,
+                             **eng_kw)
+    bank = eng.little
+    print(f"little bank: rank {bank.rank}, {bank.n_layers} layers built in "
+          f"{eng.little_build_s:.2f} s ({eng.little_build_s / bank.n_layers:.3f} s a layer), "
+          f"{bank.device_bytes} B ({bank.bytes_per_layer()} B a layer)")
+    if arch == "olmoe" and bank.device_bytes != LITTLE_BANK_BYTES:
+        raise AssertionError(f"little bank: {bank.device_bytes} B, want {LITTLE_BANK_BYTES}")
+    rows, logits = {}, {}
+    for label, kw in (("q1.0", {"quality": 1.0}), ("q0.5", {"quality": 0.5}),
+                      ("q0.0", {"quality": 0.0})):
+        e = eng if label == "q1.0" else OffloadedMoEEngine(cfg, params, little_bank=bank,
+                                                            **eng_kw)
+        subs0 = bank.substitutions
+        res, row = _serve_row(e, prompts, dev, **kw)
+        row["substitutions"] = bank.substitutions - subs0
+        row["tokens_equal_main"] = bool(np.array_equal(res["tokens"].cpu().numpy(),
+                                                       main_tokens))
+        logits[label] = res["prefill_logits"].float().cpu()
+        row["prefill_logits_rel_vs_q1.0"] = _rel(logits[label], logits["q1.0"])
+        if label == "q1.0":
+            row["prefill_serial_s"] = e.metrics.serial_span(e.hw, 0, 1)
+            row["step1_serial_s"] = e.metrics.serial_span(e.hw, 1, 2)
+        for op, fast in FAST_ROUTES.items():
+            if set(row["route_launches"][op]) - set(fast):
+                raise AssertionError(f"little {label}: {op} routes {row['route_launches'][op]}")
+        rows[label] = row
+        print(f"little {label}:", json.dumps({k: v for k, v in row.items() if k != "by_phase"}))
+        if e is not eng:
+            del e
+    check_path("little-q1.0", rows["q1.0"]["launches_total"], rows["q1.0"]["route_launches"])
+    q1, q0 = rows["q1.0"], rows["q0.0"]
+    if not (q1["tokens_equal_main"] and q1["transfers"] == main_stats["transfers"]
+            and q1["degraded_uses"] == 0):
+        raise AssertionError(f"little q1.0: the bank is not inert: {q1}")
+    if not (q0["transfers"] == 0 and q0["degraded_uses"] > 0
+            and q0["modeled_time_s"] < q1["modeled_time_s"]):
+        raise AssertionError(f"little q0.0: {q0}")
+
+    # deadlines. Half the exact run's serial seconds: its prefill alone (the
+    # batch's 512 prompt tokens, most of the run's misses) spends that, so
+    # the call stops after the prefill. A budget that the prefill and the
+    # first decode step take past pressure_frac of, and not whole: every
+    # later miss goes little and is not charged, so the call runs to its
+    # end inside the budget.
+    budgets = {"deadline_half": 0.5 * q1["modeled_time_s"],
+               "deadline_pressure": (q1["prefill_serial_s"] + q1["step1_serial_s"]) / 0.8}
+    for label, budget in budgets.items():
+        e = OffloadedMoEEngine(cfg, params, little_bank=bank, **eng_kw)
+        res, row = _serve_row(e, prompts, dev, deadline_s=budget)
+        row.update(deadline_s=budget, decode_steps=int(res["tokens"].shape[1]) - 1,
+                   prefill_logits_rel_vs_q1_0=_rel(res["prefill_logits"].float().cpu(),
+                                                   logits["q1.0"]))
+        rows[label] = row
+        print(f"little {label}:", json.dumps({k: v for k, v in row.items()
+                                              if k != "by_phase"}))
+        del e, res
+    half, press = rows["deadline_half"], rows["deadline_pressure"]
+    if not (half["stopped_early"] and half["modeled_time_s"] >= half["deadline_s"]):
+        raise AssertionError(f"little deadline_half: {half}")
+    if not (press["degraded_uses"] > 0 and not press["stopped_early"]
+            and press["decode_steps"] == 31 and press["modeled_time_s"] <= press["deadline_s"]
+            and press["transfers"] < q1["transfers"]):
+        raise AssertionError(f"little deadline_pressure: {press}")
+    del eng, bank, params, store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the launcher at full width: 4 requests in one wave, quality 0.5
+    t0 = time.perf_counter()
+    results, mt = bench_serve.main([
+        "--arch", arch, "--device", device, "--offloaded", "--capacity", "16",
+        "--slots", "4", "--n-requests", "4", "--prompt-len", "128", "--max-new", "32",
+        "--arrival", "all_at_once", "--little", "--quality", "0.5"])
+    summ = mt.summary()
+    rows["bench_serve"] = {k: summ[k] for k in (
+        "requests", "generated_tokens", "transfers", "degraded_requests",
+        "modeled_time_serial_s", "modeled_time_overlapped_s", "cache_hit_rate")}
+    rows["bench_serve"]["wall_s"] = time.perf_counter() - t0
+    print("bench_serve --offloaded --little --quality 0.5:", json.dumps(rows["bench_serve"]))
+    if not (summ["degraded_requests"] > 0 and summ["requests"] == len(results) == 4):
+        raise AssertionError(f"bench_serve --little: {summ}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = {"rows": rows, "phase_s": time.perf_counter() - t_phase}
+    print(f"little phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it. ``source`` is the kernel the
@@ -1674,6 +1972,10 @@ def main() -> int:
     ft_rep = finetune_phase()
     train_launcher_phase()
 
+    # ---- the paper's comparison systems and the little-expert tier
+    b_rep, shared = serve_baselines(tokens, p_rep["psi_scores"])
+    l_rep = little_phase(tokens, main_stats, shared)
+
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
@@ -1705,7 +2007,10 @@ def main() -> int:
              "deepseek-offloaded": d_rep["launches_total"],
              "predictor-serve": p_rep["launches_total"],
              "finetune-grad-gate": gg_rep["launches_total"],
-             "finetune": ft_rep["launches_total"]}
+             "finetune": ft_rep["launches_total"],
+             **{f"baseline-{n}": r["launches_total"] for n, r in b_rep["rows"].items()},
+             **{f"little-{n}": r["launches_total"] for n, r in l_rep["rows"].items()
+                if "launches_total" in r}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
@@ -1714,7 +2019,10 @@ def main() -> int:
               "deepseek-offloaded": d_rep["route_launches_total"],
               "predictor-serve": p_rep["route_launches"],
               "finetune-grad-gate": gg_rep["route_launches"],
-              "finetune": ft_rep["route_launches"]}
+              "finetune": ft_rep["route_launches"],
+             **{f"baseline-{n}": r["route_launches"] for n, r in b_rep["rows"].items()},
+             **{f"little-{n}": r["route_launches"] for n, r in l_rep["rows"].items()
+                if "route_launches" in r}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

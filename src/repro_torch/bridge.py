@@ -13,7 +13,10 @@ INT4 weights cross the same way: :func:`qtensor_from_jax` takes a numpy
 copy of a JAX ``QTensor`` (``repro.core.quant``), and
 :func:`quantized_experts_from_jax` turns a JAX quantized engine's host
 store into the port engine's ``quantized_experts`` argument, so that the
-two packages compute on the same codes.
+two packages compute on the same codes. A JAX little-expert bank
+(``repro.core.little_expert.LittleExpertBank``) crosses with
+:func:`little_bank_from_jax`: its fp32 factors as they are, its INT4 left
+factors on their codes.
 
 LoRA trees cross with :func:`lora_from_jax` (``{g: {p: {"wu"|"wd":
 {"a": (R, E, din, r), "b": (R, E, r, dout)}}}}``, numpy leaves), the
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .core.little_expert import LittleExpertBank
 from .core.quant import QTensor, matmul_layout
 from .kernels.int4_matmul.ops import MatmulQWeight
 from .models.common import cdtype
@@ -161,3 +165,20 @@ def quantized_experts_from_jax(host_store) -> list:
                                        for i in range(3)), per_e[0][k].group)
                     for k in per_e[0]})
     return out
+
+
+def little_bank_from_jax(bank, *, device="cpu") -> LittleExpertBank:
+    """A JAX ``LittleExpertBank`` (per layer ``{k: (left, right)}``: left
+    ``(E, din, r)`` fp32 or, quantized, the ``QTensor`` of ``left^T``;
+    right ``(E, r, dout)``) -> the port's bank on ``device``, every factor
+    and code bit for bit (INT4 left factors in the matmul layout)."""
+    factors = []
+    for layer in bank.factors:
+        out = {}
+        for k, (left, right) in layer.items():
+            left = (matmul_layout(qtensor_from_jax(left)) if bank.quantized
+                    else torch.tensor(np.asarray(left)))
+            out[k] = (left, torch.tensor(np.asarray(right)))
+        factors.append(out)
+    return LittleExpertBank.from_factors(factors, rank=bank.rank, quantized=bank.quantized,
+                                         device=device)

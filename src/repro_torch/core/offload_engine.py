@@ -39,10 +39,26 @@ device between the MoE layers. The port runs eagerly, so the JAX
 engine's compact variant and fused moe(l)+pre(l+1) call — XLA launch
 optimisations with identical results — are not ported.
 
+The paper's comparison systems (``core/baselines.py``) run on the same
+engine: ``stream_all`` keeps nothing on the device and charges every
+routed assignment as a transfer; ``cpu_execute`` runs the cache manager
+but books its misses as host-executed (Eq. 3's host term) instead of
+transfers. In both, every expert a step needs that the slab does not
+hold runs through the overflow group (or the INT4 spillover), exactly
+as the reference models them: the host-execution baseline is a cost
+model, its experts compute on the device.
+
+With ``little_experts`` an always-resident low-rank bank
+(``core/little_expert.py``) stands in for the big experts that the
+quality dial of ``generate`` (or its deadline pressure) sends to the
+little tier: those misses are neither fetched nor charged, and they
+leave the modeled resident set and the slab.
+
 Beside the two modeled clocks the engine reports measured wall-clock
 prefill seconds and decode tokens/s on its device. The reference's
-little-expert tier, fault seams, host-execution and stream-all baselines
-and its ``impl="dict"`` engine are not ported: asking for one raises.
+fault seams (``fetch_policy`` and the fault-plan hooks, which need
+``faults/`` and ``obs/``) and its ``impl="dict"`` engine are not ported:
+asking for one raises.
 """
 from __future__ import annotations
 
@@ -69,6 +85,7 @@ from ..models.moe import (Dispatch, combine_tokens, dispatch_tokens,
                           router_probs, top_k_route)
 from ..models.runtime import Runtime, resolve_device
 from .expert_cache import ModelExpertCache
+from .little_expert import LittleExpertBank
 from .quant import matmul_layout, qmatmul, quantize_linear
 
 _EXPERT_KEYS = ("wg", "wu", "wd")
@@ -86,7 +103,7 @@ class HardwareProfile:
     hbm_bw: float = 3350e9
     host_link_bw: float = 64e9  # host<->device copies (PCIe gen5 x16)
     transfer_latency: float = 30e-6  # per-transfer fixed cost
-    host_flops: float = 2e12  # host-side expert execution (not ported; Eq. 3 term)
+    host_flops: float = 2e12  # host-side expert execution (cpu_execute; Eq. 3 term)
     mfu: float = 0.4  # assumed compute efficiency for Eq. 3
 
 
@@ -108,10 +125,10 @@ class EngineMetrics:
     prefill_wall_time: float = 0.0  # ... of its prefill (device synchronized)
     decode_wall_time: float = 0.0  # ... of its decode steps
     host_time: float = 0.0  # modeled host-side expert execution (set in generate)
-    # resilience accounting of the reference (its fault seams are not
-    # ported, so these stay 0): modeled seconds lost to injected transfer
-    # spikes, failed fetch attempts and retry backoff; counts of retries,
-    # failed attempts and little-expert substitutions
+    # resilience accounting: little-expert substitutions (degraded_uses),
+    # and the reference's fault-seam counters, which stay 0 until its
+    # faults/ module is ported (modeled seconds lost to injected transfer
+    # spikes, failed fetch attempts and retry backoff; retries, failures)
     fault_delay_s: float = 0.0
     fetch_retries: int = 0
     fetch_failures: int = 0
@@ -403,7 +420,7 @@ class OffloadedMoEEngine:
                  kernel_backend: str = "auto", impl: str = "slab",
                  little_experts: bool = False, little_rank: int = 8,
                  little_quantized: bool = False, fetch_policy=None,
-                 pressure_frac: float = 0.75, device=None):
+                 pressure_frac: float = 0.75, little_bank=None, device=None):
         """``quantized_experts`` (with ``quantized``): per MoE layer, the
         INT4 experts already in the matmul layout (``{k: MatmulQWeight}``
         of ``(E, ...)`` leaves, e.g. from :meth:`quantized_experts` or
@@ -413,17 +430,30 @@ class OffloadedMoEEngine:
         (``engine.host_store``), shared as it is: ``params``' expert
         leaves are then not read. ``lora`` (the model's adapter tree,
         ``core.lora``) is kept on the device, one slice per MoE layer.
-        ``little_rank``, ``little_quantized`` and ``pressure_frac`` only
-        matter with ``little_experts``, which is not ported."""
+
+        ``little_experts`` builds the low-rank bank (``LittleExpertBank``
+        of rank ``little_rank``, INT4 left factors with
+        ``little_quantized``) on the engine's device from the experts'
+        weights with the LoRA delta folded in; ``little_bank`` serves a
+        bank built before (another engine's ``little``, or
+        ``bridge.little_bank_from_jax``) instead, and turns the tier on.
+        ``pressure_frac``: the share of a ``deadline_s`` budget after
+        which every miss goes to the little tier."""
         assert cfg.has_router, "offload engine needs an MoE architecture"
         _unported(
             impl=(impl != "slab", "the reference's dict engine, the pre-rewrite "
                                   "baseline of benchmarks/offload_bench.py"),
-            little_experts=(little_experts, "core/little_expert.py"),
-            fetch_policy=(fetch_policy is not None, "faults/"),
-            cpu_execute=(cpu_execute, "the host-execution (Fiddler) baseline"),
-            stream_all=(stream_all, "the stream-all baseline"))
+            fetch_policy=(fetch_policy is not None,
+                          "faults/ and obs/: the fault seams _guard_fetch, "
+                          "_apply_storm, _guard_prefetch"))
         self.cfg = cfg
+        self.cpu_execute = cpu_execute
+        self.stream_all = stream_all
+        # deadline pressure: once a request has burned this fraction of its
+        # Eq.-3 budget, remaining misses go all-little (quality 0)
+        self.pressure_frac = pressure_frac
+        self._step_quality = 1.0  # effective per-step quality dial
+        self._gen_step = 0
         self.quantized = quantized
         self.quant_group = quant_group
         self.device = resolve_device(device)
@@ -446,6 +476,8 @@ class OffloadedMoEEngine:
         self.moe_layer_ids: List[int] = []
         # per MoE layer: wg/wu/wd (E, ...) views of one pinned (E, 3, d*f) buffer
         self.host_store: List[Dict[str, torch.Tensor]] = list(host_store or [])
+        # the little bank's source where the store holds INT4 codes
+        fp_experts: List[Dict[str, torch.Tensor]] = []
         to_dev = lambda a: a.to(dev)  # noqa: E731
         shared = (_tree_map(to_dev, params["shared"]) if "shared" in params else None)
         for gi, g in enumerate(cfg.layout):
@@ -468,6 +500,12 @@ class OffloadedMoEEngine:
                     lp["ffn"] = _tree_map(
                         at_r, {k: v for k, v in ffn.items() if k not in _EXPERT_KEYS})
                     moe_idx = len(self.moe_layer_ids)
+                    if quantized and little_experts and little_bank is None:
+                        if any(ffn[k].is_meta for k in _EXPERT_KEYS):
+                            raise ValueError("little_experts: the INT4 store holds no fp "
+                                             "weights to distil and params' experts are "
+                                             "not loaded; pass little_bank=")
+                        fp_experts.append({k: ffn[k][r] for k in _EXPERT_KEYS})
                     if host_store is None:
                         w = {k: ffn[k][r] for k in _EXPERT_KEYS}
                         if quantized:
@@ -513,6 +551,20 @@ class OffloadedMoEEngine:
         self._slab_q = ([self._qlayout.views(s.buffers["q"]) for s in self._slabs]
                         if quantized else None)
         self._overflow: Optional[Dict[str, torch.Tensor]] = None
+
+        # always-resident low-rank distillates: the degraded-mode tier
+        # (LoRA deltas folded in at build time)
+        self.little: Optional[LittleExpertBank] = little_bank
+        self.little_build_s = 0.0
+        if little_bank is None and little_experts:
+            t0 = time.perf_counter()
+            self.little = LittleExpertBank(
+                fp_experts if quantized else self.host_store, rank=little_rank,
+                lora=[self.layers[li]["lora"] for li in self.moe_layer_ids],
+                lora_scale=lora_scale, quantized=little_quantized,
+                quant_group=quant_group, device=dev)
+            self._sync()
+            self.little_build_s = time.perf_counter() - t0
 
     # ------------------------------------------------------------------
     # host store and copies
@@ -724,42 +776,110 @@ class OffloadedMoEEngine:
                      cap=N)
         return combine_tokens(d, yb)  # (N, d)
 
-    def _prep_moe(self, moe_idx: int, eids_np: np.ndarray) -> List[int]:
+    # ------------------------------------------------------------------
+    # the quality dial (little-expert tier)
+    # ------------------------------------------------------------------
+    def _degrade_roll(self, moe_idx: int, e: int) -> bool:
+        """Deterministic per-(layer, expert, step) quality roll: True
+        means substitute the little expert instead of fetching the big
+        one. quality 1.0 never degrades by choice; 0.0 always does."""
+        q = self._step_quality
+        if q >= 1.0:
+            return False
+        h = (moe_idx * 0x9E3779B1 ^ e * 0x85EBCA77
+             ^ self._gen_step * 0xC2B2AE3D) & 0xFFFFFFFF
+        h ^= h >> 16
+        h = (h * 0x45D9F3B) & 0xFFFFFFFF
+        h ^= h >> 16
+        return (h / 2.0**32) >= q
+
+    def _degrade_misses(self, moe_idx: int, missed):
+        """Quality verdicts over one step's modeled misses (the quality
+        half of the reference's ``_degrade_misses``; its fault trials
+        need ``faults/``). An expert degraded by choice is never fetched:
+        it leaves the modeled resident set (future steps re-miss it
+        honestly) and its transfer goes uncharged. Returns
+        (degraded_ids, n_charged)."""
+        uniq = sorted(set(int(e) for e in missed))
+        degraded = {e for e in uniq if self._degrade_roll(moe_idx, e)}
+        if not degraded:
+            return [], len(missed)
+        resident = self.cache.layers[moe_idx].resident
+        for e in degraded:
+            resident.discard(e)
+        self.metrics.degraded_uses += len(degraded)
+        n_charged = sum(1 for e in missed if int(e) not in degraded)
+        return sorted(degraded), n_charged
+
+    def _prep_moe(self, moe_idx: int, eids_np: np.ndarray):
         """Host half of a MoE layer's step: cache accounting (one
-        vectorized call), then physical residency. Returns the experts
-        the slab could not hold."""
-        missed = self.cache.layers[moe_idx].access_batch(eids_np)
-        if missed:
-            self.metrics.add_demand_transfers(moe_idx, len(missed),
-                                              len(missed) * self.expert_bytes)
+        vectorized call; ``stream_all`` charges every assignment,
+        ``cpu_execute`` books the misses as host-executed, the quality
+        dial sends misses to the little tier), then physical residency.
+        Returns (the experts the slab does not hold, the degraded ones)."""
+        N, K = eids_np.shape
+        degraded: List[int] = []
+        missed: List[int] = []
+        if self.stream_all:
+            self.metrics.add_demand_transfers(moe_idx, N * K, N * K * self.expert_bytes)
+        else:
+            missed = self.cache.layers[moe_idx].access_batch(eids_np)
+            if self.cpu_execute:
+                self.metrics.host_executed += len(missed)
+            elif missed:
+                n_charged = len(missed)
+                if self.little is not None and self._step_quality < 1.0:
+                    degraded, n_charged = self._degrade_misses(moe_idx, missed)
+                if n_charged:
+                    self.metrics.add_demand_transfers(moe_idx, n_charged,
+                                                      n_charged * self.expert_bytes)
+        slab = self._slabs[moe_idx]
         needed = sorted(set(eids_np.ravel().tolist()))
+        if degraded:
+            dset = set(degraded)
+            needed = [e for e in needed if e not in dset]
+            # a degraded expert is never served from a slot the slab retained
+            for e in degraded:
+                if e in slab.residents:
+                    slab.drop(e)
+        if self.cpu_execute or self.stream_all:
+            # host-executed / streamed experts never persist on the device:
+            # everything runs through the per-step overflow group
+            return [e for e in needed if e not in slab.residents], degraded
         if self.quantized:  # the slab mirrors the manager's resident set
             if missed:
                 self._sync_slab(moe_idx)
-            residents = self._slabs[moe_idx].residents
-            return [e for e in needed if e not in residents]
-        return self._ensure_resident(moe_idx, needed)
+            return [e for e in needed if e not in slab.residents], degraded
+        return self._ensure_resident(moe_idx, needed), degraded
 
-    def _finish_moe(self, layer: dict, h2f, gates, eids, eids_np, missing):
+    def _finish_moe(self, layer: dict, h2f, gates, eids, eids_np, missing, degraded):
         """Device half: grouped compute over the slab and, for the experts
-        it could not hold, the overflow stack (fp) or the per-expert INT4
-        spillover, + the shared expert. h2f (N, d) -> (N, d)."""
+        it does not hold, the overflow stack (fp) or the per-expert INT4
+        spillover, + the shared expert, + the little experts standing in
+        for the degraded ones. A group set that serves no assignment this
+        step (the empty slab of ``stream_all`` and ``cpu_execute``, or one
+        whose experts all degraded) launches nothing. h2f (N, d) -> (N, d)."""
         moe_idx = layer["moe_idx"]
         slab = self._slabs[moe_idx]
         lora = layer["lora"]
         if self.quantized:
-            y = self._moe_sets([self._quant_slab_set(moe_idx, h2f, eids_np)], h2f, gates,
-                               eids_np, lora)
-            if missing:  # |needed| > C spillover / degenerate C < K
-                extra = self._quant_spillover(moe_idx, h2f, gates, eids, missing, lora)
-                y = y + extra.to(y.dtype)
+            qset = self._quant_slab_set(moe_idx, h2f, eids_np)
+            sets = [qset] if qset[2].size else []
         else:
-            sets = [(slab.buffers, slab.slot_of_expert[eids_np], slab.slot_expert)]
+            slots = slab.slot_of_expert[eids_np]
+            sets = ([(slab.buffers, slots, slab.slot_expert)]
+                    if (slots < slab.C).any() else [])
             if missing:
                 sets.append(self._overflow_set(moe_idx, eids_np, missing))
-            y = self._moe_sets(sets, h2f, gates, eids_np, lora)
+        y = self._moe_sets(sets, h2f, gates, eids_np, lora) if sets else torch.zeros_like(h2f)
+        if self.quantized and missing:  # |needed| > C spillover, C < K, baselines
+            extra = self._quant_spillover(moe_idx, h2f, gates, eids, missing, lora)
+            y = y + extra.to(y.dtype)
         if self.moe_spec.shared_d_ff:
             y = y + apply_mlp(layer["params"]["ffn"]["shared"], h2f)
+        if degraded:
+            extra = self.little.contrib(moe_idx, h2f, gates, eids, degraded)
+            y = y + extra.to(y.dtype)
         return y
 
     def _quant_slab_set(self, moe_idx: int, h2f, eids_np):
@@ -770,8 +890,9 @@ class OffloadedMoEEngine:
         follows the renumbering)."""
         slab = self._slabs[moe_idx]
         slots = slab.slot_of_expert[eids_np]
-        # never empty: the manager admits every miss, so the step's last
-        # routed expert is resident
+        # empty only where nothing is admitted (the baselines' empty slab, or
+        # every miss degraded): otherwise the step's last routed expert is
+        # resident, as the manager admits every miss
         used = np.unique(slots[slots < slab.C])
         remap = np.full(slab.C + 1, used.size, np.int64)
         remap[used] = np.arange(used.size)
@@ -860,8 +981,8 @@ class OffloadedMoEEngine:
             probs = router_probs(p["ffn"], h2f, b.moe)
             gates, eids = top_k_route(probs, b.moe.top_k)
             eids_np = eids.cpu().numpy()  # the host cache manager needs the ids
-            missing = self._prep_moe(layer["moe_idx"], eids_np)
-            y = self._finish_moe(layer, h2f, gates, eids, eids_np, missing)
+            missing, degraded = self._prep_moe(layer["moe_idx"], eids_np)
+            y = self._finish_moe(layer, h2f, gates, eids, eids_np, missing, degraded)
             x = xa + y.reshape(B, T, dm)
         return x
 
@@ -904,11 +1025,16 @@ class OffloadedMoEEngine:
         measured times and the kernel launches of each phase by op and
         route.
 
-        ``deadline_s`` bounds this call's serial Eq.-3 seconds: once the
-        steps so far have spent it, decoding stops (``stopped_early``).
-        ``quality`` is the reference's little-expert dial; without a
-        little bank (not ported) it has no effect, as in the reference."""
+        ``quality`` (the per-request quality-vs-latency dial; it needs a
+        little bank and has no effect without one) sets the fraction of
+        cache misses served by the big expert: 1.0 = always exact, 0.0 =
+        always the little distillate. ``deadline_s`` bounds this call's
+        serial Eq.-3 seconds: past ``pressure_frac`` of the budget the
+        remaining misses go all-little, and once the budget is spent
+        decoding stops (``stopped_early``)."""
         cfg = self.cfg
+        self._gen_step = 0
+        self._step_quality = quality if self.little is not None else 1.0
         routes0 = dispatch.route_snapshot()
         t0 = time.perf_counter()
         toks = torch.as_tensor(prompt_tokens).to(self.device, torch.long)
@@ -935,10 +1061,14 @@ class OffloadedMoEEngine:
 
         out_tokens = [next_tok]
         pos = T
-        for _ in range(max_new_tokens - 1):
-            if deadline_s is not None and elapsed >= deadline_s:
-                stopped_early = True
-                break
+        for step in range(max_new_tokens - 1):
+            if deadline_s is not None:
+                if elapsed >= deadline_s:
+                    stopped_early = True
+                    break
+                if self.little is not None and elapsed >= self.pressure_frac * deadline_s:
+                    self._step_quality = 0.0  # deadline pressure
+            self._gen_step = step + 1
             m.begin_step(L_moe)
             x = embed_tokens(self.params_top, cfg, next_tok.long())
             x = self._forward_layers_slab(x, positions, caches, decode_pos=pos)
@@ -950,6 +1080,7 @@ class OffloadedMoEEngine:
             m.add_flops(self._flops_per_token * B)
             elapsed += m.serial_span(self.hw, len(m.step_flops) - 1)
         m.decode_tokens += 1
+        self._step_quality = 1.0
         tokens = torch.cat(out_tokens, dim=1)
         self._sync()
         m.wall_time = time.perf_counter() - t0

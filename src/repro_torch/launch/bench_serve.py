@@ -9,7 +9,7 @@
     # over the offloaded expert cache (Sec 3.2)
     PYTHONPATH=src python -m repro_torch.launch.bench_serve --arch olmoe \
         --offloaded --capacity 16 --scheduler expert-affinity --slots 4 \
-        [--overlap]
+        [--overlap] [--little [--little-rank 8] --quality 0.5]
 
 Synthesizes a Poisson/bursty/all-at-once workload over the ClusterLM
 prompt distribution (prompt lengths in [prompt-len/2, prompt-len],
@@ -23,11 +23,17 @@ transfers, hit rate and both Eq.-3 clocks too). Weights are random from
 seed 0 in ``--dtype`` (default the config's), or ``--ckpt PATH`` (a
 params-only checkpoint). Runs on ``cuda`` unless ``--device cpu``.
 
-The operations stack and the little-expert tier are not ported yet:
-their flags (``--faults``, ``--trace``, ``--journal``, ``--resume``,
-``--checkpoint-every``, ``--audit-every``, ``--cold-restore``,
-``--little``) exit with an error naming what is missing, and
-``--engine-impl dict`` raises in the engine.
+``--little`` (offloaded path) builds the engine's always-resident
+low-rank little-expert bank (rank ``--little-rank``) on the device, and
+``--quality q`` sets every request's quality dial: the fraction of cache
+misses served by the big expert, the rest by its little distillate
+(uncharged; the summary's ``degraded_requests`` counts the requests
+that were served one).
+
+The operations stack is not ported yet: its flags (``--faults``,
+``--trace``, ``--journal``, ``--resume``, ``--checkpoint-every``,
+``--audit-every``, ``--cold-restore``) exit with an error naming what is
+missing, and ``--engine-impl dict`` raises in the engine.
 """
 from __future__ import annotations
 
@@ -54,7 +60,6 @@ from .serve import load_params
 
 # flag -> what it needs; a flag given on the command line exits with an error
 UNPORTED = {
-    "--little": "core/little_expert.py",
     "--faults": "faults/",
     "--trace": "obs/",
     "--journal": "recovery/",
@@ -95,6 +100,14 @@ def _parser() -> argparse.ArgumentParser:
                     help="advance the offloaded clock by the overlapped Eq.-3 "
                          "model; both clocks are reported either way")
     ap.add_argument("--capacity", type=int, default=0, help="0 => E/4 (offloaded)")
+    ap.add_argument("--quality", type=float, default=1.0,
+                    help="little-expert quality dial: fraction of cache "
+                         "misses served by the big expert (needs --little)")
+    ap.add_argument("--little", action="store_true",
+                    help="build the always-resident low-rank little-expert "
+                         "bank (degraded mode under the quality dial and "
+                         "deadline pressure; offloaded path only)")
+    ap.add_argument("--little-rank", type=int, default=8)
     ap.add_argument("--engine-impl", default="slab", choices=["slab", "dict"],
                     help="offloaded engine implementation (dict: not ported, raises)")
     for flag, needs in UNPORTED.items():
@@ -114,6 +127,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.offloaded and not cfg.has_router:
         ap.error("--offloaded applies to MoE architectures")
+    if args.little and not args.offloaded:
+        ap.error("--little applies to the offloaded path (--offloaded)")
     dev = resolve_device(args.device)
     dt = cdtype(args.dtype or cfg.dtype)
     if args.ckpt:
@@ -131,6 +146,7 @@ def main(argv=None):
         prompt_len=(max(args.prompt_len // 2, 1), args.prompt_len),
         max_new_tokens=(max(args.max_new // 2, 1), args.max_new),
         temperature=args.temperature, seed=args.seed, slo=args.slo,
+        quality=args.quality,
     )
     requests = synthesize_workload(lm, tcfg)
     queue = RequestQueue(requests, max_pending=args.max_backlog)
@@ -144,6 +160,7 @@ def main(argv=None):
         srv = OffloadedWaveServer(
             cfg, params, capacity=capacity, scheduler=get_scheduler(args.scheduler, **kw),
             wave_size=args.slots, overlap=args.overlap, engine_impl=args.engine_impl,
+            little_experts=args.little, little_rank=args.little_rank,
             seed=args.seed, device=dev)
         del params  # the engine keeps its experts in pinned host memory
     else:

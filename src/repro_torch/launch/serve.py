@@ -32,7 +32,8 @@ predictor Psi first, as ``repro.launch.serve`` does: the whole model on
 the device traces N more prompts of the same stream (``routing_trace``,
 16 new tokens each), Psi is fit to their per-layer mean router
 distributions, the traced model is freed, and the engine prefetches
-Psi's scores for the batch's mean prompt embedding before ``generate``.
+Psi's scores for the batch's mean prompt embedding before ``generate``
+(``run``'s report keeps them, (L, E), under ``predictor_scores``).
 """
 from __future__ import annotations
 
@@ -112,7 +113,7 @@ def train_psi(cfg, params, train_prompts, prompts, *, device, kernel_backend="au
     scores = predict_scores(pp, emb(prompts).mean(0))
     return scores, {"predictor_kl": hist, "trace_s": trace_s,
                     "predictor_train_s": time.perf_counter() - t1,
-                    "n_train_prompts": len(train_prompts)}
+                    "n_train_prompts": len(train_prompts), "predictor_scores": scores}
 
 
 def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
@@ -336,7 +337,7 @@ def main(argv=None):
     print(f"measured prefill={rep['prefill_s']:.4f} s, "
           f"decode={rep['decode_tok_s']:.2f} tok/s")
     print(json.dumps({k: v for k, v in rep.items()
-                      if k not in ("tokens", "prefill_logits")}))
+                      if k not in ("tokens", "prefill_logits", "predictor_scores")}))
     return rep
 
 

@@ -350,10 +350,13 @@ class OffloadedWaveServer:
     serial by default, or the engine's overlapped clock with
     ``overlap=True``; both cumulative modeled times are reported either
     way. ``engine_kw`` goes to the engine as it is (``device``,
-    ``kernel_backend``, ``host_store``, ``quantized_experts``, ...).
+    ``kernel_backend``, ``host_store``, ``quantized_experts``,
+    ``little_bank``, ...). With ``little_experts`` each request's
+    ``quality`` dial and its SLO's deadline pressure send misses to the
+    engine's low-rank little tier.
 
-    The reference's little-expert and fault options (``little_experts``,
-    ``fetch_policy``) and ``engine_impl="dict"`` raise in the engine."""
+    The reference's fault option (``fetch_policy``) and
+    ``engine_impl="dict"`` raise in the engine."""
 
     def __init__(
         self,

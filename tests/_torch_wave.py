@@ -219,11 +219,14 @@ def test_wave_server_hooks_and_unported_knobs(wave_model):
     n = 2 * m["wave"]
     assert srv.drained and len(steps) == 2 and len(res) == n
     assert steps[-1]["finished"] == n and steps[-1]["in_flight"] == 0
-    for knob, match in ((dict(little_experts=True), "little_expert"),
-                        (dict(fetch_policy=object()), "faults"),
+    for knob, match in ((dict(fetch_policy=object()), "faults"),
                         (dict(engine_impl="dict"), "dict engine")):
         with pytest.raises(NotImplementedError, match=match):
             serving.OffloadedWaveServer(m["tcfg"], m["tparams"], **kw, **knob)
+    # the little-expert tier is ported (tests/test_torch_little*.py)
+    little = serving.OffloadedWaveServer(m["tcfg"], m["tparams"], little_experts=True,
+                                         little_rank=2, **kw).engine.little
+    assert little.rank == 2 and little.n_layers == m["tcfg"].n_moe_layers
     # max_backlog sheds the latest arrivals beyond the bound
     srv = serving.OffloadedWaveServer(m["tcfg"], m["tparams"], max_backlog=4, **kw)
     res, mt = srv.run(serving.RequestQueue(_requests(serving, m, "nolora")))

@@ -116,7 +116,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.core.cache_sim", "repro_torch.core.rank_match",
             "repro_torch.core.losses", "repro_torch.core.predictor",
             "repro_torch.training.optim", "repro_torch.training.trainer",
-            "repro_torch.launch.steps", "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.steps", "repro_torch.launch.train",
+            "repro_torch.core.baselines", "repro_torch.core.little_expert"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"

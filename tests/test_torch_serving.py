@@ -165,12 +165,13 @@ def test_unported_knobs_raise(setup):
                {"resume": object()}):
         with pytest.raises(NotImplementedError, match="recovery"):
             srv.run(RequestQueue([]), **kw)
-    # LoRA is ported (tests/test_torch_lora.py); the offload engine's
-    # little-expert tier still waits for its module
+    # LoRA and the little-expert tier are ported (tests/test_torch_lora.py,
+    # tests/test_torch_little.py); the offload engine's fault seams still
+    # wait for faults/
     from repro_torch.core.offload_engine import OffloadedMoEEngine
 
-    with pytest.raises(NotImplementedError, match="little_expert"):
-        OffloadedMoEEngine(cfg, params, capacity=2, device="cpu", little_experts=True)
+    with pytest.raises(NotImplementedError, match="faults/"):
+        OffloadedMoEEngine(cfg, params, capacity=2, device="cpu", fetch_policy=object())
     with pytest.raises(NotImplementedError, match="obs"):
         ServerMetrics().publish()
     # the predictor scorer is ported (tests/test_torch_predictor.py)
@@ -549,9 +550,29 @@ def test_bench_serve_on_cpu_prints_the_summary(capsys):
 
 @pytest.mark.parametrize("flag", [["--cold-restore"], ["--faults", "crash_at=5"],
                                   ["--trace", "tr"], ["--journal", "jr"], ["--resume"],
-                                  ["--little"], ["--audit-every", "2"]])
+                                  ["--audit-every", "2"]])
 def test_bench_serve_refuses_what_is_not_ported(flag, capsys):
     with pytest.raises(SystemExit) as e:
         bench_serve.main(["--arch", ARCH, "--device", "cpu"] + flag)
     assert e.value.code == 2
     assert f"not ported yet: {flag[0]}" in capsys.readouterr().err
+
+
+def test_bench_serve_offloaded_little_quality(capsys):
+    """``--offloaded --little --quality 0.5`` at smoke size: every request
+    dials half its misses to the little tier, so the summary counts
+    degraded requests; ``--little`` alone on the continuous path is an
+    error."""
+    results, mt = bench_serve.main([
+        "--arch", ARCH, "--device", "cpu", "--dtype", "float32", "--offloaded",
+        "--capacity", "1", "--n-requests", "4", "--slots", "2", "--prompt-len", "10",
+        "--max-new", "6", "--arrival", "all_at_once", "--little", "--little-rank", "4",
+        "--quality", "0.5"])
+    out = capsys.readouterr().out
+    summary = json.loads(out[out.index("{"):])
+    assert summary == json.loads(json.dumps(mt.summary()))
+    assert summary["degraded_requests"] > 0 and summary["transfers"] > 0
+    assert summary["requests"] == len(results) == 4
+    with pytest.raises(SystemExit) as e:
+        bench_serve.main(["--arch", ARCH, "--device", "cpu", "--little"])
+    assert e.value.code == 2 and "--offloaded" in capsys.readouterr().err
