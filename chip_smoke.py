@@ -146,7 +146,37 @@ From the root of a checkout, with CUDA available:
    ``launch.bench_serve
    --offloaded --little --quality 0.5`` at full width (4 requests), whose
    summary must count degraded requests;
-17. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+17. the operations stack (``obs/``, ``faults/``, ``recovery/``) on phase
+   15's weights, pinned store and batch (phase 4's): (a) the batch served
+   with tracing on, bf16 and INT4 (phase 5's codes, quantized again from
+   the store): tokens, transfers and launches by route equal to phases 4
+   and 5, the Chrome trace valid (``obs.validate``), ``reconcile``'s
+   per-layer table and ``ok`` printed, the split of a decode step and of
+   the prefill into ``moe.fetch``, ``moe.compute``, ``moe.spillover``,
+   ``moe.account``, ``moe.pre`` and the rest, the host -> device expert
+   copies, traced against untraced decode tok/s; (b) the engine under a
+   transient fetch-failure plan with the naive policy (phase 4's tokens
+   and transfers, ``fetch_failures`` > 0, a serial clock >= phase 4's)
+   and under eviction storms (phase 4's tokens, more transfers), each
+   ``audit()`` empty; (c) the crash-safe wave server on the wave phase's 8
+   requests (waves of 4, C = 16, no LoRA): journaled, checkpointed and
+   audited every wave, crashed mid-serve by ``crash_at``, then resumed
+   warm and, from a copy of the journal, cold: every request finishes
+   with the uninterrupted run's tokens (the wave server re-generates a
+   request whole, and residency never enters the arithmetic), the
+   watchdog finds nothing, warm revival loads the checkpointed resident
+   count and the warm-resumed run pays exactly the uninterrupted run's
+   demand transfers after the checkpoint (cold's are printed beside);
+   on the checkpoint's own traffic (wave 1's last prompt re-prefilled on
+   engines revived from the snapshot) warm pays fewer than cold;
+   (d) ``launch.bench_serve --offloaded --trace DIR`` at full width (the
+   trace, metrics and ``reconcile.json`` written, the trace valid), and
+   ``--journal DIR --faults crash_at=10`` (the injected-crash exit) then
+   ``--resume`` on the continuous path in fp32, whose tokens must equal
+   an uninterrupted run's (a resumed request re-prefills its prompt and
+   watermark; only in fp32 is that the arithmetic of its uninterrupted
+   decode);
+18. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -158,8 +188,10 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1627,7 +1659,7 @@ def serve_baselines(main_tokens, psi_scores, arch: str = "olmoe",
     its own INT4 store (phase 5's is gone by now: quantized here, with
     ``quantize_s``), melinoe prefetching phase 11's Psi scores. Gates (see
     the module docstring). Returns (report, (params, store, prompts)) for
-    phase 16 (a list, which phase 16 empties). ``arch``/``device``: a
+    phases 16 and 17 (a list, which phase 17 empties). ``arch``/``device``: a
     smaller model or the CPU, to rehearse the phase's logic."""
     from repro_torch.configs import get_config
     from repro_torch.core.baselines import BASELINES, make_engine
@@ -1733,7 +1765,6 @@ def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmo
     cfg = get_config(arch)
     dev = torch.device(device)
     params, store, prompts = shared
-    shared.clear()  # this phase frees them before bench_serve's own model
     eng_kw = dict(capacity=16, policy="gamma", host_store=store, device=dev)
     eng = OffloadedMoEEngine(cfg, params, little_experts=True, little_rank=LITTLE_RANK,
                              **eng_kw)
@@ -1824,6 +1855,355 @@ def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmo
     return rep
 
 
+# The operations phase (17): phase 15's weights, pinned store and batch
+# (phase 4's). The fault specs: a transient fetch failure on 5% of copy
+# attempts, retried without limit (the naive policy: no little bank, so no
+# miss may degrade), and an eviction storm at a quarter of the decode steps
+# dropping half of every layer's residents. The crash-safe wave server crashes at the
+# fifth decode step of its second wave (its first wave decodes 7 + 31 + 15 +
+# 23 = 76 steps), after a checkpoint per wave.
+OPS_FETCH_FAIL = "fail=0.05,seed=0"
+OPS_STORM = "storm=0.25:0.5,seed=1"
+OPS_WAVE_CRASH_AT = sum(b - 1 for b in SERVE_BUDGETS[:4]) + 5
+# bench_serve's journaled continuous serve in fp32 (the token-identity gate
+# of a crash and a resume: a resumed request re-prefills prompt +
+# watermark, which in bf16 is not the arithmetic of its uninterrupted
+# decode): 4 requests, 2 slots, 128 + up to 16 tokens, a checkpoint every
+# 4 decode steps, a crash at the tenth. The traced offloaded serve: the same
+# 4 requests in one wave, C = 16.
+OPS_BENCH = ["--n-requests", "4", "--prompt-len", "128", "--max-new", "16",
+             "--arrival", "all_at_once"]
+OPS_BENCH_CRASH_AT = 10
+
+
+def _step_split(spans) -> dict:
+    """The seconds inside each ``engine.prefill`` / ``engine.decode_step``
+    span, by the name of its direct children (``moe.fetch``,
+    ``moe.compute``, ...) and the rest as ``other``: ms per decode step
+    (the mean over the run's decode steps) and ms of the prefill."""
+    import bisect
+
+    steps = sorted((s.t0, s.t1, s.name) for s in spans
+                   if s.name in ("engine.prefill", "engine.decode_step"))
+    starts = [s[0] for s in steps]
+    split = {"engine.prefill": {}, "engine.decode_step": {}}
+    count = {"engine.prefill": 0, "engine.decode_step": 0}
+    for t0, t1, name in steps:
+        split[name]["step"] = split[name].get("step", 0.0) + (t1 - t0)
+        count[name] += 1
+    for s in spans:
+        if s.depth != 1:
+            continue
+        i = bisect.bisect_right(starts, s.t0) - 1
+        if i < 0 or s.t1 > steps[i][1] + 1e-9:
+            continue
+        d = split[steps[i][2]]
+        d[s.name] = d.get(s.name, 0.0) + s.dur
+    out = {}
+    for name, d in split.items():
+        n = max(count[name], 1)
+        ms = {k: 1e3 * v / n for k, v in d.items()}
+        ms["other"] = ms.get("step", 0.0) - sum(v for k, v in ms.items() if k != "step")
+        out["prefill" if name == "engine.prefill" else "decode_step"] = ms
+    out["decode_steps"] = count["engine.decode_step"]
+    return out
+
+
+def _traced_serve(label, eng, prompts, dev, main: dict) -> dict:
+    """One traced ``generate`` of ``eng`` (counters set to 0 just before):
+    tokens, transfers and launches by route equal to the untraced run's
+    (``main``), the Chrome trace valid, ``reconcile``'s per-layer table and
+    ``ok``, the split of a step, traced against untraced decode tok/s."""
+    from repro_torch.obs import disable_tracing, enable_tracing, reconcile
+    from repro_torch.obs.validate import main as validate_main
+
+    tr = enable_tracing()
+    try:
+        res, row = _serve_row(eng, prompts, dev)
+    finally:
+        disable_tracing()
+    spans = tr.spans()
+    if not (np.array_equal(res["tokens"].cpu().numpy(), main["tokens"])
+            and row["transfers"] == main["transfers"]
+            and row["launches_total"] == main["launches"]
+            and row["route_launches"] == main["routes"]):
+        raise AssertionError(f"traced {label}: tokens equal "
+                             f"{np.array_equal(res['tokens'].cpu().numpy(), main['tokens'])}, "
+                             f"transfers {row['transfers']} (untraced {main['transfers']}), "
+                             f"launches {row['launches_total']} {row['route_launches']} "
+                             f"(untraced {main['launches']} {main['routes']})")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        tr.export_chrome_trace(path, process_name="chip_smoke")
+        if validate_main([path]) != 0:
+            raise AssertionError(f"traced {label}: the Chrome trace does not validate")
+    rep = reconcile(spans, eng.metrics, eng.hw)
+    print(f"reconcile, traced {label} serve:\n{rep.format_table()}")
+    split = _step_split(spans)
+    row.update(spans=len(spans), reconcile_ok=rep.ok,
+               serial_agreement_ratio=rep.serial_agreement_ratio,
+               measured_fetch_s=rep.measured_fetch_s,
+               measured_compute_s=rep.measured_compute_s,
+               measured_account_s=rep.measured_account_s, unmodeled_s=rep.unmodeled_s,
+               effective_link_bw=rep.effective_link_bw, split_ms=split,
+               expert_copies=res["expert_copies"],
+               copy_GB_per_s=(sum(res["expert_copies"].values()) * eng.expert_bytes
+                              / rep.measured_fetch_s / 1e9 if rep.measured_fetch_s else 0.0),
+               untraced_decode_tok_s=main["decode_tok_s"])
+    print(f"traced {label}: {len(spans)} spans, reconcile ok {rep.ok} (agreement "
+          f"{rep.serial_agreement_ratio:.3f}); decode tok/s traced {row['decode_tok_s']:.2f} "
+          f"untraced {main['decode_tok_s']:.2f}; expert copies {res['expert_copies']} "
+          f"({eng.expert_bytes} B each) at {row['copy_GB_per_s']:.2f} GB/s over the "
+          f"moe.fetch spans")
+    print(f"traced {label} split, ms per decode step over {split['decode_steps']}: "
+          + json.dumps({k: round(v, 4) for k, v in split["decode_step"].items()}))
+    print(f"traced {label} split, ms of the prefill: "
+          + json.dumps({k: round(v, 4) for k, v in split["prefill"].items()}))
+    return row
+
+
+def _crash_and_resume(cfg, params, store, dev, jdir, warm: bool, capacity: int) -> dict:
+    """Recover the crashed wave server's journal in ``jdir`` and finish the
+    run on a fresh server reviving the checkpointed cache warm or cold;
+    counters set to 0 just before the resumed ``run``."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.recovery import RequestJournal, recover
+    from repro_torch.serving import OffloadedWaveServer
+
+    state = recover(jdir)
+    srv = OffloadedWaveServer(cfg, params, capacity=capacity, policy="gamma", wave_size=4,
+                              host_store=store, device=dev)
+    srv.engine.metrics.load_state(state.engine["metrics"])
+    t0 = srv.engine.metrics.transfers
+    rev = srv.engine.revive(state.engine["cache"], warm=warm)
+    checkpointed = sum(len(st["resident"]) for st in state.engine["cache"])
+    jr = RequestJournal(jdir, seen=state.seen_rids)
+    torch.cuda.synchronize()
+    dispatch.reset_launches()
+    results, mt = srv.run(state.build_queue(), state.metrics, journal=jr, checkpoint_every=1,
+                          audit_every=1, resume=state)  # the watchdog raises on a finding
+    torch.cuda.synchronize()
+    jr.close()
+    return {"results": results, "loaded": rev["loaded"], "checkpointed": checkpointed,
+            "checkpoint_transfers": t0,
+            "demand_transfers_after_resume": srv.engine.metrics.transfers - t0,
+            "pending_at_resume": len(state.pending), "finished_at_resume": len(state.results),
+            "audit": srv.engine.audit(), "generated_tokens": mt.generated_tokens,
+            "launches_total": dict(dispatch.LAUNCHES),
+            "route_launches": {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}}
+
+
+def _first_difference(a, b):
+    """The first (request, position) where two token lists differ, or None."""
+    for rid, (x, y) in enumerate(zip(a, b)):
+        n = min(len(x), len(y))
+        bad = np.nonzero(np.asarray(x[:n]) != np.asarray(y[:n]))[0]
+        if bad.size or len(x) != len(y):
+            return rid, int(bad[0]) if bad.size else n
+    return None
+
+
+def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
+              device: str = "cuda", capacity: int = 16) -> dict:
+    """Phase 17, the operations stack: (a) phase 4's batch traced, bf16 and
+    INT4; (b) the engine under a fetch-failure plan and an eviction storm;
+    (c) the crash-safe wave server: journaled, checkpointed and audited,
+    crashed mid-serve, resumed warm and, separately, cold; (d)
+    ``bench_serve`` with ``--trace``, and with ``--journal --faults
+    crash_at=`` then ``--resume`` in fp32. ``main`` / ``int4``: phases 4
+    and 5 (tokens, transfers, launches by route, decode tok/s); ``shared``:
+    phase 15's params, pinned store and prompts, emptied here.
+    ``arch``/``device``/``capacity``: a smaller model or the CPU, to
+    rehearse the phase's logic."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import OffloadedMoEEngine
+    from repro_torch.core.quant import matmul_layout, quantize_linear
+    from repro_torch.faults import (NAIVE_POLICY, InjectedCrash, install_fault_plan,
+                                    uninstall_fault_plan)
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import bench_serve
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.recovery import RequestJournal, recover
+    from repro_torch.serving import OffloadedWaveServer, RequestQueue, ServeRequest
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    params, store, prompts = shared
+    rows = {}
+    eng_kw = dict(capacity=capacity, policy="gamma", device=dev)
+
+    # ---- (a) the traced serves
+    rows["traced-bf16"] = _traced_serve("bf16", OffloadedMoEEngine(
+        cfg, params, host_store=store, **eng_kw), prompts, dev, main)
+    t0 = time.perf_counter()
+    # phase 5's codes again: the same experts (the store's), quantized on the card
+    qexp = [{k: matmul_layout(quantize_linear(layer[k].to(dev), iters=4, group=32))
+             for k in ("wg", "wu", "wd")} for layer in store]
+    for gi, g in enumerate(cfg.layout):  # the engine reads only the experts' shapes
+        for bp in params["groups"][f"g{gi}"].values():
+            if "router" in bp.get("ffn", {}):
+                for k, v in store[0].items():
+                    bp["ffn"][k] = torch.empty((g.repeats,) + tuple(v.shape), dtype=v.dtype,
+                                               device="meta")
+    qeng = OffloadedMoEEngine(cfg, params, quantized=True, quantized_experts=qexp, **eng_kw)
+    del qexp
+    print(f"INT4 store for the traced serve: {time.perf_counter() - t0:.1f} s")
+    rows["traced-int4"] = _traced_serve("INT4", qeng, prompts, dev, int4)
+    del qeng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) faults on the engine
+    for label, spec in (("fault-fetch", OPS_FETCH_FAIL), ("fault-storm", OPS_STORM)):
+        eng = OffloadedMoEEngine(cfg, params, host_store=store, fetch_policy=NAIVE_POLICY,
+                                 **eng_kw)
+        plan = install_fault_plan(spec)
+        try:
+            res, row = _serve_row(eng, prompts, dev)
+        finally:
+            uninstall_fault_plan()
+        m = res["metrics"]
+        row.update(fault_counters=dict(plan.counters), fetch_failures=m.fetch_failures,
+                   fetch_retries=m.fetch_retries, fault_delay_s=m.fault_delay_s,
+                   evictions=res["cache_stats"].evictions, audit=eng.audit(),
+                   tokens_equal_main=bool(np.array_equal(res["tokens"].cpu().numpy(),
+                                                         main["tokens"])))
+        rows[label] = row
+        print(f"{label} ({spec}):", json.dumps({k: v for k, v in row.items()
+                                                if k != "by_phase"}))
+        if not (row["tokens_equal_main"] and row["audit"] == []):
+            raise AssertionError(f"{label}: tokens equal {row['tokens_equal_main']}, "
+                                 f"audit {row['audit']}")
+        del eng, res
+    ff, st = rows["fault-fetch"], rows["fault-storm"]
+    if not (ff["fetch_failures"] > 0 and ff["transfers"] == main["transfers"]
+            and ff["modeled_time_s"] >= main["modeled_time_s"] and ff["degraded_uses"] == 0):
+        raise AssertionError(f"fault-fetch: {ff}")
+    if not (st["fault_counters"]["storm"] > 0 and st["transfers"] > main["transfers"]):
+        raise AssertionError(f"fault-storm: {st}")
+
+    # ---- (c) the crash-safe wave server: the wave phase's 8 requests
+    n = len(SERVE_BUDGETS)
+    wprompts = make_prompts(cfg.vocab, n, SERVE_PROMPT)
+
+    def reqs_of():
+        return [ServeRequest(rid=i, prompt=wprompts[i], max_new_tokens=SERVE_BUDGETS[i])
+                for i in range(n)]
+
+    wave_kw = dict(capacity=capacity, policy="gamma", wave_size=4, host_store=store,
+                   device=dev)
+    ref_srv = OffloadedWaveServer(cfg, params, **wave_kw)
+    ref, _ = ref_srv.run(RequestQueue(reqs_of()))
+    ref_toks = [r.tokens.tolist() for r in ref]
+    ref_transfers = ref_srv.engine.metrics.transfers
+    del ref_srv
+    with tempfile.TemporaryDirectory() as d:
+        jdir, cold_dir = os.path.join(d, "journal"), os.path.join(d, "journal-cold")
+        jr = RequestJournal(jdir)
+        install_fault_plan(f"crash_at={OPS_WAVE_CRASH_AT},seed=0")
+        try:
+            OffloadedWaveServer(cfg, params, **wave_kw).run(
+                RequestQueue(reqs_of()), journal=jr, checkpoint_every=1, audit_every=1)
+            raise AssertionError("the wave server did not crash")
+        except InjectedCrash as e:
+            print(f"wave server: {e}")
+        finally:
+            uninstall_fault_plan()
+            jr.close()
+        shutil.copytree(jdir, cold_dir)
+        snapshot = recover(jdir).engine["cache"]  # the checkpoint after wave 1
+        resumed = {"warm": _crash_and_resume(cfg, params, store, dev, jdir, True, capacity),
+                   "cold": _crash_and_resume(cfg, params, store, dev, cold_dir, False,
+                                             capacity)}
+    for mode, r in resumed.items():
+        toks = [x.tokens.tolist() for x in r.pop("results")]
+        r["tokens_equal_uninterrupted"] = toks == ref_toks
+        r["first_difference"] = _first_difference(toks, ref_toks)
+        rows[f"wave-resume-{mode}"] = r
+        print(f"wave server resumed {mode}:", json.dumps(r))
+        if not (len(toks) == n and r["audit"] == [] and r["tokens_equal_uninterrupted"]):
+            raise AssertionError(f"wave server resumed {mode}: {r}")
+    # Warm revival restores the cache's accounting exactly: the resumed run
+    # repeats the uninterrupted run's misses after the checkpoint. The
+    # resumed requests are new prompts of a random model, whose routing
+    # shares nothing with the checkpoint's residents, so after a full wave
+    # warm and cold need not differ in sign (the saving is at most the C
+    # residents of each layer, touched before the first evictions). The
+    # checkpoint's own traffic again (wave 1's last prompt re-prefilled on
+    # engines revived from the snapshot, as the reference's test does)
+    # shows the saving.
+    warm, cold = resumed["warm"], resumed["cold"]
+    want = ref_transfers - warm["checkpoint_transfers"]
+    same = {}
+    for mode in ("warm", "cold"):
+        eng = OffloadedMoEEngine(cfg, params, host_store=store, **eng_kw)
+        eng.revive(snapshot, warm=mode == "warm")
+        t0 = eng.metrics.transfers
+        eng.generate(wprompts[3][None], max_new_tokens=1)
+        same[mode] = eng.metrics.transfers - t0
+        del eng
+    rows["wave-revival"] = {"uninterrupted_after_checkpoint": want,
+                            "warm_after_resume": warm["demand_transfers_after_resume"],
+                            "cold_after_resume": cold["demand_transfers_after_resume"],
+                            "same_traffic_warm": same["warm"], "same_traffic_cold": same["cold"]}
+    print("wave revival, demand transfers:", json.dumps(rows["wave-revival"]))
+    if not (warm["loaded"] == warm["checkpointed"] > 0 and cold["loaded"] == 0
+            and warm["demand_transfers_after_resume"] == want
+            and same["warm"] < same["cold"]):
+        raise AssertionError(f"wave revival: {rows['wave-revival']}, warm {warm}, cold {cold}")
+    shared.clear()
+    del params, store, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) bench_serve on the card
+    base = ["--arch", arch, "--device", device]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        bench_serve.main(base + OPS_BENCH + ["--offloaded", "--capacity", str(capacity),
+                                             "--slots", "4", "--trace", d])
+        names = sorted(os.listdir(d))
+        with open(os.path.join(d, "reconcile.json")) as f:
+            rec = json.load(f)
+        with open(os.path.join(d, "trace.json")) as f:
+            errs = validate_chrome_trace(json.load(f))
+        rows["bench-trace"] = {"files": names, "reconcile_ok": rec["ok"],
+                               "serial_agreement_ratio": rec["serial_agreement_ratio"],
+                               "trace_errors": errs[:5], "wall_s": time.perf_counter() - t0}
+        print("bench_serve --offloaded --trace:", json.dumps(rows["bench-trace"]))
+        if errs or not {"trace.json", "trace.jsonl", "metrics.json", "metrics.prom",
+                        "reconcile.json"} <= set(names):
+            raise AssertionError(f"bench_serve --trace: {rows['bench-trace']}")
+
+        t0 = time.perf_counter()
+        fp32 = base + OPS_BENCH + ["--slots", "2", "--dtype", "float32"]
+        full, _ = bench_serve.main(fp32)
+        jdir = os.path.join(d, "journal")
+        if bench_serve.main(fp32 + ["--journal", jdir, "--checkpoint-every", "4",
+                                    "--faults", f"crash_at={OPS_BENCH_CRASH_AT}"]) is not None:
+            raise AssertionError("bench_serve --faults crash_at: no injected crash")
+        res, mt = bench_serve.main(fp32 + ["--journal", jdir, "--resume"])
+        toks = {k: [r.tokens.tolist() for r in rs] for k, rs in (("full", full),
+                                                                  ("resumed", res))}
+        rows["bench-crash-resume-fp32"] = {
+            "requests": len(toks["resumed"]), "tokens_equal": toks["resumed"] == toks["full"],
+            "first_difference": _first_difference(toks["resumed"], toks["full"]),
+            "generated_tokens": mt.generated_tokens, "wall_s": time.perf_counter() - t0}
+        print("bench_serve --journal --faults crash_at, then --resume (fp32):",
+              json.dumps(rows["bench-crash-resume-fp32"]))
+        if not (rows["bench-crash-resume-fp32"]["tokens_equal"]
+                and len(toks["resumed"]) == 4
+                and mt.generated_tokens == sum(len(t) for t in toks["full"])):
+            raise AssertionError(f"bench_serve crash/resume: {rows['bench-crash-resume-fp32']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rep = {"rows": rows, "phase_s": time.perf_counter() - t_phase}
+    print(f"operations phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it. ``source`` is the kernel the
@@ -1896,6 +2276,7 @@ def main() -> int:
     print(f"launches on the main path: {launches}")
     main_stats = {k: rep[k] for k in ("transfers", "prefetch_transfers", "hit_rate",
                                       "modeled_time_s", "decode_tok_s", "prefill_s")}
+    ops_main = dict(main_stats, tokens=tokens, launches=launches, routes=routes)
 
     ref = run("olmoe", max_new=1, kernel_backend="ref", **serve_kw)
     diff = (logits - ref["prefill_logits"]).float()
@@ -1922,6 +2303,9 @@ def main() -> int:
         {k: v for k, v in qrep.items()
          if k not in ("tokens", "prefill_logits", "quantized_experts", "host_store")}))
     print(f"launches on the INT4 path: {q_launches}")
+    ops_int4 = {"tokens": qrep["tokens"], "transfers": qrep["transfers"],
+                "decode_tok_s": qrep["decode_tok_s"], "launches": q_launches,
+                "routes": q_routes}
     int4_phases = {ph: r["int4_matmul"] for ph, r in qrep["route_launches"].items()}
     print(f"INT4 path int4_matmul launches by phase and route: {int4_phases}")
     if sum(n for r in int4_phases.values() for n in r.values()) != q_launches["int4_matmul"] \
@@ -1976,6 +2360,9 @@ def main() -> int:
     b_rep, shared = serve_baselines(tokens, p_rep["psi_scores"])
     l_rep = little_phase(tokens, main_stats, shared)
 
+    # ---- the operations stack: tracing, faults, crash-safe serving
+    o_rep = ops_phase(ops_main, ops_int4, shared)
+
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
@@ -2010,6 +2397,8 @@ def main() -> int:
              "finetune": ft_rep["launches_total"],
              **{f"baseline-{n}": r["launches_total"] for n, r in b_rep["rows"].items()},
              **{f"little-{n}": r["launches_total"] for n, r in l_rep["rows"].items()
+                if "launches_total" in r},
+             **{f"ops-{n}": r["launches_total"] for n, r in o_rep["rows"].items()
                 if "launches_total" in r}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
@@ -2022,6 +2411,8 @@ def main() -> int:
               "finetune": ft_rep["route_launches"],
              **{f"baseline-{n}": r["route_launches"] for n, r in b_rep["rows"].items()},
              **{f"little-{n}": r["route_launches"] for n, r in l_rep["rows"].items()
+                if "route_launches" in r},
+             **{f"ops-{n}": r["route_launches"] for n, r in o_rep["rows"].items()
                 if "route_launches" in r}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}

@@ -10,8 +10,8 @@ Policies
 
 The manager counts misses == host->device transfers (Eq. 3).
 
-A numpy copy of ``repro/core/expert_cache.py`` without its trace hooks
-(tracing is a later slice of the port).
+A numpy copy of ``repro/core/expert_cache.py``: the same policies, trace
+instants (``cache.access``, ``cache.prefill``), durable state and audit.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from dataclasses import dataclass
 from typing import Iterable, List, Sequence
 
 import numpy as np
+
+from ..obs.trace import get_tracer
 
 
 class LayerExpertCache:
@@ -39,9 +41,30 @@ class LayerExpertCache:
         self.misses = 0
         self.hits = 0
         self.evictions = 0
+        # suppresses per-token trace instants while a batched entry point
+        # aggregates them into one event
+        self._nested = False
+
+    def _traced(self, name: str, fn, *args):
+        """Run ``fn`` and emit one aggregated hit/miss/evict instant."""
+        h0, m0, v0 = self.hits, self.misses, self.evictions
+        self._nested = True
+        try:
+            out = fn(*args)
+        finally:
+            self._nested = False
+        get_tracer().instant(name, layer=self.layer_id,
+                             hits=self.hits - h0, misses=self.misses - m0,
+                             evictions=self.evictions - v0)
+        return out
 
     # -- setup ------------------------------------------------------------
     def prefill(self, expert_ids: Iterable[int]) -> int:
+        if get_tracer().enabled and not self._nested:
+            return self._traced("cache.prefill", self._prefill, expert_ids)
+        return self._prefill(expert_ids)
+
+    def _prefill(self, expert_ids: Iterable[int]) -> int:
         """Proactively load experts (predictor prefetch). Returns #loaded.
 
         Evicts as needed so residency never exceeds capacity C, even when
@@ -67,6 +90,49 @@ class LayerExpertCache:
             self.last_used[e] = self.step
         return loaded
 
+    # -- durable state (recovery checkpoints) -------------------------------
+    def state(self) -> dict:
+        """Snapshot of the policy scores + resident set — what a warm
+        revival needs to rebuild eviction order AND physical residency."""
+        return {
+            "resident": sorted(int(e) for e in self.resident),
+            "counts": self.counts.copy(),
+            "last_used": self.last_used.copy(),
+            "step": self.step,
+            "hits": self.hits,
+            "misses": self.misses,
+            "evictions": self.evictions,
+        }
+
+    def load_state(self, state: dict, *, resident: bool = True) -> None:
+        """Restore a :meth:`state` snapshot. ``resident=False`` restores
+        only the policy scores/stats (cold restart keeps the accounting
+        but pays the demand misses again)."""
+        self.counts = np.asarray(state["counts"], np.float64).copy()
+        self.last_used = np.asarray(state["last_used"], np.int64).copy()
+        self.step = int(state["step"])
+        self.hits = int(state["hits"])
+        self.misses = int(state["misses"])
+        self.evictions = int(state["evictions"])
+        self.resident = set(int(e) for e in state["resident"]) if resident \
+            else set()
+
+    def audit(self) -> List[str]:
+        """Internal-consistency check (watchdog contract). Returns
+        violation strings, empty when healthy."""
+        v = []
+        if len(self.resident) > self.C:
+            v.append(f"resident {len(self.resident)} > capacity {self.C}")
+        bad = [e for e in self.resident if not (0 <= e < self.E)]
+        if bad:
+            v.append(f"resident ids out of range: {sorted(bad)}")
+        if not np.all(np.isfinite(self.counts)) or np.any(self.counts < 0):
+            v.append("policy counts non-finite or negative")
+        if min(self.hits, self.misses, self.evictions) < 0:
+            v.append(f"negative stats: hits={self.hits} misses={self.misses} "
+                     f"evictions={self.evictions}")
+        return v
+
     # -- per-token access ---------------------------------------------------
     def _evict_candidate(self, protect: set) -> int:
         if len(self.resident) <= 64:  # typical C: python min beats numpy
@@ -85,6 +151,11 @@ class LayerExpertCache:
     def access(self, requested: Sequence[int]) -> List[int]:
         """One token's Top-K expert request. Returns the list of MISSED
         expert ids (each miss = one transfer)."""
+        if get_tracer().enabled and not self._nested:
+            return self._traced("cache.access", self._access, requested)
+        return self._access(requested)
+
+    def _access(self, requested: Sequence[int]) -> List[int]:
         self.step += 1
         requested = [int(e) for e in requested]
         if self.policy == "gamma":
@@ -117,6 +188,11 @@ class LayerExpertCache:
         duplicates when an expert is missed, evicted, and missed again
         inside the same batch) — each entry is one host->device transfer.
         """
+        if get_tracer().enabled and not self._nested:
+            return self._traced("cache.access", self._access_batch, requests)
+        return self._access_batch(requests)
+
+    def _access_batch(self, requests) -> List[int]:
         req = np.asarray(requests, dtype=np.int64)
         if req.ndim == 1:
             req = req[None]
@@ -212,3 +288,31 @@ class ModelExpertCache:
     def reset_stats(self):
         for c in self.layers:
             c.misses = c.hits = c.evictions = 0
+
+    def state(self) -> List[dict]:
+        """Per-layer :meth:`LayerExpertCache.state` snapshots."""
+        return [c.state() for c in self.layers]
+
+    def load_state(self, states: Sequence[dict], *, resident: bool = True) -> None:
+        assert len(states) == len(self.layers), (len(states), len(self.layers))
+        for c, st in zip(self.layers, states):
+            c.load_state(st, resident=resident)
+
+    def audit(self) -> List[str]:
+        return [f"layer {c.layer_id}: {msg}"
+                for c in self.layers for msg in c.audit()]
+
+    def publish(self, registry=None, **labels) -> None:
+        """Export per-layer and aggregate hit/miss/evict gauges onto a
+        :class:`~repro.obs.registry.MetricsRegistry` (global by default)."""
+        if registry is None:
+            from ..obs.registry import REGISTRY as registry
+        for c in self.layers:
+            for nm, v in (("cache_hits", c.hits), ("cache_misses", c.misses),
+                          ("cache_evictions", c.evictions)):
+                registry.gauge(nm, "expert cache events",
+                               layer=c.layer_id, **labels).set(v)
+        s = self.stats()
+        registry.gauge("cache_hit_rate", "aggregate expert cache hit rate",
+                       **labels).set(s.hit_rate)
+

@@ -55,10 +55,26 @@ little tier: those misses are neither fetched nor charged, and they
 leave the modeled resident set and the slab.
 
 Beside the two modeled clocks the engine reports measured wall-clock
-prefill seconds and decode tokens/s on its device. The reference's
-fault seams (``fetch_policy`` and the fault-plan hooks, which need
-``faults/`` and ``obs/``) and its ``impl="dict"`` engine are not ported:
-asking for one raises.
+prefill seconds and decode tokens/s on its device.
+
+The operations stack is the reference's. Tracing: the span names of
+``obs.reconcile`` (``engine.prefill`` / ``engine.decode_step`` /
+``engine.prefetch`` / ``engine.revive``; per MoE layer ``moe.pre``,
+``moe.account``, ``moe.fetch`` / ``moe.prefetch``, ``moe.compute``,
+``moe.spillover``, ``moe.degraded``; ``engine.embed``, ``engine.logits``,
+``engine.block``). While a tracer is enabled on a CUDA device every span
+ends after ``torch.cuda.synchronize`` (:meth:`_obs_sync`), so a span
+around a ``non_blocking`` copy holds the copy; with tracing off nothing
+synchronizes that did not before. The port's spans fall finer than the
+reference's: the copies of the overflow group and the INT4 spillover are
+``moe.fetch`` spans of their own, and no call fuses moe(l) with pre(l+1).
+Faults (``faults/``): the fetch trials of ``_guard_fetch`` under
+``fetch_policy``, the fault half of ``_degrade_misses``, eviction storms
+and crash points in ``generate``, and ``_guard_prefetch``, drawing from
+the installed ``FaultPlan`` in the reference's order. Recovery:
+``cache_state``, ``revive(warm=)``, ``resync_slabs`` and ``audit``.
+The reference's ``impl="dict"`` engine is not ported: asking for it
+raises.
 """
 from __future__ import annotations
 
@@ -71,6 +87,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..faults import FetchPolicy, get_fault_plan
 from ..kernels import dispatch
 from ..kernels.int4_matmul.ops import MatmulQWeight
 from ..kernels.int4_matmul.ref import dequant_ref
@@ -84,6 +101,7 @@ from ..models.model import compute_logits, embed_tokens
 from ..models.moe import (Dispatch, combine_tokens, dispatch_tokens,
                           router_probs, top_k_route)
 from ..models.runtime import Runtime, resolve_device
+from ..obs.trace import get_tracer
 from .expert_cache import ModelExpertCache
 from .little_expert import LittleExpertBank
 from .quant import matmul_layout, qmatmul, quantize_linear
@@ -125,10 +143,9 @@ class EngineMetrics:
     prefill_wall_time: float = 0.0  # ... of its prefill (device synchronized)
     decode_wall_time: float = 0.0  # ... of its decode steps
     host_time: float = 0.0  # modeled host-side expert execution (set in generate)
-    # resilience accounting: little-expert substitutions (degraded_uses),
-    # and the reference's fault-seam counters, which stay 0 until its
-    # faults/ module is ported (modeled seconds lost to injected transfer
-    # spikes, failed fetch attempts and retry backoff; retries, failures)
+    # resilience accounting: modeled seconds lost to injected transfer
+    # spikes, failed fetch attempts and retry backoff; retries, failures,
+    # and little-expert substitutions
     fault_delay_s: float = 0.0
     fetch_retries: int = 0
     fetch_failures: int = 0
@@ -290,6 +307,29 @@ class EngineMetrics:
             if k in state:
                 setattr(self, k, {int(i): v for i, v in state[k].items()})
 
+    # -- obs ---------------------------------------------------------------
+    def publish(self, registry=None, **labels) -> None:
+        """Publish the scalar counters onto a metrics registry (the
+        global one by default) as labeled ``engine_*`` gauges."""
+        from ..obs.registry import REGISTRY
+
+        reg = registry if registry is not None else REGISTRY
+        g = lambda name, v: reg.gauge("engine_" + name, **labels).set(v)  # noqa: E731
+        g("decode_tokens", self.decode_tokens)
+        g("transfers", self.transfers)
+        g("transfer_bytes", self.transfer_bytes)
+        g("prefetch_transfers", self.prefetch_transfers)
+        g("prefetch_bytes", self.prefetch_bytes)
+        g("host_executed", self.host_executed)
+        g("compute_flops", self.compute_flops)
+        g("wall_time_s", self.wall_time)
+        g("prefill_wall_time_s", self.prefill_wall_time)
+        g("host_time_s", self.host_time)
+        g("fault_delay_s", self.fault_delay_s)
+        g("fetch_retries", self.fetch_retries)
+        g("fetch_failures", self.fetch_failures)
+        g("degraded_uses", self.degraded_uses)
+
 
 # ---------------------------------------------------------------------------
 # Resident slab: stacked per-layer expert buffers with a slot free-list
@@ -398,9 +438,9 @@ def _tree_map(fn, tree):
 
 
 def _unported(**knobs) -> None:
-    """Raise for the reference's engine options that wait for a module of
-    their own (name -> (given, what it needs))."""
-    given = [f"{k} (needs {needs})" for k, (on, needs) in knobs.items() if on]
+    """Raise for the reference's engine options that are not ported
+    (name -> (given, what it is))."""
+    given = [f"{k} ({what})" for k, (on, what) in knobs.items() if on]
     if given:
         raise NotImplementedError("OffloadedMoEEngine: " + ", ".join(given)
                                   + " not ported yet")
@@ -438,15 +478,14 @@ class OffloadedMoEEngine:
         bank built before (another engine's ``little``, or
         ``bridge.little_bank_from_jax``) instead, and turns the tier on.
         ``pressure_frac``: the share of a ``deadline_s`` budget after
-        which every miss goes to the little tier."""
+        which every miss goes to the little tier. ``fetch_policy``
+        (``faults.FetchPolicy``, default ``FetchPolicy()``): the retry
+        budget of a fetch the installed fault plan fails."""
         assert cfg.has_router, "offload engine needs an MoE architecture"
-        _unported(
-            impl=(impl != "slab", "the reference's dict engine, the pre-rewrite "
-                                  "baseline of benchmarks/offload_bench.py"),
-            fetch_policy=(fetch_policy is not None,
-                          "faults/ and obs/: the fault seams _guard_fetch, "
-                          "_apply_storm, _guard_prefetch"))
+        _unported(impl=(impl != "slab", "the reference's dict engine, the pre-rewrite "
+                                        "baseline of benchmarks/offload_bench.py"))
         self.cfg = cfg
+        self.fetch_policy = fetch_policy or FetchPolicy()
         self.cpu_execute = cpu_execute
         self.stream_all = stream_all
         # deadline pressure: once a request has burned this fraction of its
@@ -468,6 +507,7 @@ class OffloadedMoEEngine:
         self._qlayout = (QuantLayout({"wg": (d, f), "wu": (d, f), "wd": (f, d)},
                                      quant_group) if quantized else None)
         self.quantize_s = 0.0  # seconds spent building the INT4 store
+        self.expert_copies = 0  # host -> device expert copies issued (slab + overflow)
 
         # ---- unstack the scanned groups into a flat per-layer list; the
         # expert weights go to the pinned host store, the rest (and the
@@ -611,6 +651,7 @@ class OffloadedMoEEngine:
         for fp experts, one of ``expert_bytes`` for INT4."""
         for k, v in self.host_store[moe_idx].items():
             dst[k][slot].copy_(v[e], non_blocking=True)
+        self.expert_copies += 1
 
     def _overflow_buffers(self, n: int) -> Dict[str, torch.Tensor]:
         """Device buffers for ``n`` transient experts (grown on demand,
@@ -666,12 +707,98 @@ class OffloadedMoEEngine:
         return [e for e in needed if e not in slab.residents]
 
     def prefetch(self, scores: np.ndarray) -> None:
-        """Predictor-driven proactive cache load (Sec 3.2). scores (L, E)."""
-        self.cache.prefill_from_scores(scores)
-        for moe_idx in range(len(self.moe_layer_ids)):
-            added = self._sync_slab(moe_idx)
-            self.metrics.add_prefetch_transfers(moe_idx, added,
-                                                added * self.expert_bytes)
+        """Predictor-driven proactive cache load (Sec 3.2). scores (L, E).
+        Under a fault plan each pending load first passes its fetch trial
+        (:meth:`_guard_prefetch`)."""
+        tr = get_tracer()
+        with tr.span("engine.prefetch"):
+            self.cache.prefill_from_scores(scores)
+            if get_fault_plan().enabled:
+                self._guard_prefetch()
+            for moe_idx in range(len(self.moe_layer_ids)):
+                with tr.span("moe.prefetch", layer=moe_idx):
+                    added = self._sync_slab(moe_idx)
+                    self._obs_sync()
+                self.metrics.add_prefetch_transfers(moe_idx, added,
+                                                    added * self.expert_bytes)
+
+    def _obs_sync(self) -> None:
+        """Fence the device at a span boundary while tracing, so a span
+        holds the work it wraps (the asynchronous copies and kernels
+        included); nothing otherwise."""
+        if self.device.type == "cuda" and get_tracer().enabled:
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    # recovery: durable cache state, warm revival, integrity audit
+    # ------------------------------------------------------------------
+    def cache_state(self) -> List[dict]:
+        """Per-layer cache snapshots (resident set + policy scores) for a
+        recovery checkpoint."""
+        return self.cache.state()
+
+    def revive(self, cache_state: List[dict], *, warm: bool = True) -> dict:
+        """Restore a checkpointed cache and (``warm=True``) copy the
+        checkpointed resident set back into the device slabs before
+        serving resumes. Returns ``{"loaded", "bytes", "modeled_s"}`` so a
+        caller can charge the revival copies to its clock (they count as
+        prefetch transfers, as a predictor prefetch)."""
+        self.cache.load_state(cache_state, resident=warm)
+        loaded = 0
+        if warm:
+            with get_tracer().span("engine.revive"):
+                for moe_idx in range(len(self.moe_layer_ids)):
+                    added = self._sync_slab(moe_idx)
+                    if added:
+                        self.metrics.add_prefetch_transfers(moe_idx, added,
+                                                            added * self.expert_bytes)
+                    loaded += added
+                self._obs_sync()
+        nbytes = loaded * self.expert_bytes
+        modeled = nbytes / self.hw.host_link_bw + loaded * self.hw.transfer_latency
+        return {"loaded": loaded, "bytes": nbytes, "modeled_s": modeled}
+
+    def resync_slabs(self) -> int:
+        """Self-heal: force physical residency back in line with the cache
+        manager (drop stale slab residents, load missing cached experts).
+        Only the watchdog calls this, on detected drift."""
+        healed = 0
+        for moe_idx, slab in enumerate(self._slabs):
+            target = self.cache.layers[moe_idx].resident
+            drift = len(set(slab.residents) - target)
+            healed += drift + self._sync_slab(moe_idx)
+        return healed
+
+    def audit(self) -> List[tuple]:
+        """Integrity check (watchdog contract): the slab free-lists and
+        slot maps against the cache manager's accounting. Returns
+        ``(severity, message)`` tuples; ``"hard"`` means corrupted
+        bookkeeping. Slab residents outside the manager's set are normal
+        (the slab keeps evicted experts by compute-use recency)."""
+        v: List[tuple] = [("hard", f"cache: {msg}") for msg in self.cache.audit()]
+        E = self.moe_spec.num_experts
+        for moe_idx, slab in enumerate(self._slabs):
+            pre = f"slab[L{moe_idx}]"
+            if len(slab.free) + len(slab.residents) != slab.C:
+                v.append(("hard", f"{pre}: free {len(slab.free)} + "
+                          f"resident {len(slab.residents)} != C {slab.C}"))
+            used = []
+            for e in slab.residents:
+                s = int(slab.slot_of_expert[e])
+                if not (0 <= s < slab.C):
+                    v.append(("hard", f"{pre}: resident {e} has no slot"))
+                elif int(slab.slot_expert[s]) != e:
+                    v.append(("hard", f"{pre}: slot map mismatch for expert {e} "
+                              f"(slot {s} claims {int(slab.slot_expert[s])})"))
+                else:
+                    used.append(s)
+            if sorted(used + list(slab.free)) != list(range(slab.C)):
+                v.append(("hard", f"{pre}: slots not a disjoint partition of free + used"))
+            ghosts = [e for e in range(E)
+                      if int(slab.slot_of_expert[e]) != slab.C and e not in slab.residents]
+            if ghosts:
+                v.append(("hard", f"{pre}: non-resident experts with slots: {ghosts[:8]}"))
+        return v
 
     # ------------------------------------------------------------------
     # grouped expert compute
@@ -777,8 +904,15 @@ class OffloadedMoEEngine:
         return combine_tokens(d, yb)  # (N, d)
 
     # ------------------------------------------------------------------
-    # the quality dial (little-expert tier)
+    # resilience: fault-injected transfer trials + the quality dial
     # ------------------------------------------------------------------
+    def _resilience_active(self) -> bool:
+        """One cheap guard for every hot-path hook: with no fault plan
+        installed and the quality dial at 1.0, every resilience branch is
+        skipped and decode is the unmodified engine."""
+        return get_fault_plan().enabled or (
+            self.little is not None and self._step_quality < 1.0)
+
     def _degrade_roll(self, moe_idx: int, e: int) -> bool:
         """Deterministic per-(layer, expert, step) quality roll: True
         means substitute the little expert instead of fetching the big
@@ -793,15 +927,56 @@ class OffloadedMoEEngine:
         h ^= h >> 16
         return (h / 2.0**32) >= q
 
+    def _guard_fetch(self, moe_idx: int, eids, *, prefetch: bool = False) -> List[int]:
+        """Fault-plan transfer trials for each expert in ``eids``, in order.
+        Charges modeled fault delay for latency spikes, failed attempts
+        (the failed copy burned link time) and retry backoff; returns the
+        experts whose fetch was abandoned once the retry budget or the
+        per-fetch deadline ran out. Demand fetches without a little bank
+        cannot degrade: they retry until success (bounded by the policy's
+        ``hard_cap``). Prefetches are best-effort: an abandoned one stays
+        cold."""
+        plan = get_fault_plan()
+        if not plan.enabled:
+            return []
+        pol = self.fetch_policy
+        m = self.metrics
+        per_try = self.expert_bytes / self.hw.host_link_bw + self.hw.transfer_latency
+        can_degrade = prefetch or self.little is not None
+        dropped = []
+        for e in eids:
+            spent, attempt = 0.0, 0
+            while True:
+                spike = plan.transfer_spike(moe_idx)
+                if spike:
+                    m.add_fault_delay(spike)
+                if not plan.fetch_fails(moe_idx):
+                    break
+                m.fetch_failures += 1
+                delay = per_try + pol.backoff(attempt)
+                spent += delay
+                m.add_fault_delay(delay)
+                attempt += 1
+                if can_degrade and not pol.attempts_allowed(attempt, spent):
+                    dropped.append(e)
+                    break
+                if attempt >= pol.hard_cap:  # runaway guard only
+                    break
+                m.fetch_retries += 1
+        return dropped
+
     def _degrade_misses(self, moe_idx: int, missed):
-        """Quality verdicts over one step's modeled misses (the quality
-        half of the reference's ``_degrade_misses``; its fault trials
-        need ``faults/``). An expert degraded by choice is never fetched:
-        it leaves the modeled resident set (future steps re-miss it
-        honestly) and its transfer goes uncharged. Returns
-        (degraded_ids, n_charged)."""
+        """Resilience verdicts over one step's modeled misses: the quality
+        roll first (an expert degraded by choice is never fetched, so it
+        skips the fault trial and pays nothing), then the fault trials of
+        whatever still wants the link. Degraded experts leave the modeled
+        resident set (future steps re-miss them honestly) and their
+        transfers go uncharged. Returns (degraded_ids, n_charged)."""
         uniq = sorted(set(int(e) for e in missed))
-        degraded = {e for e in uniq if self._degrade_roll(moe_idx, e)}
+        degraded = set()
+        if self.little is not None and self._step_quality < 1.0:
+            degraded = {e for e in uniq if self._degrade_roll(moe_idx, e)}
+        degraded |= set(self._guard_fetch(moe_idx, [e for e in uniq if e not in degraded]))
         if not degraded:
             return [], len(missed)
         resident = self.cache.layers[moe_idx].resident
@@ -810,6 +985,30 @@ class OffloadedMoEEngine:
         self.metrics.degraded_uses += len(degraded)
         n_charged = sum(1 for e in missed if int(e) not in degraded)
         return sorted(degraded), n_charged
+
+    def _apply_storm(self, frac: float) -> None:
+        """Eviction storm: a co-tenant thrashes device memory; a ``frac``
+        fraction of every layer's residents is dropped (modeled and from
+        the slab), forcing re-misses on the next touch."""
+        plan = get_fault_plan()
+        for moe_idx, cache in enumerate(self.cache.layers):
+            for v in plan.storm_victims(cache.resident, frac):
+                cache.resident.discard(v)
+                cache.evictions += 1
+                slab = self._slabs[moe_idx]
+                if v in slab.residents:
+                    slab.drop(v)
+
+    def _guard_prefetch(self) -> None:
+        """Fault trials for the pending prefetch loads (cache residents the
+        slab does not hold yet): abandoned experts leave the modeled
+        resident set before the copies, so they stay cold."""
+        for moe_idx in range(len(self.moe_layer_ids)):
+            target = self.cache.layers[moe_idx].resident
+            have = self._slabs[moe_idx].residents
+            new = sorted(e for e in target if e not in have)
+            for e in self._guard_fetch(moe_idx, new, prefetch=True):
+                target.discard(e)
 
     def _prep_moe(self, moe_idx: int, eids_np: np.ndarray):
         """Host half of a MoE layer's step: cache accounting (one
@@ -820,19 +1019,21 @@ class OffloadedMoEEngine:
         N, K = eids_np.shape
         degraded: List[int] = []
         missed: List[int] = []
-        if self.stream_all:
-            self.metrics.add_demand_transfers(moe_idx, N * K, N * K * self.expert_bytes)
-        else:
-            missed = self.cache.layers[moe_idx].access_batch(eids_np)
-            if self.cpu_execute:
-                self.metrics.host_executed += len(missed)
-            elif missed:
-                n_charged = len(missed)
-                if self.little is not None and self._step_quality < 1.0:
-                    degraded, n_charged = self._degrade_misses(moe_idx, missed)
-                if n_charged:
-                    self.metrics.add_demand_transfers(moe_idx, n_charged,
-                                                      n_charged * self.expert_bytes)
+        tr = get_tracer()
+        with tr.span("moe.account", layer=moe_idx):
+            if self.stream_all:
+                self.metrics.add_demand_transfers(moe_idx, N * K, N * K * self.expert_bytes)
+            else:
+                missed = self.cache.layers[moe_idx].access_batch(eids_np)
+                if self.cpu_execute:
+                    self.metrics.host_executed += len(missed)
+                elif missed:
+                    n_charged = len(missed)
+                    if self._resilience_active():
+                        degraded, n_charged = self._degrade_misses(moe_idx, missed)
+                    if n_charged:
+                        self.metrics.add_demand_transfers(moe_idx, n_charged,
+                                                          n_charged * self.expert_bytes)
         slab = self._slabs[moe_idx]
         needed = sorted(set(eids_np.ravel().tolist()))
         if degraded:
@@ -842,15 +1043,19 @@ class OffloadedMoEEngine:
             for e in degraded:
                 if e in slab.residents:
                     slab.drop(e)
-        if self.cpu_execute or self.stream_all:
-            # host-executed / streamed experts never persist on the device:
-            # everything runs through the per-step overflow group
-            return [e for e in needed if e not in slab.residents], degraded
-        if self.quantized:  # the slab mirrors the manager's resident set
-            if missed:
-                self._sync_slab(moe_idx)
-            return [e for e in needed if e not in slab.residents], degraded
-        return self._ensure_resident(moe_idx, needed), degraded
+        with tr.span("moe.fetch", layer=moe_idx):
+            if self.cpu_execute or self.stream_all:
+                # host-executed / streamed experts never persist on the
+                # device: everything runs through the per-step overflow group
+                missing = [e for e in needed if e not in slab.residents]
+            elif self.quantized:  # the slab mirrors the manager's resident set
+                if missed:
+                    self._sync_slab(moe_idx)
+                missing = [e for e in needed if e not in slab.residents]
+            else:
+                missing = self._ensure_resident(moe_idx, needed)
+            self._obs_sync()
+        return missing, degraded
 
     def _finish_moe(self, layer: dict, h2f, gates, eids, eids_np, missing, degraded):
         """Device half: grouped compute over the slab and, for the experts
@@ -862,24 +1067,40 @@ class OffloadedMoEEngine:
         moe_idx = layer["moe_idx"]
         slab = self._slabs[moe_idx]
         lora = layer["lora"]
-        if self.quantized:
-            qset = self._quant_slab_set(moe_idx, h2f, eids_np)
-            sets = [qset] if qset[2].size else []
-        else:
+        tr = get_tracer()
+        sets = []
+        if not self.quantized:
             slots = slab.slot_of_expert[eids_np]
-            sets = ([(slab.buffers, slots, slab.slot_expert)]
-                    if (slots < slab.C).any() else [])
-            if missing:
-                sets.append(self._overflow_set(moe_idx, eids_np, missing))
-        y = self._moe_sets(sets, h2f, gates, eids_np, lora) if sets else torch.zeros_like(h2f)
+            if (slots < slab.C).any():
+                sets.append((slab.buffers, slots, slab.slot_expert))
+            if missing:  # the overflow group's copies
+                with tr.span("moe.fetch", layer=moe_idx, experts=len(missing)):
+                    sets.append(self._overflow_set(moe_idx, eids_np, missing))
+                    self._obs_sync()
+        with tr.span("moe.compute", layer=moe_idx):
+            if self.quantized:
+                qset = self._quant_slab_set(moe_idx, h2f, eids_np)
+                sets = [qset] if qset[2].size else []
+            y = (self._moe_sets(sets, h2f, gates, eids_np, lora) if sets
+                 else torch.zeros_like(h2f))
+            self._obs_sync()
         if self.quantized and missing:  # |needed| > C spillover, C < K, baselines
-            extra = self._quant_spillover(moe_idx, h2f, gates, eids, missing, lora)
-            y = y + extra.to(y.dtype)
+            with tr.span("moe.fetch", layer=moe_idx, experts=len(missing)):
+                ws = self._spill_load(moe_idx, missing)
+                self._obs_sync()
+            with tr.span("moe.spillover", layer=moe_idx, experts=len(missing)):
+                extra = self._quant_spillover(ws, h2f, gates, eids, missing, lora)
+                y = y + extra.to(y.dtype)
+                self._obs_sync()
         if self.moe_spec.shared_d_ff:
-            y = y + apply_mlp(layer["params"]["ffn"]["shared"], h2f)
+            with tr.span("moe.compute", layer=moe_idx, shared=True):
+                y = y + apply_mlp(layer["params"]["ffn"]["shared"], h2f)
+                self._obs_sync()
         if degraded:
-            extra = self.little.contrib(moe_idx, h2f, gates, eids, degraded)
-            y = y + extra.to(y.dtype)
+            with tr.span("moe.degraded", layer=moe_idx, experts=len(degraded)):
+                extra = self.little.contrib(moe_idx, h2f, gates, eids, degraded)
+                y = y + extra.to(y.dtype)
+                self._obs_sync()
         return y
 
     def _quant_slab_set(self, moe_idx: int, h2f, eids_np):
@@ -905,17 +1126,22 @@ class OffloadedMoEEngine:
                                mq.group).to(dtype)
                 for k, mq in self._slab_q[moe_idx].items()}
 
-    def _quant_spillover(self, moe_idx: int, h2f, gates, eids, missing, lora):
-        """The experts the INT4 slab could not hold, one by one (the JAX
-        ``_per_expert_contrib``): a copy into a reused INT4 buffer, then
-        three ``qmatmul`` calls (the ``int4_matmul`` kernel on the card),
-        with gate-massed fp32 accumulation. LoRA as the reference's eager
-        term: ``scale * ((x @ a) @ b)`` in the promoted type of ``x`` and
-        the adapters, cast to the activation type. Returns (N, d) fp32."""
+    def _spill_load(self, moe_idx: int, missing) -> Dict[str, MatmulQWeight]:
+        """Copy the INT4 experts ``missing`` into a reused buffer; returns
+        its ``{k: MatmulQWeight}`` views."""
         buf = self._overflow_buffers(len(missing))
         for i, e in enumerate(missing):
             self._load(moe_idx, e, buf, i)
-        ws = self._qlayout.views(buf["q"])
+        return self._qlayout.views(buf["q"])
+
+    def _quant_spillover(self, ws, h2f, gates, eids, missing, lora):
+        """The experts the INT4 slab could not hold (``ws``, as
+        :meth:`_spill_load` copied them), one by one (the JAX
+        ``_per_expert_contrib``): three ``qmatmul`` calls each (the
+        ``int4_matmul`` kernel on the card), with gate-massed fp32
+        accumulation. LoRA as the reference's eager term: ``scale * ((x @
+        a) @ b)`` in the promoted type of ``x`` and the adapters, cast to
+        the activation type. Returns (N, d) fp32."""
         # gate mass per (token, expert): an expert appears at most once in a
         # token's top-k, so this is the where(eids == e, gates, 0).sum(-1)
         # of the reference exactly
@@ -961,26 +1187,30 @@ class OffloadedMoEEngine:
         the flash kernel, or one decode position), router, MoE; a block
         without experts runs whole (:meth:`_block_forward`)."""
         cfg = self.cfg
+        tr = get_tracer()
         for idx, layer in enumerate(self.layers):
             b, p = layer["spec"], layer["params"]
             if b.kind != "attn_moe":
                 x = self._block_forward(layer, x, positions, caches, idx, decode_pos)
                 continue
-            h = rms_norm(p["ln1"], x, cfg.norm_eps)
-            if decode_pos is None:
-                y, (k, v) = attend_full(p["mixer"], b.attn, h, positions,
-                                        b.attn.window, return_kv=True, rt=self.rt)
-                caches[idx] = cache_from_prefill(k, v, b.attn, self._n_slots)
-            else:
-                y, caches[idx] = decode_attend(p["mixer"], b.attn, h, caches[idx],
-                                               decode_pos, b.attn.window)
-            xa = x + y
-            h2 = rms_norm(p["ln2"], xa, cfg.norm_eps)
-            B, T, dm = h2.shape
-            h2f = h2.reshape(B * T, dm)
-            probs = router_probs(p["ffn"], h2f, b.moe)
-            gates, eids = top_k_route(probs, b.moe.top_k)
-            eids_np = eids.cpu().numpy()  # the host cache manager needs the ids
+            with tr.span("moe.pre", layer=layer["moe_idx"]):
+                h = rms_norm(p["ln1"], x, cfg.norm_eps)
+                if decode_pos is None:
+                    y, (k, v) = attend_full(p["mixer"], b.attn, h, positions,
+                                            b.attn.window, return_kv=True, rt=self.rt)
+                    caches[idx] = cache_from_prefill(k, v, b.attn, self._n_slots)
+                else:
+                    y, caches[idx] = decode_attend(p["mixer"], b.attn, h, caches[idx],
+                                                   decode_pos, b.attn.window)
+                xa = x + y
+                h2 = rms_norm(p["ln2"], xa, cfg.norm_eps)
+                B, T, dm = h2.shape
+                h2f = h2.reshape(B * T, dm)
+                probs = router_probs(p["ffn"], h2f, b.moe)
+                gates, eids = top_k_route(probs, b.moe.top_k)
+                # the host cache manager needs the ids (this copy waits for
+                # the layer's device work)
+                eids_np = eids.cpu().numpy()
             missing, degraded = self._prep_moe(layer["moe_idx"], eids_np)
             y = self._finish_moe(layer, h2f, gates, eids, eids_np, missing, degraded)
             x = xa + y.reshape(B, T, dm)
@@ -991,26 +1221,35 @@ class OffloadedMoEEngine:
         ``mamba``), whole on the device: full sequence (``decode_pos``
         None, filling ``caches[idx]``) or one decode step."""
         cfg, b, p = self.cfg, layer["spec"], layer["params"]
+        tr = get_tracer()
         if b.kind == "mamba":
-            if decode_pos is None:
-                x2, aux = apply_block_full(p, cfg, b, x, positions, self.rt,
-                                           want_cache=True, cache_slots=0)
-                caches[idx] = aux["kv"]
-                return x2
+            with tr.span("engine.block", kind="mamba", idx=idx):
+                if decode_pos is None:
+                    x2, aux = apply_block_full(p, cfg, b, x, positions, self.rt,
+                                               want_cache=True, cache_slots=0)
+                    caches[idx] = aux["kv"]
+                else:
+                    h = rms_norm(p["ln1"], x, cfg.norm_eps)
+                    y, caches[idx] = apply_mamba_decode(p["mixer"], h, caches[idx], b.ssm)
+                    x2 = x + y
+                self._obs_sync()
+            return x2
+        with tr.span("engine.block", kind=b.kind, idx=idx):
             h = rms_norm(p["ln1"], x, cfg.norm_eps)
-            y, caches[idx] = apply_mamba_decode(p["mixer"], h, caches[idx], b.ssm)
-            return x + y
-        h = rms_norm(p["ln1"], x, cfg.norm_eps)
-        if decode_pos is None:
-            y, (k, v) = attend_full(p["mixer"], b.attn, h, positions, b.attn.window,
-                                    return_kv=True, rt=self.rt)
-            caches[idx] = cache_from_prefill(k, v, b.attn, self._n_slots)
-        else:
-            y, caches[idx] = decode_attend(p["mixer"], b.attn, h, caches[idx],
-                                           decode_pos, b.attn.window)
-        x = x + y
-        h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
-        return x + apply_mlp(p["ffn"], h2)
+            if decode_pos is None:
+                y, (k, v) = attend_full(p["mixer"], b.attn, h, positions, b.attn.window,
+                                        return_kv=True, rt=self.rt)
+                caches[idx] = cache_from_prefill(k, v, b.attn, self._n_slots)
+            else:
+                y, caches[idx] = decode_attend(p["mixer"], b.attn, h, caches[idx],
+                                               decode_pos, b.attn.window)
+            x = x + y
+            h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
+            self._obs_sync()
+        with tr.span("engine.block", kind="ffn", idx=idx):
+            x = x + apply_mlp(p["ffn"], h2)
+            self._obs_sync()
+        return x
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -1022,8 +1261,8 @@ class OffloadedMoEEngine:
         """Greedy decoding. prompt_tokens (B, T) ints. Returns a dict with
         tokens (B, n) int32 (n = ``max_new_tokens`` unless stopped early),
         the last prompt position's logits, metrics, both Eq.-3 clocks, the
-        measured times and the kernel launches of each phase by op and
-        route.
+        measured times, the host -> device expert copies and the kernel
+        launches of each phase (by op and route).
 
         ``quality`` (the per-request quality-vs-latency dial; it needs a
         little bank and has no effect without one) sets the fraction of
@@ -1031,11 +1270,16 @@ class OffloadedMoEEngine:
         always the little distillate. ``deadline_s`` bounds this call's
         serial Eq.-3 seconds: past ``pressure_frac`` of the budget the
         remaining misses go all-little, and once the budget is spent
-        decoding stops (``stopped_early``)."""
+        decoding stops (``stopped_early``). Under an installed fault plan
+        each decode step first passes a crash point (``engine.decode``) and
+        an eviction-storm draw, and every miss a fetch trial."""
         cfg = self.cfg
+        tr = get_tracer()
+        plan = get_fault_plan()
         self._gen_step = 0
         self._step_quality = quality if self.little is not None else 1.0
         routes0 = dispatch.route_snapshot()
+        copies0 = self.expert_copies
         t0 = time.perf_counter()
         toks = torch.as_tensor(prompt_tokens).to(self.device, torch.long)
         B, T = toks.shape
@@ -1045,18 +1289,23 @@ class OffloadedMoEEngine:
         elapsed = 0.0  # serial Eq.-3 seconds of this call's steps
         stopped_early = False
 
-        m.begin_step(L_moe)
-        x = embed_tokens(self.params_top, cfg, toks)
-        positions = torch.arange(T, device=self.device).expand(B, T)
-        caches: List = [None] * len(self.layers)
-        x = self._forward_layers_slab(x, positions, caches)
-        m.add_flops(self._flops_per_token * B * T)
-        logits = compute_logits(self.params_top, cfg, x[:, -1:])
-        next_tok = torch.argmax(logits, -1).to(torch.int32)
-        self._sync()
+        with tr.span("engine.prefill", batch=B, prompt_len=T, impl="slab"):
+            m.begin_step(L_moe)
+            with tr.span("engine.embed"):
+                x = embed_tokens(self.params_top, cfg, toks)
+                self._obs_sync()
+            positions = torch.arange(T, device=self.device).expand(B, T)
+            caches: List = [None] * len(self.layers)
+            x = self._forward_layers_slab(x, positions, caches)
+            m.add_flops(self._flops_per_token * B * T)
+            with tr.span("engine.logits"):
+                logits = compute_logits(self.params_top, cfg, x[:, -1:])
+                next_tok = torch.argmax(logits, -1).to(torch.int32)
+                self._sync()
         t_prefill = time.perf_counter()
         m.prefill_wall_time = t_prefill - t0
         routes1 = dispatch.route_snapshot()
+        copies1 = self.expert_copies
         elapsed += m.serial_span(self.hw, len(m.step_flops) - 1)
 
         out_tokens = [next_tok]
@@ -1068,16 +1317,26 @@ class OffloadedMoEEngine:
                     break
                 if self.little is not None and elapsed >= self.pressure_frac * deadline_s:
                     self._step_quality = 0.0  # deadline pressure
+            if plan.enabled:  # a crash point, then the step's eviction-storm draw
+                plan.maybe_crash("engine.decode")
+                frac = plan.eviction_storm()
+                if frac:
+                    self._apply_storm(frac)
             self._gen_step = step + 1
-            m.begin_step(L_moe)
-            x = embed_tokens(self.params_top, cfg, next_tok.long())
-            x = self._forward_layers_slab(x, positions, caches, decode_pos=pos)
-            next_tok = torch.argmax(compute_logits(self.params_top, cfg, x), -1
-                                    ).to(torch.int32)
-            out_tokens.append(next_tok)
-            pos += 1
-            m.decode_tokens += 1
-            m.add_flops(self._flops_per_token * B)
+            with tr.span("engine.decode_step", step=step, batch=B, impl="slab"):
+                m.begin_step(L_moe)
+                with tr.span("engine.embed"):
+                    x = embed_tokens(self.params_top, cfg, next_tok.long())
+                    self._obs_sync()
+                x = self._forward_layers_slab(x, positions, caches, decode_pos=pos)
+                with tr.span("engine.logits"):
+                    next_tok = torch.argmax(compute_logits(self.params_top, cfg, x), -1
+                                            ).to(torch.int32)
+                    self._obs_sync()
+                out_tokens.append(next_tok)
+                pos += 1
+                m.decode_tokens += 1
+                m.add_flops(self._flops_per_token * B)
             elapsed += m.serial_span(self.hw, len(m.step_flops) - 1)
         m.decode_tokens += 1
         self._step_quality = 1.0
@@ -1102,6 +1361,8 @@ class OffloadedMoEEngine:
             "prefill_s": m.prefill_wall_time,
             "decode_tok_s": (B * decode_steps / m.decode_wall_time
                              if decode_steps and m.decode_wall_time > 0 else 0.0),
+            "expert_copies": {"prefill": copies1 - copies0,
+                              "decode": self.expert_copies - copies1},
             "route_launches": {
                 "prefill": dispatch.route_delta(routes0, routes1),
                 "decode": dispatch.route_delta(routes1, dispatch.route_snapshot())},

@@ -26,6 +26,14 @@ compute, in :data:`GRAD_LAUNCHES`.
 A kernel wrapper never returns a tensor that drops a gradient: under
 grad mode, with an input that requires grad, it either has a backward
 (``moe_gmm``) or raises (:func:`refuse_grad`).
+
+Observability (the reference's ``kernel_dispatch_total`` tap): while a
+tracer is enabled every launch also records a ``kernel.dispatch``
+instant, and :func:`publish` puts the launch counts on a metrics
+registry as ``kernel_dispatch_total{op, backend="hopper", route}``. The
+reference counts its selections once per compilation, inside
+``resolve()``; the port selects per eager call, so its counter follows
+the launches, read at publish time: no registry work on the launch path.
 """
 from __future__ import annotations
 
@@ -33,6 +41,8 @@ import os
 from typing import Optional
 
 import torch
+
+from ..obs.trace import get_tracer
 
 # Every kernel family of the repo; unknown names are an error.
 OPS = ("flash_attn", "int4_matmul", "moe_gmm", "ssd_scan")
@@ -54,6 +64,21 @@ def count_launch(op: str, route: Optional[str] = None) -> None:
     LAUNCHES[op] += 1
     if route is not None:
         ROUTE_LAUNCHES[op][route] = ROUTE_LAUNCHES[op].get(route, 0) + 1
+    tr = get_tracer()
+    if tr.enabled:
+        tr.instant("kernel.dispatch", op=op, backend="hopper", route=route)
+
+
+def publish(registry=None) -> None:
+    """Launch counts per op and route since the last
+    :func:`reset_launches` as ``kernel_dispatch_total`` counters (the
+    global registry by default); each counter is set to its count."""
+    if registry is None:
+        from ..obs.registry import REGISTRY as registry
+    for op, routes in ROUTE_LAUNCHES.items():
+        for route, n in routes.items():
+            registry.counter("kernel_dispatch_total", "Hopper kernel launches by op and route",
+                             op=op, backend="hopper", route=route).value = float(n)
 
 
 def count_grad(op: str, product: str) -> None:

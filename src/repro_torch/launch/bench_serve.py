@@ -30,23 +30,50 @@ misses served by the big expert, the rest by its little distillate
 (uncharged; the summary's ``degraded_requests`` counts the requests
 that were served one).
 
-The operations stack is not ported yet: its flags (``--faults``,
-``--trace``, ``--journal``, ``--resume``, ``--checkpoint-every``,
-``--audit-every``, ``--cold-restore``) exit with an error naming what is
-missing, and ``--engine-impl dict`` raises in the engine.
+The operations stack, as the reference's launcher:
+
+* ``--faults SPEC`` installs a deterministic fault plan (the
+  ``REPRO_FAULTS`` grammar, e.g. ``fail=0.1,spike=0.05:2e-3,seed=7``);
+  an injected crash (``crash_at=K``) ends the run with the journal left
+  recoverable;
+* ``--trace DIR`` writes ``trace.json`` (Perfetto), ``trace.jsonl``,
+  ``metrics.json`` / ``metrics.prom`` and, offloaded, the Eq.-3
+  reconciliation ``reconcile.json`` (its table printed);
+* ``--journal DIR`` (or ``REPRO_JOURNAL``) keeps a write-ahead request
+  journal with a checkpoint every ``--checkpoint-every`` decode steps
+  (continuous) or waves (offloaded); ``--resume`` recovers from it and
+  finishes the interrupted run (offloaded: the slab revived warm, or cold
+  with ``--cold-restore``); ``--audit-every N`` runs the invariant
+  watchdog every N steps (and always after a restore).
+
+``--engine-impl dict`` raises in the engine (not ported).
+
+    # crash mid-decode, then finish the run from the journal
+    PYTHONPATH=src python -m repro_torch.launch.bench_serve --arch olmoe-mini-smoke \
+        --device cpu --dtype float32 --n-requests 4 --slots 2 --prompt-len 8 \
+        --max-new 6 --journal /tmp/jr --checkpoint-every 2 --faults crash_at=5
+    PYTHONPATH=src python -m repro_torch.launch.bench_serve --arch olmoe-mini-smoke \
+        --device cpu --dtype float32 --slots 2 --prompt-len 8 --max-new 6 \
+        --journal /tmp/jr --resume --audit-every 1
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
 
 from ..configs import get_config
 from ..data.synthetic import ClusterLM, SyntheticConfig
+from ..faults import (InjectedCrash, get_fault_plan, install_fault_plan,
+                      uninstall_fault_plan)
+from ..kernels import dispatch
 from ..models.common import cdtype
 from ..models.model import init_params
 from ..models.runtime import resolve_device
+from ..obs import REGISTRY, disable_tracing, enable_tracing, get_tracer, reconcile
+from ..recovery import RequestJournal, journal_dir_from_env, recover
 from ..serving import (
     ContinuousBatchingServer,
     OffloadedWaveServer,
@@ -57,17 +84,6 @@ from ..serving import (
     synthesize_workload,
 )
 from .serve import load_params
-
-# flag -> what it needs; a flag given on the command line exits with an error
-UNPORTED = {
-    "--faults": "faults/",
-    "--trace": "obs/",
-    "--journal": "recovery/",
-    "--resume": "recovery/",
-    "--checkpoint-every": "recovery/",
-    "--audit-every": "recovery/",
-    "--cold-restore": "recovery/",
-}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -110,25 +126,75 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--little-rank", type=int, default=8)
     ap.add_argument("--engine-impl", default="slab", choices=["slab", "dict"],
                     help="offloaded engine implementation (dict: not ported, raises)")
-    for flag, needs in UNPORTED.items():
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=f"not ported yet (needs {needs})")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="install a deterministic fault plan, e.g. "
+                         "'fail=0.1,spike=0.05:2e-3,storm=0.02:0.5,seed=7' "
+                         "(same grammar as REPRO_FAULTS)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="enable structured tracing; write trace.json (Perfetto), "
+                         "trace.jsonl, metrics.json/.prom and (offloaded) the Eq.-3 "
+                         "reconciliation report into DIR")
+    ap.add_argument("--journal", default=None, metavar="DIR",
+                    help="write-ahead request journal + checkpoints into DIR "
+                         "(default: $REPRO_JOURNAL); enables --resume")
+    ap.add_argument("--checkpoint-every", type=int, default=8,
+                    help="checkpoint + rotate the journal every N decode steps "
+                         "(continuous) / waves (offloaded); needs --journal")
+    ap.add_argument("--audit-every", type=int, default=0,
+                    help="run the invariant-audit watchdog every N steps/waves "
+                         "(0 = only after a restore)")
+    ap.add_argument("--resume", action="store_true",
+                    help="recover from the journal dir and continue the "
+                         "interrupted run (token-identical under greedy)")
+    ap.add_argument("--cold-restore", action="store_true",
+                    help="with --resume on the offloaded path: skip the warm slab "
+                         "revival (restore policy scores only)")
     return ap
 
 
 def main(argv=None):
+    """Run the launcher; returns (results, ServerMetrics), or None after
+    an injected crash. A fault plan or tracer this call installed is
+    removed again before it returns."""
     ap = _parser()
     args = ap.parse_args(argv)
-    given = [f for f in UNPORTED if getattr(args, f[2:].replace("-", "_")) is not None]
-    if given:
-        ap.error("not ported yet: " + ", ".join(f"{f} (needs {UNPORTED[f]})"
-                                                for f in given))
-
     cfg = get_config(args.arch)
     if args.offloaded and not cfg.has_router:
         ap.error("--offloaded applies to MoE architectures")
     if args.little and not args.offloaded:
         ap.error("--little applies to the offloaded path (--offloaded)")
+    if args.cold_restore and not (args.resume and args.offloaded):
+        ap.error("--cold-restore applies to --resume on the offloaded path")
+    jdir = args.journal or journal_dir_from_env()
+    if args.resume and not jdir:
+        ap.error("--resume needs --journal DIR (or $REPRO_JOURNAL)")
+    if args.trace:
+        enable_tracing()
+    if args.faults:
+        install_fault_plan(args.faults)
+    try:
+        return _serve(args, cfg, jdir)
+    finally:
+        if args.trace:
+            disable_tracing()
+        if args.faults:
+            uninstall_fault_plan()
+
+
+def _serve(args, cfg, jdir):
+    # -- crash recovery: an optional restore from the journal ------------
+    state = None
+    if args.resume:
+        state = recover(jdir)
+        if state is None:
+            raise SystemExit(f"nothing to recover in {jdir}")
+        want = "wave" if args.offloaded else "continuous"
+        if state.kind != want:
+            raise SystemExit(f"journal was written by a {state.kind!r} server; rerun "
+                             f"with the matching path (expected {want!r})")
+        print(f"resuming from {jdir}: step={state.step} now={state.now:.3f}s "
+              f"pending={len(state.pending)} finished={len(state.results)}")
+
     dev = resolve_device(args.device)
     dt = cdtype(args.dtype or cfg.dtype)
     if args.ckpt:
@@ -139,40 +205,98 @@ def main(argv=None):
                              dtype=dt, device=dev)
         print("using randomly initialized weights (demo mode)")
 
-    lm = ClusterLM(SyntheticConfig(vocab=cfg.vocab, seq_len=args.prompt_len * 2,
-                                   seed=args.seed + 3))
-    tcfg = TrafficConfig(
-        n_requests=args.n_requests, arrival=args.arrival, rate=args.rate,
-        prompt_len=(max(args.prompt_len // 2, 1), args.prompt_len),
-        max_new_tokens=(max(args.max_new // 2, 1), args.max_new),
-        temperature=args.temperature, seed=args.seed, slo=args.slo,
-        quality=args.quality,
-    )
-    requests = synthesize_workload(lm, tcfg)
-    queue = RequestQueue(requests, max_pending=args.max_backlog)
+    if state is not None:
+        requests = state.pending  # expert scores ride in the records
+        queue = state.build_queue(args.max_backlog)
+    else:
+        lm = ClusterLM(SyntheticConfig(vocab=cfg.vocab, seq_len=args.prompt_len * 2,
+                                       seed=args.seed + 3))
+        tcfg = TrafficConfig(
+            n_requests=args.n_requests, arrival=args.arrival, rate=args.rate,
+            prompt_len=(max(args.prompt_len // 2, 1), args.prompt_len),
+            max_new_tokens=(max(args.max_new // 2, 1), args.max_new),
+            temperature=args.temperature, seed=args.seed, slo=args.slo,
+            quality=args.quality,
+        )
+        requests = synthesize_workload(lm, tcfg)
+        # the burst fault compresses arrival gaps in place (overload)
+        get_fault_plan().compress_arrivals(requests)
+        queue = RequestQueue(requests, max_pending=args.max_backlog)
+    seed = state.seed if state else args.seed
     if args.offloaded:
         if args.temperature > 0:
             print("note: the offloaded engine decodes greedily; "
                   "--temperature is ignored on this path")
         capacity = args.capacity or cfg.melinoe_cache_capacity()
-        prefill_expert_scores(cfg, params, requests)  # oracle profiles
+        if state is None:
+            prefill_expert_scores(cfg, params, requests)  # oracle profiles
         kw = {"top_c": capacity} if args.scheduler == "expert-affinity" else {}
         srv = OffloadedWaveServer(
             cfg, params, capacity=capacity, scheduler=get_scheduler(args.scheduler, **kw),
             wave_size=args.slots, overlap=args.overlap, engine_impl=args.engine_impl,
             little_experts=args.little, little_rank=args.little_rank,
-            seed=args.seed, device=dev)
+            seed=seed, device=dev)
         del params  # the engine keeps its experts in pinned host memory
+        if state is not None and state.engine is not None:
+            srv.engine.metrics.load_state(state.engine["metrics"])
+            rev = srv.engine.revive(state.engine["cache"], warm=not args.cold_restore)
+            print(f"{'cold' if args.cold_restore else 'warm'} revival: "
+                  f"{rev['loaded']} experts, {rev['bytes']} bytes")
     else:
         srv = ContinuousBatchingServer(
             cfg, params, n_slots=args.slots, max_len=args.prompt_len + args.max_new + 1,
-            scheduler=get_scheduler(args.scheduler), seed=args.seed)
-    results, mt = srv.run(queue)
+            scheduler=get_scheduler(args.scheduler), seed=seed)
+
+    jr = RequestJournal(jdir, seen=state.seen_rids if state else None) if jdir else None
+    try:
+        results, mt = srv.run(
+            queue, state.metrics if state else None, journal=jr,
+            checkpoint_every=args.checkpoint_every if jr else None,
+            audit_every=args.audit_every or None, resume=state)
+    except InjectedCrash as e:
+        # a deliberate fault-injection exit: the journal holds everything
+        # --resume needs
+        print(f"CRASHED (injected): {e}")
+        print(f"journal is recoverable at {jdir}" if jdir else
+              "no journal configured; run is lost")
+        return None
+    finally:
+        if jr is not None:
+            jr.close()
     for r in results[: min(4, len(results))]:
         print(f"  rid={r.rid} {len(r.tokens)} toks ({r.finish_reason}) "
               f"latency={r.latency:.4f}s tokens={r.tokens[:8].tolist()}...")
     print(json.dumps(mt.summary(), indent=2))
+    if args.trace:
+        _export_trace(args.trace, srv, mt, offloaded=args.offloaded)
     return results, mt
+
+
+def _export_trace(outdir: str, srv, mt, *, offloaded: bool) -> None:
+    """Dump the run's spans and metrics and (offloaded) the per-layer
+    reconciliation of the Eq.-3 modeled clock against the measured spans."""
+    os.makedirs(outdir, exist_ok=True)
+    tracer = get_tracer()
+    trace_path = os.path.join(outdir, "trace.json")
+    tracer.export_chrome_trace(trace_path, process_name="bench_serve")
+    tracer.export_jsonl(os.path.join(outdir, "trace.jsonl"))
+
+    mt.publish()
+    get_fault_plan().publish()
+    dispatch.publish()
+    if offloaded:
+        srv.engine.metrics.publish()
+        srv.engine.cache.publish()
+    with open(os.path.join(outdir, "metrics.json"), "w") as f:
+        f.write(REGISTRY.to_json(indent=2))
+    with open(os.path.join(outdir, "metrics.prom"), "w") as f:
+        f.write(REGISTRY.to_prometheus_text())
+    print(f"trace: {trace_path} ({len(tracer.spans())} spans)")
+    if offloaded:
+        report = reconcile(tracer.spans(), srv.engine.metrics, srv.engine.hw)
+        with open(os.path.join(outdir, "reconcile.json"), "w") as f:
+            json.dump(report.to_json(), f, indent=2)
+        print(report.format_table())
 
 
 if __name__ == "__main__":

@@ -225,6 +225,13 @@ class ServerMetrics:
         }
 
     def publish(self, registry=None, **labels) -> None:
-        """Export the summary as ``serve_*`` gauges: needs the metrics
-        registry of ``obs/``, which is not ported yet."""
-        raise NotImplementedError("ServerMetrics.publish needs obs/, not ported yet")
+        """Export the summary onto a :class:`~repro_torch.obs.registry
+        .MetricsRegistry` (global by default) as ``serve_*`` gauges,
+        labeled with the scheduling policy."""
+        if registry is None:
+            from ..obs.registry import REGISTRY as registry
+        labels = dict(labels, policy=self.policy)
+        for k, v in self.summary().items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                registry.gauge(f"serve_{k}", "ServerMetrics.summary() field",
+                               **labels).set(float(v))

@@ -9,16 +9,19 @@ re-prefilled with the next scheduled request — no one is padded to the
 longest prompt or decoded past their own budget.
 
 Clock semantics: the virtual clock counts measured host time for
-prefill + decode. A span ends only once the step's tokens are on the
-host (``.cpu()``), so it holds the device's work too. The constructor
-runs one prefill and one decode (building the kernels on a card) so that
-no set-up lands on a request's latency. The spans only time, and the
-last ``run`` keeps them in ``span_s`` ({"serve.prefill": [s, ...],
-"serve.decode_step": [s, ...]}). The reference's tracer spans
-(``clock_span``) and fault seams (``get_fault_plan``) come with ``obs/``
-and ``faults/``, not ported yet.
-So do the crash-safety knobs of ``run`` (``journal``,
-``checkpoint_every``, ``audit_every``, ``resume``), which raise.
+prefill + decode, read from ``obs.clock_span`` (``serve.prefill``,
+``serve.decode_step``), which the active tracer also records. A span ends
+only once the step's tokens are on the host (``.cpu()``), so it holds the
+device's work too. The constructor runs one prefill and one decode
+(building the kernels on a card) so that no set-up lands on a request's
+latency. The last ``run`` keeps the spans' seconds in ``span_s``
+({"serve.prefill": [s, ...], "serve.decode_step": [s, ...]}).
+
+Both servers carry the reference's operations stack: tracer instants
+(``serve.shed``, ``serve.queue_wait``, ``serve.retire``), the fault
+plan's crash point (``serve.decode``) and clock stalls
+(``step_delay``), and the crash-safety knobs of ``run`` (``journal``,
+``checkpoint_every``, ``audit_every``, ``resume``; ``recovery/``).
 
 ``OffloadedWaveServer`` (memory-constrained path, Sec 3.2) drives the
 port's ``OffloadedMoEEngine``: the scheduler picks the next wave of
@@ -28,7 +31,9 @@ resident cache. Its clock advances by the Eq.-3 cost model (demand
 misses AND prefetch copies), serial or overlapped, so its latencies are
 the reference's exactly for the same counts. The measured seconds are
 kept beside it: ``wall_time``, and per request the engine's prefill and
-decode wall seconds and decode steps (``span_s``).
+decode wall seconds and decode steps (``span_s``). Its checkpoints
+carry the engine's cache state, so a resumed server revives the slab
+warm (``engine.revive``).
 """
 from __future__ import annotations
 
@@ -43,7 +48,9 @@ from ..core.offload_engine import HardwareProfile, OffloadedMoEEngine
 from ..inference.engine import Request, ServingEngine, truncate_at_stop
 from ..inference.sampling import greedy, row_generator, sample_per_row
 from ..models.model import decode_step, prefill
+from ..faults import get_fault_plan
 from ..models.runtime import Runtime
+from ..obs.trace import clock_span, get_tracer
 from .batch import BatchState
 from .metrics import ServerMetrics
 from .queue import RequestQueue
@@ -51,28 +58,13 @@ from .request import ServeRequest, ServeResult
 from .scheduler import FCFSScheduler, Scheduler
 
 
-class _Span:
-    """Host seconds between enter and exit (``dur``), appended to ``into``."""
-
-    def __init__(self, into: list):
-        self.into = into
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.dur = time.perf_counter() - self._t0
-        self.into.append(self.dur)
-        return False
-
-
 def _reject_unservable(queue: RequestQueue, now: float, mt: ServerMetrics,
-                       results: List[ServeResult]) -> None:
+                       results: List[ServeResult], tr, jr=None) -> None:
     """Admission control: turn bound-overflow and expired-while-queued
-    requests into "shed" results — they never reach a slot.
+    requests into "shed" results — they never reach a slot or wave.
     ``drop_expired`` routes its victims through the queue's shed pool,
-    so one drain covers both kinds; identity tells them apart."""
+    so one drain covers both kinds; identity tells them apart. ``jr``
+    (a recovery ``RequestJournal``) makes each shed durable."""
     expired = {id(r) for r in queue.drop_expired(now)}
     queue.enforce_bound(now)
     for r in queue.drain_shed():
@@ -80,19 +72,15 @@ def _reject_unservable(queue: RequestQueue, now: float, mt: ServerMetrics,
             mt.requests_expired += 1
         else:
             mt.requests_shed += 1
+        if tr.enabled:
+            tr.instant("serve.shed", rid=r.rid, expired=id(r) in expired,
+                       wait_s=now - r.arrival_time)
+        if jr is not None:
+            jr.shed(r, expired=id(r) in expired, now=now)
         results.append(ServeResult(
             rid=r.rid, tokens=np.zeros(0, np.int32), finish_reason="shed",
             arrival_time=r.arrival_time, start_time=now, finish_time=now,
         ))
-
-
-def _refuse_recovery(who: str, journal, checkpoint_every, audit_every, resume) -> None:
-    """The crash-safety knobs of ``run`` need ``recovery/``: raise if any is set."""
-    unported = {"journal": journal is not None, "checkpoint_every": bool(checkpoint_every),
-                "audit_every": bool(audit_every), "resume": resume is not None}
-    if any(unported.values()):
-        raise NotImplementedError(f"{who}: {[k for k, v in unported.items() if v]} "
-                                  "need recovery/, not ported yet")
 
 
 class ContinuousBatchingServer:
@@ -226,19 +214,29 @@ class ContinuousBatchingServer:
             on_step=None,
             should_drain=None,
             ) -> Tuple[List[ServeResult], ServerMetrics]:
-        """Serve the queue.
+        """Serve the queue. Crash-safety knobs (all optional):
 
+        * ``journal`` — a ``recovery.RequestJournal``; every arrival /
+          admit / emitted-token watermark / retire / shed lands as a
+          flushed JSONL event
+        * ``checkpoint_every`` — snapshot + journal rotation every N
+          decode steps (requires ``journal``)
+        * ``audit_every`` — run the invariant watchdog every N steps
+        * ``resume`` — a ``recovery.RecoveredState``; the clock, step
+          counter and finished results continue from it (pass
+          ``resume.metrics`` as ``metrics`` and a queue built via
+          ``resume.build_queue()`` for full continuity)
         * ``on_step`` — liveness hook called after every decode step
           with a dict (step/now/backlog/in_flight/finished/generated)
         * ``should_drain`` — polled each loop iteration; once it
-          returns True admission stops, in-flight requests finish, and
-          ``self.drained`` is set — still-pending requests stay queued
-
-        ``journal``, ``checkpoint_every``, ``audit_every`` and ``resume``
-        need ``recovery/``, which is not ported yet: they raise."""
-        _refuse_recovery("ContinuousBatchingServer.run", journal, checkpoint_every,
-                         audit_every, resume)
+          returns True admission stops, in-flight requests finish, a
+          final checkpoint anchors the journal, and ``self.drained``
+          is set — still-pending requests stay journaled for a resume
+        """
         mt = metrics or ServerMetrics(policy=self.scheduler.name)
+        tr = get_tracer()
+        plan = get_fault_plan()
+        jr = journal
         self.span_s = {"serve.prefill": [], "serve.decode_step": []}
         state = BatchState(self.n_slots, self.max_len)
         cur = np.zeros((self.n_slots, 1), np.int64)
@@ -247,27 +245,58 @@ class ContinuousBatchingServer:
         first_tok: dict = {}
         now = 0.0
         step_idx = 0
+        wd = None
+        if resume is not None:
+            now = resume.now
+            step_idx = resume.step
+            results = list(resume.results)
+        if audit_every or resume is not None:
+            from ..recovery.audit import Watchdog
+            wd = Watchdog(queue=queue, metrics=mt, batch=state,
+                          offered_base=resume.offered_base if resume else 0)
+            if resume is not None:
+                wd.check(in_flight=0)  # trust nothing restored, audited
+        if jr is not None:
+            for r in queue.pending():
+                jr.arrival(r)
         t_wall0 = time.perf_counter()
 
         def _retire(s: int, reason: str) -> None:
             req = state.slots[s].request
             res = state.retire(s, now, reason)
+            attained = False
             if reason == "deadline":
                 mt.deadline_retired += 1
             elif req.deadline is None or now <= req.deadline:
                 mt.slo_attained += 1
+                attained = True
             ft = first_tok.pop(res.rid, None)
             ttft = None if ft is None else ft - res.arrival_time
             itl = (None if ft is None else
                    (now - ft) / max(len(res.tokens) - 1, 1))
             mt.observe_finish(res.latency, ttft=ttft, itl=itl)
+            if tr.enabled:
+                tr.instant("serve.retire", rid=res.rid, reason=reason,
+                           tokens=len(res.tokens))
+            if jr is not None:
+                jr.retire(res, plen=req.prompt_len, attained=attained,
+                          ttft=ttft, itl=itl)
             results.append(res)
+
+        def _checkpoint(inflight) -> None:
+            from ..recovery.checkpoint import save_server_checkpoint
+            ck = jr.checkpoint_path(step_idx)
+            save_server_checkpoint(
+                ck, kind="continuous", step=step_idx, now=now, seed=self.seed,
+                policy=self.scheduler.name, pending=queue.pending(),
+                inflight=inflight, results=results, metrics=mt)
+            jr.rotate(ck, step_idx, now)
 
         self.drained = False
         while len(queue) or state.active_slots():
             draining = should_drain is not None and should_drain()
             # -- admission control: shed what can't be served -----------
-            _reject_unservable(queue, now, mt, results)
+            _reject_unservable(queue, now, mt, results, tr, jr)
             # -- admission: scheduler fills freed slots -----------------
             free = state.free_slots() if not draining else []
             if free:
@@ -276,12 +305,22 @@ class ContinuousBatchingServer:
                     order = self.scheduler.order(ready, hot=state.active_requests())
                     for slot, req in zip(free, order):
                         queue.admit(req)
-                        # prefill is service time: it advances the clock
-                        with _Span(self.span_s["serve.prefill"]) as cs:
+                        if tr.enabled:
+                            tr.instant("serve.queue_wait", rid=req.rid,
+                                       wait_s=now - req.arrival_time)
+                        # prefill is service time: the clock_span both
+                        # advances the serving clock and (when tracing)
+                        # records the same interval as a span
+                        with clock_span("serve.prefill", rid=req.rid,
+                                        prompt_len=req.prompt_len) as cs:
                             reason = self._admit(state, slot, req, cur, now, mt)
+                        self.span_s["serve.prefill"].append(cs.dur)
                         now += cs.dur
                         # the first token materializes with the prefill
                         first_tok[req.rid] = now
+                        if jr is not None:
+                            jr.admit(req.rid, now)
+                            jr.watermark({req.rid: [int(cur[slot, 0])]}, now)
                         if reason is not None:
                             _retire(slot, reason)
                         elif req.deadline is not None and now >= req.deadline:
@@ -290,24 +329,36 @@ class ContinuousBatchingServer:
             active = state.active_slots()
             if not active:
                 if draining:
-                    break  # nothing in flight: pending stays queued
+                    break  # nothing in flight: pending stays journaled
                 # idle: jump the virtual clock to the next arrival
                 nxt = queue.next_arrival()
                 if nxt is not None:
                     now = max(now, nxt)
                 continue
 
-            # -- one decode step over the whole slot pool ---------------
-            with _Span(self.span_s["serve.decode_step"]) as cs:
-                toks_np = self._decode(state, cur, active)
-            now += cs.dur
+            # injected crash: raises InjectedCrash between steps — the
+            # journal is flushed through the last completed step, so
+            # recovery resumes exactly here
+            if plan.enabled:
+                plan.maybe_crash("serve.decode")
 
+            # -- one decode step over the whole slot pool ---------------
+            with clock_span("serve.decode_step", active=len(active),
+                            slots=self.n_slots) as cs:
+                toks_np = self._decode(state, cur, active)
+            self.span_s["serve.decode_step"].append(cs.dur)
+            # charge the step (plus any injected scheduler hiccup) before
+            # retiring
+            now += cs.dur + plan.step_delay()
+
+            step_toks: dict = {}
             retire_now: List[Tuple[int, str]] = []
             for s in active:
                 state.slots[s].decode_steps += 1
                 tok = int(toks_np[s, 0])
                 cur[s, 0] = tok
                 mt.generated_tokens += 1
+                step_toks[state.slots[s].request.rid] = [tok]
                 reason = state.append_token(s, tok)
                 if reason is None:
                     dl = state.slots[s].request.deadline
@@ -316,6 +367,9 @@ class ContinuousBatchingServer:
                 if reason is not None:
                     retire_now.append((s, reason))
             mt.observe_step(len(active), self.n_slots, queue.backlog(now))
+            # watermark BEFORE the retires so replay sees tokens first
+            if jr is not None:
+                jr.watermark(step_toks, now)
             for s, reason in retire_now:
                 _retire(s, reason)
 
@@ -326,9 +380,22 @@ class ContinuousBatchingServer:
                          "in_flight": len(state.active_slots()),
                          "finished": mt.requests_finished,
                          "generated": mt.generated_tokens})
+            if wd is not None and audit_every and step_idx % audit_every == 0:
+                wd.check(in_flight=len(state.active_slots()))
+            if jr is not None and checkpoint_every and step_idx % checkpoint_every == 0:
+                # a slot's absolute watermark is its generated list; the
+                # record folds the resumed prefix in itself, so hand it
+                # only the tokens emitted THIS incarnation
+                _checkpoint([(state.slots[s].request,
+                              state.slots[s].generated[state.slots[s].request.n_resumed:])
+                             for s in state.active_slots()])
 
-        _reject_unservable(queue, now, mt, results)
+        _reject_unservable(queue, now, mt, results, tr, jr)
         self.drained = should_drain is not None and should_drain()
+        if jr is not None and self.drained:
+            # final drain checkpoint: everything finished or pending is
+            # anchored, so a later resume picks up exactly here
+            _checkpoint([])
         mt.wall_time += time.perf_counter() - t_wall0
         return sorted(results, key=lambda r: r.rid), mt
 
@@ -353,10 +420,9 @@ class OffloadedWaveServer:
     ``kernel_backend``, ``host_store``, ``quantized_experts``,
     ``little_bank``, ...). With ``little_experts`` each request's
     ``quality`` dial and its SLO's deadline pressure send misses to the
-    engine's low-rank little tier.
-
-    The reference's fault option (``fetch_policy``) and
-    ``engine_impl="dict"`` raise in the engine."""
+    engine's low-rank little tier; ``fetch_policy`` is the engine's retry
+    budget under an installed fault plan. ``engine_impl="dict"`` raises in
+    the engine (not ported)."""
 
     def __init__(
         self,
@@ -409,34 +475,64 @@ class OffloadedWaveServer:
             on_step=None,
             should_drain=None,
             ) -> Tuple[List[ServeResult], ServerMetrics]:
-        """Serve the queue, one wave at a time. ``on_step`` fires once per
-        completed wave with a dict (step/now/backlog/in_flight/finished/
-        generated); ``should_drain`` stops scheduling further waves (a
-        wave is atomic) and sets ``self.drained``. ``journal``,
-        ``checkpoint_every``, ``audit_every`` and ``resume`` need
-        ``recovery/``, which is not ported yet: they raise."""
-        _refuse_recovery("OffloadedWaveServer.run", journal, checkpoint_every,
-                         audit_every, resume)
+        """Serve the queue, one wave at a time. Same crash-safety knobs as
+        :meth:`ContinuousBatchingServer.run`, on wave granularity:
+        checkpoints land every ``checkpoint_every`` waves (with the
+        engine's cache state for warm revival; in-flight is always empty,
+        a request is atomic within a wave), the watchdog runs every
+        ``audit_every`` waves, ``on_step`` fires once per completed wave,
+        and ``should_drain`` stops scheduling further waves (the current
+        one finishes, a final checkpoint anchors the journal, and
+        ``self.drained`` is set). Revive the engine
+        (``engine.revive(resume.engine["cache"])`` after restoring
+        ``engine.metrics``) before calling run with ``resume``."""
         mt = metrics or ServerMetrics(policy=self.scheduler.name)
+        tr = get_tracer()
+        plan = get_fault_plan()
         eng = self.engine
         em = eng.metrics
+        jr = journal
         # measured per request (device synchronized): prefill s, decode s
         # and decode steps of its generate call
         self.span_s = {"serve.prefill": [], "serve.decode": [], "decode_steps": []}
         results: List[ServeResult] = []
         now = 0.0
         wave_idx = 0
+        wd = None
+        if resume is not None:
+            now = resume.now
+            wave_idx = resume.step
+            results = list(resume.results)
+        if audit_every or resume is not None:
+            from ..recovery.audit import Watchdog
+            wd = Watchdog(queue=queue, metrics=mt, engine=eng,
+                          offered_base=resume.offered_base if resume else 0)
+            if resume is not None:
+                wd.check(in_flight=0)  # trust nothing restored, audited
+        if jr is not None:
+            for r in queue.pending():
+                jr.arrival(r)
         t_wall0 = time.perf_counter()
         prev_wave: List[ServeRequest] = []
         if self.max_backlog is not None:
             queue.set_bound(self.max_backlog)
+
+        def _checkpoint() -> None:
+            from ..recovery.checkpoint import save_server_checkpoint
+            ck = jr.checkpoint_path(wave_idx)
+            save_server_checkpoint(
+                ck, kind="wave", step=wave_idx, now=now, seed=self.seed,
+                policy=self.scheduler.name, pending=queue.pending(), inflight=[],
+                results=results, metrics=mt,
+                engine={"cache": eng.cache_state(), "metrics": em.state()})
+            jr.rotate(ck, wave_idx, now)
 
         self.drained = False
         while len(queue):
             if should_drain is not None and should_drain():
                 break
             # -- admission control: shed what can't be served -----------
-            _reject_unservable(queue, now, mt, results)
+            _reject_unservable(queue, now, mt, results, tr, jr)
             if not len(queue):
                 break
             ready = queue.ready(now)
@@ -446,13 +542,16 @@ class OffloadedWaveServer:
             order = self.scheduler.order(ready, hot=prev_wave)
             wave = order[: self.wave_size]
             mt.observe_queue_depth(queue.backlog(now))
+            # injected scheduling hiccup (traffic burst / host jitter)
+            now += plan.step_delay()
 
             if self.use_prefetch:
                 scored = [r.expert_scores for r in wave if r.expert_scores is not None]
                 if scored:
                     # prefetch copies are real link traffic: charged to the
                     # wave on the same Eq. 3 terms as demand misses (they
-                    # precede the wave, so neither clock hides them)
+                    # precede the wave, so neither clock hides them), with
+                    # any spike/retry stall injected during the prefetch
                     p_tx0, p_b0, fd0 = (em.prefetch_transfers, em.prefetch_bytes,
                                         em.fault_delay_s)
                     eng.prefetch(np.mean(scored, axis=0))
@@ -465,6 +564,11 @@ class OffloadedWaveServer:
 
             for req in wave:
                 queue.admit(req)
+                if jr is not None:
+                    jr.admit(req.rid, now)
+                if tr.enabled:
+                    tr.instant("serve.queue_wait", rid=req.rid,
+                               wait_s=now - req.arrival_time)
                 start = now
                 before_s = em.modeled_time(self.hw)
                 step0 = len(em.step_flops)
@@ -502,6 +606,8 @@ class OffloadedWaveServer:
                     reason = "deadline"  # cut mid-decode at the SLO
                 degraded = em.degraded_uses > deg0
                 first_tok_time = start + d_first
+                # the resumed prefix was generated (and counted) before the
+                # crash; only this incarnation's tokens count here
                 n_new = len(toks) - req.n_resumed
                 mt.generated_tokens += n_new
                 mt.prefill_tokens += len(inp)
@@ -509,16 +615,27 @@ class OffloadedWaveServer:
                 ttft = first_tok_time - req.arrival_time
                 itl = (now - first_tok_time) / max(len(toks) - 1, 1)
                 mt.observe_finish(now - req.arrival_time, ttft=ttft, itl=itl)
+                attained = False
                 if reason == "deadline":
                     mt.deadline_retired += 1
                 elif req.slo is None or now <= req.deadline:
                     mt.slo_attained += 1
+                    attained = True
                 if degraded:
                     mt.degraded_requests += 1
-                results.append(ServeResult(
+                if tr.enabled:
+                    tr.instant("serve.retire", rid=req.rid, reason=reason,
+                               tokens=len(toks))
+                result = ServeResult(
                     rid=req.rid, tokens=toks, finish_reason=reason,
                     arrival_time=req.arrival_time, start_time=start,
-                    finish_time=now, decode_steps=n_new, degraded=degraded))
+                    finish_time=now, decode_steps=n_new, degraded=degraded)
+                if jr is not None:
+                    # watermark BEFORE retire so replay sees tokens first
+                    jr.watermark({req.rid: [int(t) for t in toks[req.n_resumed:]]}, now)
+                    jr.retire(result, plen=len(inp), attained=attained,
+                              ttft=ttft, itl=itl)
+                results.append(result)
             prev_wave = wave
 
             wave_idx += 1
@@ -527,9 +644,15 @@ class OffloadedWaveServer:
                          "backlog": queue.backlog(now), "in_flight": 0,
                          "finished": mt.requests_finished,
                          "generated": mt.generated_tokens})
+            if wd is not None and audit_every and wave_idx % audit_every == 0:
+                wd.check(in_flight=0)
+            if jr is not None and checkpoint_every and wave_idx % checkpoint_every == 0:
+                _checkpoint()
 
-        _reject_unservable(queue, now, mt, results)
+        _reject_unservable(queue, now, mt, results, tr, jr)
         self.drained = should_drain is not None and should_drain()
+        if jr is not None and self.drained:
+            _checkpoint()
         stats = eng.cache.stats()
         mt.transfers = em.transfers
         mt.transfer_bytes = em.transfer_bytes

@@ -17,6 +17,7 @@ functions below and define the ``wave_model`` fixture for their config
 (one file per config keeps each file's JAX compile time apart).
 """
 import dataclasses
+import tempfile
 
 import numpy as np
 import pytest
@@ -209,20 +210,34 @@ def test_wave_server_hooks_and_unported_knobs(wave_model):
     m = wave_model
     kw = dict(capacity=m["C"], wave_size=m["wave"], hw=HW, device="cpu")
     srv = serving.OffloadedWaveServer(m["tcfg"], m["tparams"], **kw)
-    for bad in ({"journal": object()}, {"checkpoint_every": 2}, {"audit_every": 1},
-                {"resume": object()}):
-        with pytest.raises(NotImplementedError, match="recovery"):
-            srv.run(serving.RequestQueue([]), **bad)
     steps = []
     res, mt = srv.run(serving.RequestQueue(_requests(serving, m, "nolora")),
                       on_step=steps.append, should_drain=lambda: len(steps) >= 2)
     n = 2 * m["wave"]
     assert srv.drained and len(steps) == 2 and len(res) == n
     assert steps[-1]["finished"] == n and steps[-1]["in_flight"] == 0
-    for knob, match in ((dict(fetch_policy=object()), "faults"),
-                        (dict(engine_impl="dict"), "dict engine")):
-        with pytest.raises(NotImplementedError, match=match):
-            serving.OffloadedWaveServer(m["tcfg"], m["tparams"], **kw, **knob)
+    # the knobs of the operations stack work (their parity tests:
+    # tests/test_torch_recovery.py, tests/test_torch_faults.py): a journaled,
+    # checkpointed and audited serve of the remaining requests; the dict
+    # engine still raises
+    from repro_torch.faults import FetchPolicy
+    from repro_torch.recovery import RequestJournal, recover
+
+    with tempfile.TemporaryDirectory() as d:
+        jr = RequestJournal(d)
+        srv = serving.OffloadedWaveServer(m["tcfg"], m["tparams"], **kw,
+                                          fetch_policy=FetchPolicy(max_retries=1))
+        res2, _ = srv.run(serving.RequestQueue(_requests(serving, m, "nolora")),
+                          journal=jr, checkpoint_every=1, audit_every=1)
+        jr.close()
+        state = recover(d)
+        assert state.kind == "wave" and not state.pending
+        assert sorted(r.rid for r in state.results) == [r.rid for r in res2]
+        assert len(state.engine["cache"]) == m["tcfg"].n_moe_layers
+    for a, b in zip(res, res2):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    with pytest.raises(NotImplementedError, match="dict engine"):
+        serving.OffloadedWaveServer(m["tcfg"], m["tparams"], **kw, engine_impl="dict")
     # the little-expert tier is ported (tests/test_torch_little*.py)
     little = serving.OffloadedWaveServer(m["tcfg"], m["tparams"], little_experts=True,
                                          little_rank=2, **kw).engine.little

@@ -117,7 +117,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.core.losses", "repro_torch.core.predictor",
             "repro_torch.training.optim", "repro_torch.training.trainer",
             "repro_torch.launch.steps", "repro_torch.launch.train",
-            "repro_torch.core.baselines", "repro_torch.core.little_expert"} <= set(mods)
+            "repro_torch.core.baselines", "repro_torch.core.little_expert",
+            "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.registry",
+            "repro_torch.obs.reconcile", "repro_torch.obs.validate", "repro_torch.faults",
+            "repro_torch.faults.plan", "repro_torch.faults.retry",
+            "repro_torch.recovery.checkpoint", "repro_torch.recovery.journal",
+            "repro_torch.recovery.audit"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"

@@ -158,22 +158,40 @@ def test_generate_batch_honors_stop_tokens(setup):
     np.testing.assert_array_equal(stopped.tokens, full.tokens[: len(stopped.tokens)])
 
 
-def test_unported_knobs_raise(setup):
+def test_unported_knobs_raise(setup, tmp_path):
+    """What this test once found raising is ported now: the crash-safety
+    knobs of ``run`` (journal, checkpoints, the watchdog, resume), the
+    engine's ``fetch_policy`` and ``ServerMetrics.publish`` each work here
+    (their parity tests: tests/test_torch_recovery.py,
+    tests/test_torch_faults.py, tests/test_torch_obs.py). The engine's
+    ``impl="dict"`` still raises."""
+    from repro_torch.core.offload_engine import OffloadedMoEEngine
+    from repro_torch.faults import FetchPolicy
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.recovery import RequestJournal, recover
+
     cfg, params, _, _ = setup
     srv = ContinuousBatchingServer(cfg, params, n_slots=1, max_len=16)
-    for kw in ({"journal": object()}, {"checkpoint_every": 2}, {"audit_every": 1},
-               {"resume": object()}):
-        with pytest.raises(NotImplementedError, match="recovery"):
-            srv.run(RequestQueue([]), **kw)
-    # LoRA and the little-expert tier are ported (tests/test_torch_lora.py,
-    # tests/test_torch_little.py); the offload engine's fault seams still
-    # wait for faults/
-    from repro_torch.core.offload_engine import OffloadedMoEEngine
-
-    with pytest.raises(NotImplementedError, match="faults/"):
-        OffloadedMoEEngine(cfg, params, capacity=2, device="cpu", fetch_policy=object())
-    with pytest.raises(NotImplementedError, match="obs"):
-        ServerMetrics().publish()
+    ref, _ = srv.run(RequestQueue(mk_requests(cfg, [4, 5], [3, 2])))
+    jr = RequestJournal(tmp_path)
+    res, mt = srv.run(RequestQueue(mk_requests(cfg, [4, 5], [3, 2])), journal=jr,
+                      checkpoint_every=1, audit_every=1)
+    jr.close()
+    for a, b in zip(ref, res):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    state = recover(tmp_path)
+    assert state.kind == "continuous" and not state.pending
+    assert sorted(r.rid for r in state.results) == [0, 1]
+    again, mt2 = srv.run(state.build_queue(), state.metrics, resume=state)
+    assert [r.rid for r in again] == [0, 1] and mt2.requests_finished == 2
+    eng = OffloadedMoEEngine(cfg, params, capacity=2, device="cpu",
+                             fetch_policy=FetchPolicy(max_retries=1))
+    assert eng.fetch_policy.max_retries == 1
+    with pytest.raises(NotImplementedError, match="dict engine"):
+        OffloadedMoEEngine(cfg, params, capacity=2, device="cpu", impl="dict")
+    reg = MetricsRegistry()
+    mt.publish(reg)
+    assert reg.snapshot()['serve_requests{policy="fcfs"}'] == 2.0
     # the predictor scorer is ported (tests/test_torch_predictor.py)
     assert predictor_expert_scores(None, None, []) == []
 
@@ -548,14 +566,69 @@ def test_bench_serve_on_cpu_prints_the_summary(capsys):
     assert all(3 <= len(r.tokens) <= 6 for r in results)
 
 
+SMOKE = ["--arch", ARCH, "--device", "cpu", "--dtype", "float32", "--slots", "2",
+         "--prompt-len", "8", "--max-new", "8"]
+WORK = ["--n-requests", "4", "--arrival", "all_at_once"]
+OFFLOADED = ["--offloaded", "--capacity", "2"]
+
+
+@pytest.fixture(scope="module")
+def uninterrupted():
+    """The launcher's results without an operations flag, continuous and
+    offloaded (one run each for every case below)."""
+    return {off: bench_serve.main(SMOKE + (OFFLOADED if off else []) + WORK)[0]
+            for off in (False, True)}
+
+
 @pytest.mark.parametrize("flag", [["--cold-restore"], ["--faults", "crash_at=5"],
                                   ["--trace", "tr"], ["--journal", "jr"], ["--resume"],
-                                  ["--audit-every", "2"]])
-def test_bench_serve_refuses_what_is_not_ported(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        bench_serve.main(["--arch", ARCH, "--device", "cpu"] + flag)
-    assert e.value.code == 2
-    assert f"not ported yet: {flag[0]}" in capsys.readouterr().err
+                                  ["--audit-every", "2"], ["--checkpoint-every", "1"]])
+def test_bench_serve_refuses_what_is_not_ported(flag, capsys, tmp_path, uninterrupted):
+    """The launcher's operations flags, which it once refused, each work
+    at smoke size on the CPU: a flag that needs a journal to recover runs
+    after a crashed, journaled run of the same workload (offloaded for
+    ``--cold-restore``), and the served tokens equal the uninterrupted
+    run's."""
+    off = OFFLOADED if flag[0] == "--cold-restore" else []
+    work = SMOKE + off + WORK
+    ref = uninterrupted[bool(off)]
+    jdir = str(tmp_path / "jr")
+    if flag[0] in ("--cold-restore", "--resume"):
+        # offloaded: the first decode step of the second wave (a checkpoint
+        # of the first wave's cache to revive from); continuous: step 3
+        crash = sum(len(r.tokens) - 1 for r in ref[:2]) + 1 if off else 3
+        assert bench_serve.main(work + ["--journal", jdir, "--checkpoint-every", "1",
+                                        "--faults", f"crash_at={crash}"]) is None
+        assert "CRASHED (injected)" in capsys.readouterr().out
+        argv = SMOKE + off + ["--journal", jdir, "--resume"] + flag[1:]
+        if flag[0] == "--cold-restore":
+            argv += ["--cold-restore"]
+    elif flag[0] == "--faults":
+        assert bench_serve.main(work + flag) is None  # no journal: the run is lost
+        assert "no journal configured" in capsys.readouterr().out
+        return
+    elif flag[0] == "--trace":
+        argv = work + ["--trace", str(tmp_path / "tr")]
+    elif flag[0] == "--journal":
+        argv = work + ["--journal", jdir]
+    else:  # --audit-every, --checkpoint-every: on a journaled run
+        argv = work + ["--journal", jdir] + flag
+    res, mt = bench_serve.main(argv)
+    out = capsys.readouterr().out
+    assert [r.rid for r in res] == [r.rid for r in ref]
+    for a, b in zip(ref, res):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
+    if flag[0] == "--cold-restore":
+        assert "cold revival: 0 experts" in out
+    if flag[0] == "--trace":
+        from repro_torch.obs import validate_chrome_trace
+
+        assert validate_chrome_trace(json.load(open(tmp_path / "tr" / "trace.json"))) == []
+        assert (tmp_path / "tr" / "metrics.prom").exists()
+    if flag[0] in ("--journal", "--audit-every", "--checkpoint-every"):
+        from repro_torch.recovery import recover
+
+        assert sorted(r.rid for r in recover(jdir).results) == [0, 1, 2, 3]
 
 
 def test_bench_serve_offloaded_little_quality(capsys):
