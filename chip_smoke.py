@@ -176,7 +176,26 @@ From the root of a checkout, with CUDA available:
    an uninterrupted run's (a resumed request re-prefills its prompt and
    watermark; only in fp32 is that the arithmetic of its uninterrupted
    decode);
-18. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+18. the supervised fleet (``fleet/``): two ``repro_torch.fleet.worker``
+   processes of full-width OLMoE-1B-7B whole on the one card (continuous
+   batching, 4 slots each, step 7's 8 requests split between them; the
+   environment sets ``REPRO_TORCH_KERNEL_BACKEND=hopper``), after a check
+   that the free device memory holds two fp32 copies of the weights:
+   (a) fp32, no fault: every request finishes, none unaccounted; (b) fp32
+   with worker 0 killed (``os._exit``) at its fourth decode step: a crash
+   restart from the journal, a failover time, (a)'s tokens; (c) bf16
+   ``python -m repro_torch.launch.bench_fleet`` (16 requests, so a worker
+   holds more than its slots) sent SIGTERM once every worker serves: exit
+   0, every worker exits 0, every request finished or checkpointed; (d) fp32 ``launch.bench_serve`` on the same model and
+   traffic shape: uninterrupted with ``--out-results``, a ``--journal``
+   run (its own process) sent SIGTERM mid-serve (exit 0, the ``DRAINED``
+   banner), then ``--resume``: the union of tokens equals the
+   uninterrupted run. It prints each worker's start-up seconds, launches
+   by op and route (read from its log) and peak memory, the fleet's wall
+   seconds and tokens per wall second, and failover seconds, and gates
+   that ``moe_gmm`` and ``flash_attn`` launched in every worker (``fma``
+   in fp32, ``tc``/``stream`` in bf16);
+19. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -189,6 +208,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1566,6 +1586,14 @@ def finetune_phase(device: str = "cuda", arch: str = "olmoe", steps: int = TRAIN
     return rep
 
 
+def _src_env() -> dict:
+    """This environment with the checkout's ``src`` first on PYTHONPATH
+    (for the launchers this script runs as processes of their own)."""
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else [])))
+
+
 def train_launcher_phase(device: str = "cuda") -> dict:
     """Phase 14: ``python -m repro_torch.launch.train --mode both`` on
     olmoe-mini for a few steps on the card; both checkpoints read back."""
@@ -1583,11 +1611,8 @@ def train_launcher_phase(device: str = "cuda") -> dict:
         cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--mode",
                "both", "--steps", "3", "--ft-steps", "3", "--batch", "4", "--seq", "64",
                "--device", device, "--out", d]
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-            [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
-                                   if os.environ.get("PYTHONPATH") else [])))
-        out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600,
-                             cwd=str(ROOT))
+        out = subprocess.run(cmd, env=_src_env(), capture_output=True, text=True,
+                             timeout=600, cwd=str(ROOT))
         if out.returncode != 0 or "done" not in out.stdout:
             raise AssertionError(f"launch.train exited {out.returncode}: "
                                  f"{out.stderr[-3000:]}")
@@ -2204,6 +2229,240 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
     return rep
 
 
+# The fleet phase (18): two workers of full-width OLMoE on the one card,
+# continuous batching with SERVE_SLOTS slots each, the continuous phase's
+# requests. fp32 workers take the CUDA-core routes, bf16 ones the
+# tensor-core and stream routes.
+FLEET_WORKERS = 2
+FLEET_KILL = "kill_at=4,seed=0"
+FLEET_ROUTES = {"float32": {"moe_gmm": {"fma"}, "flash_attn": {"fma"}},
+                "bfloat16": {"moe_gmm": {"tc", "stream"}, "flash_attn": {"tc"}}}
+# per worker, beside its fp32 weights: a CUDA context, the slot pool's KV
+# cache and the prefill's activations
+FLEET_WORKER_HEADROOM = 2 << 30
+# the launchers' traffic: prompts of 64-128 tokens, budgets of 16-32, all
+# at once; the drained fleet gets twice the requests, so that each worker
+# has more than its slots and the drain leaves some checkpointed
+FLEET_BENCH = ["--n-requests", str(len(SERVE_BUDGETS)), "--prompt-len", str(SERVE_PROMPT),
+               "--max-new", str(max(SERVE_BUDGETS)), "--arrival", "all_at_once",
+               "--slots", str(SERVE_SLOTS), "--seed", "0"]
+FLEET_DRAIN_REQUESTS = 2 * len(SERVE_BUDGETS)
+
+
+
+
+def _wait(pred, what: str, proc, timeout_s: float = 300.0) -> None:
+    deadline = time.time() + timeout_s
+    while not pred():
+        if proc.poll() is not None:
+            raise AssertionError(f"{what}: the process exited ({proc.returncode}) first")
+        if time.time() > deadline:
+            raise AssertionError(f"{what}: not within {timeout_s} s")
+        time.sleep(0.05)
+
+
+def _fleet_workers(root, report: dict, dtype: str, device: str) -> list:
+    """Per worker: start-up seconds of each incarnation (launch -> first
+    heartbeat past ``init``), exit code, and the closing launch line of
+    the incarnation that finished (launches by op and route, peak memory);
+    on the card, the gate that ``moe_gmm`` and ``flash_attn`` launched on
+    the routes of ``dtype``."""
+    from repro_torch.fleet.worker import worker_launches
+
+    rows = []
+    for w in report["workers"]:
+        lines = worker_launches(Path(root) / f"worker-{w['idx']}" / "worker.log")
+        if not lines:
+            raise AssertionError(f"fleet worker {w['idx']}: no launch line in its log")
+        last = lines[-1]
+        rows.append({
+            "worker": w["idx"], "exit_code": w["exit_code"], "restarts": w["restarts"],
+            "startup_s": [e["startup_s"] for e in report["events"]
+                          if e["event"] == "ready" and e["worker"] == w["idx"]],
+            "launches": last["launches"], "route_launches": last["route_launches"],
+            "max_memory_allocated": last.get("max_memory_allocated")})
+        if device == "cuda":
+            for op, want in FLEET_ROUTES[dtype].items():
+                got = last["route_launches"][op]
+                if not last["launches"][op] or set(got) - want:
+                    raise AssertionError(f"fleet worker {w['idx']} ({dtype}): {op} "
+                                         f"launches {got}, want > 0 on {sorted(want)}")
+    return rows
+
+
+def _fleet_row(report: dict, t_wall: float) -> dict:
+    gen = sum(len(r["tokens"]) for r in report["results"].values())
+    return {"finished": report["finished"],
+            "pending_checkpointed": len(report["pending_checkpointed"]),
+            "unaccounted": report["unaccounted"], "drained": report["drained"],
+            "restarts": report["restarts"], "failover_s": report["failover_s"]["samples"],
+            "wall_s": report["wall_s"], "generated_tokens": gen,
+            "tokens_per_wall_s": gen / report["wall_s"] if report["wall_s"] else 0.0,
+            "call_s": time.perf_counter() - t_wall}
+
+
+def fleet_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
+    """Phase 18, the supervised fleet: two ``repro_torch.fleet.worker``
+    processes of full-width OLMoE on the one card. (a) fp32, no fault;
+    (b) fp32 with worker 0 killed at its fourth decode step (restart from
+    its journal, tokens equal (a)'s); (c) bf16 ``python -m
+    repro_torch.launch.bench_fleet`` with ``FLEET_DRAIN_REQUESTS`` sent
+    SIGTERM once every worker is serving (drain: exit 0 everywhere, every
+    request finished or checkpointed); (d) fp32 ``bench_serve``: uninterrupted with
+    ``--out-results``, a ``--journal`` run sent SIGTERM mid-serve (exit 0,
+    the ``DRAINED`` banner), then ``--resume``: the union of tokens equals
+    the uninterrupted run. ``arch``/``device``: a smaller model or the
+    CPU, to rehearse the phase's logic (no launch gates there)."""
+    from repro_torch.configs import get_config
+    from repro_torch.fleet import FleetConfig, FleetSupervisor
+    from repro_torch.launch import bench_serve
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServeRequest
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    n = len(SERVE_BUDGETS)
+    prompts = make_prompts(cfg.vocab, n, SERVE_PROMPT)
+    requests = [ServeRequest(rid=i, prompt=prompts[i], max_new_tokens=SERVE_BUDGETS[i])
+                for i in range(n)]
+    rows = {}
+    if device == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        weights = _tree_bytes(init_params(cfg, generator=torch.Generator(),
+                                          dtype=torch.float32, device="meta"))
+        need = FLEET_WORKERS * (weights + FLEET_WORKER_HEADROOM)
+        print(f"fleet phase: device memory free {free} B of {total} B; {FLEET_WORKERS} fp32 "
+              f"workers need {need} B ({weights} B of weights each)")
+        if free < need:
+            raise AssertionError(f"fleet phase: {free} B free, {need} B needed for "
+                                 f"{FLEET_WORKERS} fp32 workers")
+    saved = os.environ.get("REPRO_TORCH_KERNEL_BACKEND")
+    if device == "cuda":  # a kernel that cannot run raises in the worker
+        os.environ["REPRO_TORCH_KERNEL_BACKEND"] = "hopper"
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            # ---- (a), (b): the supervisor in this process, fp32 workers
+            reports = {}
+            for name, faults in (("fp32", {}), ("fp32-kill", {0: FLEET_KILL})):
+                t0 = time.perf_counter()
+                root = Path(d) / name
+                fcfg = FleetConfig(n_workers=FLEET_WORKERS, arch=arch, slots=SERVE_SLOTS,
+                                   dtype="float32", device=device, worker_faults=faults)
+                rep = FleetSupervisor(requests, fcfg, root).run(max_wall_s=600.0)
+                reports[name] = rep
+                rows[name] = dict(_fleet_row(rep, t0),
+                                  workers=_fleet_workers(root, rep, "float32", device))
+                print(f"fleet {name}:", json.dumps(rows[name]))
+            a, b = reports["fp32"], reports["fp32-kill"]
+            toks = {k: {rid: r["tokens"] for rid, r in rep["results"].items()}
+                    for k, rep in reports.items()}
+            if not (a["finished"] == n and a["unaccounted"] == []
+                    and not a["pending_checkpointed"]
+                    and [len(toks["fp32"][str(i)]) for i in range(n)] == list(SERVE_BUDGETS)
+                    and all(w["exit_code"] == 0 for w in a["workers"])):
+                raise AssertionError(f"fleet fp32: {rows['fp32']}")
+            rows["fp32-kill"]["tokens_equal_fp32"] = toks["fp32-kill"] == toks["fp32"]
+            if not (b["restarts"]["crash"] >= 1 and b["failover_s"]["count"] >= 1
+                    and b["unaccounted"] == [] and rows["fp32-kill"]["tokens_equal_fp32"]
+                    and all(w["exit_code"] == 0 for w in b["workers"])):
+                raise AssertionError(f"fleet fp32 kill: {rows['fp32-kill']}")
+
+            # ---- (c): bf16 bench_fleet, SIGTERM once every worker serves
+            t0 = time.perf_counter()
+            root, out = Path(d) / "bf16-drain", Path(d) / "bf16-drain.json"
+            drain_dtype = "bfloat16" if device == "cuda" else "float32"  # CPU: rehearsal
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.bench_fleet", "--arch", arch,
+                 "--device", device, "--dtype", drain_dtype, "--workers",
+                 str(FLEET_WORKERS), *FLEET_BENCH, "--n-requests", str(FLEET_DRAIN_REQUESTS),
+                 "--dir", str(root), "--out", str(out)],
+                env=_src_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, cwd=str(ROOT))
+            try:
+                from repro_torch.fleet import read_heartbeat
+
+                def all_serving():
+                    wd = [root / f"worker-{i}" for i in range(FLEET_WORKERS)]
+                    return all((w / "journal" / "journal.jsonl").exists()
+                               and (w / "journal" / "journal.jsonl").stat().st_size > 0
+                               and (read_heartbeat(w / "heartbeat.json") or {}).get(
+                                   "phase") not in (None, "init", "ready") for w in wd)
+                _wait(all_serving, "bench_fleet: every worker serving", proc)
+                t_term = time.perf_counter() - t0
+                proc.send_signal(signal.SIGTERM)
+                stdout, _ = proc.communicate(timeout=300)
+            finally:
+                proc.kill()
+            if proc.returncode != 0:
+                raise AssertionError(f"bench_fleet drain exited {proc.returncode}: "
+                                     f"{stdout[-3000:]}")
+            c = json.loads(out.read_text())
+            rows["bf16-drain"] = dict(_fleet_row(c, t0), sigterm_after_s=t_term,
+                                      workers=_fleet_workers(root, c, drain_dtype, device))
+            print("fleet bf16 bench_fleet SIGTERM drain:", json.dumps(rows["bf16-drain"]))
+            if not (c["finished"] + len(c["pending_checkpointed"]) == FLEET_DRAIN_REQUESTS
+                    and c["drained"] and c["unaccounted"] == []
+                    and all(w["exit_code"] == 0 for w in c["workers"])):
+                raise AssertionError(f"fleet bf16 drain: {rows['bf16-drain']}")
+
+            # ---- (d): fp32 bench_serve, SIGTERM mid-serve, then --resume
+            t0 = time.perf_counter()
+            base = ["--arch", arch, "--device", device, "--dtype", "float32", *FLEET_BENCH]
+            full_path, jdir = Path(d) / "serve-full.json", Path(d) / "serve-journal"
+            bench_serve.main(base + ["--out-results", str(full_path)])
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+            want = {r["rid"]: r["tokens"] for r in json.loads(full_path.read_text())["results"]}
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.bench_serve", *base, "--journal",
+                 str(jdir), "--checkpoint-every", "4", "--out-results",
+                 str(Path(d) / "serve-drained.json")],
+                env=_src_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, cwd=str(ROOT))
+            try:
+                _wait(lambda: any('"ev":"wm"' in p.read_text()
+                                  for p in jdir.glob("journal*.jsonl")),
+                      "bench_serve: a decode step journaled", proc)
+                proc.send_signal(signal.SIGTERM)
+                stdout, _ = proc.communicate(timeout=300)
+            finally:
+                proc.kill()
+            if proc.returncode != 0 or "DRAINED on SIGTERM" not in stdout:
+                raise AssertionError(f"bench_serve drain exited {proc.returncode}: "
+                                     f"{stdout[-3000:]}")
+            got = {r["rid"]: r["tokens"] for r in json.loads(
+                (Path(d) / "serve-drained.json").read_text())["results"]}
+            drained = len(got)
+            bench_serve.main(base + ["--journal", str(jdir), "--resume", "--out-results",
+                                     str(Path(d) / "serve-resumed.json")])
+            for r in json.loads((Path(d) / "serve-resumed.json").read_text())["results"]:
+                got[r["rid"]] = r["tokens"]
+            rows["bench-serve-drain-fp32"] = {
+                "finished_before_drain": drained, "resumed": len(got) - drained,
+                "tokens_equal": got == want, "requests": len(want),
+                "wall_s": time.perf_counter() - t0}
+            print("bench_serve fp32 SIGTERM drain, then --resume:",
+                  json.dumps(rows["bench-serve-drain-fp32"]))
+            if not (got == want and len(want) == n and drained < n):
+                raise AssertionError(f"bench_serve drain/resume: "
+                                     f"{rows['bench-serve-drain-fp32']}")
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_TORCH_KERNEL_BACKEND", None)
+        else:
+            os.environ["REPRO_TORCH_KERNEL_BACKEND"] = saved
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rep = {"rows": rows, "phase_s": time.perf_counter() - t_phase}
+    print(f"fleet phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it. ``source`` is the kernel the
@@ -2363,6 +2622,9 @@ def main() -> int:
     # ---- the operations stack: tracing, faults, crash-safe serving
     o_rep = ops_phase(ops_main, ops_int4, shared)
 
+    # ---- the supervised fleet: two OLMoE workers on the card
+    f_rep = fleet_phase()
+
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
@@ -2399,7 +2661,9 @@ def main() -> int:
              **{f"little-{n}": r["launches_total"] for n, r in l_rep["rows"].items()
                 if "launches_total" in r},
              **{f"ops-{n}": r["launches_total"] for n, r in o_rep["rows"].items()
-                if "launches_total" in r}}
+                if "launches_total" in r},
+             **{f"fleet-{n}-worker{w['worker']}": w["launches"]
+                for n, r in f_rep["rows"].items() for w in r.get("workers", ())}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
@@ -2413,7 +2677,9 @@ def main() -> int:
              **{f"little-{n}": r["route_launches"] for n, r in l_rep["rows"].items()
                 if "route_launches" in r},
              **{f"ops-{n}": r["route_launches"] for n, r in o_rep["rows"].items()
-                if "route_launches" in r}}
+                if "route_launches" in r},
+             **{f"fleet-{n}-worker{w['worker']}": w["route_launches"]
+                for n, r in f_rep["rows"].items() for w in r.get("workers", ())}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

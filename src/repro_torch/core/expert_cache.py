@@ -11,12 +11,13 @@ Policies
 The manager counts misses == host->device transfers (Eq. 3).
 
 A numpy copy of ``repro/core/expert_cache.py``: the same policies, trace
-instants (``cache.access``, ``cache.prefill``), durable state and audit.
+instants (``cache.access``, ``cache.prefill``), durable state, audit and
+the trace replay ``simulate_trace``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterable, List, Sequence
+from typing import Iterable, List, Optional, Sequence
 
 import numpy as np
 
@@ -316,3 +317,20 @@ class ModelExpertCache:
         registry.gauge("cache_hit_rate", "aggregate expert cache hit rate",
                        **labels).set(s.hit_rate)
 
+
+def simulate_trace(routing: np.ndarray, capacity: int, policy: str = "lfu",
+                   gamma: float = 0.9, prefetch: Optional[np.ndarray] = None) -> CacheStats:
+    """Replay a routing trace.
+
+    routing: (T, L, K) int expert ids per token/layer.
+    prefetch: optional (L, E) scores for proactive cache init."""
+    T, L, K = routing.shape
+    E = int(routing.max()) + 1
+    mc = ModelExpertCache(L, E, capacity, policy, gamma)
+    if prefetch is not None:
+        mc.prefill_from_scores(prefetch)
+    # per-layer caches are independent, so the token loop batches away:
+    # one access_batch per layer replays that layer's whole (T, K) trace
+    for l in range(L):
+        mc.access_batch(l, routing[:, l])
+    return mc.stats()

@@ -48,6 +48,14 @@ The operations stack, as the reference's launcher:
 
 ``--engine-impl dict`` raises in the engine (not ported).
 
+A SIGTERM mid-serve drains the server gracefully: admission stops,
+in-flight requests finish, a journaled run anchors a final checkpoint
+(``--resume`` finishes the rest), ``DRAINED on SIGTERM`` is printed and
+the launcher exits 0. ``--out-results PATH`` writes every finished
+request's tokens and finish reason with the summary, as the reference's
+launcher does (to diff a drained or crashed and resumed run against an
+uninterrupted one).
+
     # crash mid-decode, then finish the run from the journal
     PYTHONPATH=src python -m repro_torch.launch.bench_serve --arch olmoe-mini-smoke \
         --device cpu --dtype float32 --n-requests 4 --slots 2 --prompt-len 8 \
@@ -61,6 +69,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 
 import torch
 
@@ -149,6 +158,10 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--cold-restore", action="store_true",
                     help="with --resume on the offloaded path: skip the warm slab "
                          "revival (restore policy scores only)")
+    ap.add_argument("--out-results", default=None, metavar="PATH",
+                    help="write per-request tokens + summary JSON (use to diff a "
+                         "drained or crashed and resumed run against an "
+                         "uninterrupted one)")
     return ap
 
 
@@ -247,12 +260,20 @@ def _serve(args, cfg, jdir):
             cfg, params, n_slots=args.slots, max_len=args.prompt_len + args.max_new + 1,
             scheduler=get_scheduler(args.scheduler), seed=seed)
 
-    jr = RequestJournal(jdir, seen=state.seen_rids if state else None) if jdir else None
+    # graceful drain on SIGTERM: stop admission, finish in-flight, and
+    # (journaled) anchor a final checkpoint instead of dying mid-step —
+    # what a fleet supervisor or a preemption sends before SIGKILL. The
+    # handler goes in before the journal's first line is written.
+    drain = {"flag": False}
+    prev_term = signal.signal(signal.SIGTERM, lambda *_: drain.__setitem__("flag", True))
+    jr = None
     try:
+        jr = RequestJournal(jdir, seen=state.seen_rids if state else None) if jdir else None
         results, mt = srv.run(
             queue, state.metrics if state else None, journal=jr,
             checkpoint_every=args.checkpoint_every if jr else None,
-            audit_every=args.audit_every or None, resume=state)
+            audit_every=args.audit_every or None, resume=state,
+            should_drain=lambda: drain["flag"])
     except InjectedCrash as e:
         # a deliberate fault-injection exit: the journal holds everything
         # --resume needs
@@ -263,10 +284,23 @@ def _serve(args, cfg, jdir):
     finally:
         if jr is not None:
             jr.close()
+        signal.signal(signal.SIGTERM, prev_term)
+    if srv.drained:
+        print(f"DRAINED on SIGTERM: {len(results)} finished, {len(queue)} pending left "
+              + (f"checkpointed in {jdir}" if jdir else "(no journal — lost)"))
     for r in results[: min(4, len(results))]:
         print(f"  rid={r.rid} {len(r.tokens)} toks ({r.finish_reason}) "
               f"latency={r.latency:.4f}s tokens={r.tokens[:8].tolist()}...")
     print(json.dumps(mt.summary(), indent=2))
+    if args.out_results:
+        payload = {
+            "results": [{"rid": r.rid, "tokens": [int(t) for t in r.tokens],
+                         "finish_reason": r.finish_reason} for r in results],
+            "summary": mt.summary(),
+        }
+        with open(args.out_results, "w") as f:
+            json.dump(payload, f, indent=2)
+        print(f"results: {args.out_results}")
     if args.trace:
         _export_trace(args.trace, srv, mt, offloaded=args.offloaded)
     return results, mt

@@ -122,7 +122,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.obs.reconcile", "repro_torch.obs.validate", "repro_torch.faults",
             "repro_torch.faults.plan", "repro_torch.faults.retry",
             "repro_torch.recovery.checkpoint", "repro_torch.recovery.journal",
-            "repro_torch.recovery.audit"} <= set(mods)
+            "repro_torch.recovery.audit", "repro_torch.fleet", "repro_torch.fleet.heartbeat",
+            "repro_torch.fleet.worker", "repro_torch.fleet.supervisor",
+            "repro_torch.launch.bench_fleet"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
