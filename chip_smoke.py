@@ -146,7 +146,29 @@ From the root of a checkout, with CUDA available:
    ``launch.bench_serve
    --offloaded --little --quality 0.5`` at full width (4 requests), whose
    summary must count degraded requests;
-17. the operations stack (``obs/``, ``faults/``, ``recovery/``) on phase
+17. the dense and prefix-conditioned configs at full width, bf16, random
+   weights from seed 0, each through ``repro_torch.launch.serve.run_full``
+   at 4 x (512 + 32) tokens (``DENSE_PATHS``): qwen3-4b (36 layers),
+   musicgen-medium (48) and stablelm-12b (40, head dim 160) at full
+   depth, gemma2-27b cut to 16 layers, command-r-plus-104b to 4 and
+   internvl2-76b to 8 (the layout's repeats replaced; the cut config
+   registered under a name of its own); musicgen and internvl2 with a
+   ``prefix_embed`` of their published ``prefix_len`` (64 and 256 rows)
+   drawn from a seed. Counters set to 0 just before each model: one
+   ``flash_attn`` a layer in the prefill, all on "tc", nothing else, and
+   nothing in decode. The prefill logits against plain prefills: bf16 at
+   the served depth within ``DENSE_BF16_LOGITS_REL_TOL``; then on the
+   first layers of the same weights (all of them for qwen3 and musicgen)
+   fp32 within ``FP32_LOGITS_REL_TOL`` and the bf16 kernel run within
+   ``ACCURACY_RATIO`` of the plain path's own round-off. It prints prefill
+   seconds, decode tok/s and peak memory against the weight bytes. Then
+   gemma2-27b cut to one local and one global layer on one prompt of
+   ``GEMMA2_WINDOW_T`` tokens, past the 4096-token window (bf16 and fp32
+   against the plain versions), and the offloaded OLMoE engine on phase
+   15's weights, store and prompts with a ``prefix_embed`` of
+   ``OFFLOAD_PREFIX_LEN`` rows (launches by phase and route; prefill
+   logits against a plain run within ``LOGITS_REL_TOL``);
+18. the operations stack (``obs/``, ``faults/``, ``recovery/``) on phase
    15's weights, pinned store and batch (phase 4's): (a) the batch served
    with tracing on, bf16 and INT4 (phase 5's codes, quantized again from
    the store): tokens, transfers and launches by route equal to phases 4
@@ -176,7 +198,7 @@ From the root of a checkout, with CUDA available:
    an uninterrupted run's (a resumed request re-prefills its prompt and
    watermark; only in fp32 is that the arithmetic of its uninterrupted
    decode);
-18. the supervised fleet (``fleet/``): two ``repro_torch.fleet.worker``
+19. the supervised fleet (``fleet/``): two ``repro_torch.fleet.worker``
    processes of full-width OLMoE-1B-7B whole on the one card (continuous
    batching, 4 slots each, step 7's 8 requests split between them; the
    environment sets ``REPRO_TORCH_KERNEL_BACKEND=hopper``), after a check
@@ -195,7 +217,7 @@ From the root of a checkout, with CUDA available:
    seconds and tokens per wall second, and failover seconds, and gates
    that ``moe_gmm`` and ``flash_attn`` launched in every worker (``fma``
    in fp32, ``tc``/``stream`` in bf16);
-19. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+20. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -518,7 +540,8 @@ def flash_cases(gen):
     shapes = [(4, 128, 16, 1, 128, None, None), (4, 100, 16, 1, 128, None, None),
               (1, 128, 16, 1, 128, None, None),  # the continuous server's prefill
               (4, 128, 8, 2, 64, None, None), (4, 128, 16, 1, 128, 50.0, 32),
-              (4, 512, 32, 1, 112, None, None)]  # zamba2-7b's shared attention
+              (4, 512, 32, 1, 112, None, None),  # zamba2-7b's shared attention
+              (4, 512, 8, 4, 160, None, None)]  # stablelm-12b's prefill
     for dtype in (torch.bfloat16, torch.float32):
         for B, T, Hkv, G, hd, cap, win in shapes:
             q = torch.randn(B, T, Hkv, G, hd, generator=gen, device="cuda").to(dtype)
@@ -1684,7 +1707,7 @@ def serve_baselines(main_tokens, psi_scores, arch: str = "olmoe",
     its own INT4 store (phase 5's is gone by now: quantized here, with
     ``quantize_s``), melinoe prefetching phase 11's Psi scores. Gates (see
     the module docstring). Returns (report, (params, store, prompts)) for
-    phases 16 and 17 (a list, which phase 17 empties). ``arch``/``device``: a
+    phases 16 to 18 (a list, which phase 18 empties). ``arch``/``device``: a
     smaller model or the CPU, to rehearse the phase's logic."""
     from repro_torch.configs import get_config
     from repro_torch.core.baselines import BASELINES, make_engine
@@ -1880,7 +1903,286 @@ def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmo
     return rep
 
 
-# The operations phase (17): phase 15's weights, pinned store and batch
+# The dense phase (17): the six dense and prefix-conditioned configs at full
+# width, bf16, random weights from seed 0, each through launch.serve.run_full
+# at 4 x (512 + 32) tokens. arch -> (layers served, None: all; layers of the
+# fp32 check, None: all). Cut in depth where the card cannot hold the model,
+# or its fp32 copy beside it, by replacing the layout's repeats:
+# gemma2-27b (46 layers, 54 GB in bf16) to 8 local/global pairs; command-r-
+# plus-104b (64 layers of 1.57 B parameters, 12.6 GB of embeddings and head)
+# to 4; internvl2-76b (80 layers of 0.86 B) to 8. The fp32 check takes the
+# first layers of the same weights.
+DENSE_PATHS = {"qwen3-4b": (None, None), "musicgen-medium": (None, None),
+               "stablelm-12b": (None, 8), "gemma2-27b": (16, 4),
+               "command-r-plus-104b": (4, 1), "internvl2-76b": (8, 2)}
+DENSE_B, DENSE_T, DENSE_NEW = 4, 512, 32
+# bf16 kernel run against the plain run, ||delta|| / ||plain|| of the (B, V)
+# prefill logits, per path (LOGITS_REL_TOL unless said). The three served at
+# full depth amplify round-off past 2e-2 as zamba2's 81 layers do: the
+# kernel runs read qwen3-4b 0.0227, musicgen-medium 0.0246, stablelm-12b
+# 0.0245 from the plain runs, whose own bf16 round-off (plain bf16 against
+# plain fp32) is 0.0193, 0.0211 and (at 8 layers) 0.0115, while the kernel
+# runs were no farther from fp32 than the plain ones (ratio 0.98-1.02; H100
+# 80GB HBM3, 700 W). The limit sits above those readings; the fp32 check
+# and ACCURACY_RATIO are what hold the kernels' arithmetic.
+DENSE_BF16_LOGITS_REL_TOL = {"qwen3-4b": 3e-2, "musicgen-medium": 3e-2,
+                             "stablelm-12b": 3e-2}
+# gemma2 past its 4096-token window: one prompt of 4608 tokens through one
+# local and one global layer (softcap 50 in both, the window in the first)
+GEMMA2_WINDOW_T = 4608
+# the offloaded OLMoE serve with a prefix: 64 rows ahead of each of phase
+# 4's prompts, C = 16, gamma
+OFFLOAD_PREFIX_LEN = 64
+
+
+def _cut_arch(arch: str, layers) -> str:
+    """The name of ``arch`` cut to ``layers`` layers (its single layout
+    group's repeats replaced), registered in the port's config registry;
+    ``arch`` itself where ``layers`` is None."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.registry import register
+
+    cfg = get_config(arch)
+    if layers is None or layers == cfg.n_layers:
+        return arch
+    (g,) = cfg.layout
+    if layers % len(g.pattern):
+        raise ValueError(f"{arch}: {layers} layers is not a whole number of "
+                         f"{g.pattern} repeats")
+    name = f"{arch}-{layers}l"
+    cut = dataclasses.replace(cfg, name=name, layout=(dataclasses.replace(
+        g, repeats=layers // len(g.pattern)),))
+    register(name)(lambda: cut)
+    return name
+
+
+def _first_layers(params, cfg, layers: int):
+    """The first ``layers`` layers of ``params`` (stacked leaves sliced,
+    the rest as they are) as copies, and the config cut alike."""
+    (g,) = cfg.layout
+    r = layers // len(g.pattern)
+    cut = dataclasses.replace(cfg, layout=(dataclasses.replace(g, repeats=r),))
+
+    def walk(t, stacked):
+        if isinstance(t, dict):
+            return {k: walk(v, stacked or k == "groups") for k, v in t.items()}
+        return (t[:r] if stacked else t).clone()
+
+    return walk(params, False), cut
+
+
+def _dense_prefill_logits(params, cfg, toks, prefix, backend: str, n_slots: int):
+    from repro_torch.models.model import prefill
+    from repro_torch.models.runtime import Runtime
+
+    with torch.inference_mode():
+        lg, _ = prefill(params, cfg, toks, Runtime(kernel_backend=backend,
+                                                   device=toks.device),
+                        prefix_embed=prefix, n_slots=n_slots)
+    return lg[:, -1].float().cpu()
+
+
+def serve_dense(arch: str, layers, fp32_layers, device: str = "cuda") -> dict:
+    """One dense path: ``arch`` (cut to ``layers``) through ``run_full``,
+    counters set to 0 just before; launches (one ``flash_attn`` a layer in
+    the prefill, "tc", nothing else, nothing in decode); the prefill logits
+    against plain prefills: bf16 at the served depth, then at
+    ``fp32_layers`` fp32 kernel vs plain and the bf16 kernel run against
+    the plain path's own round-off. ``device``: the CPU and a smoke
+    config, to rehearse the logic (no launch gates there)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import make_prefix, make_prompts, run_full
+
+    t0 = time.perf_counter()
+    name = _cut_arch(arch, layers)
+    cfg = get_config(name)
+    B, T, new = DENSE_B, DENSE_T, DENSE_NEW
+    prefix = make_prefix(cfg, B, seed=0) if cfg.prefix_len else None
+    P = cfg.prefix_len
+    dispatch.reset_launches()
+    rep = run_full(name, batch=B, prompt_len=T, max_new=new, dtype=torch.bfloat16,
+                   device=device, seed=0, keep_params=True, prefix_embed=prefix)
+    launches = dict(dispatch.LAUNCHES)
+    routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    path = f"dense-{arch}"
+    PATH_LAUNCHES[path] = {"flash_attn": cfg.n_layers, "moe_gmm": 0, "ssd_scan": 0,
+                           "int4_matmul": 0}
+    if device == "cuda":
+        check_path(path, launches, routes)
+    if rep["launches"]["prefill"] != launches or any(rep["launches"]["decode"].values()):
+        raise AssertionError(f"{path}: launches {rep['launches']}, want "
+                             f"{cfg.n_layers} flash_attn in the prefill, none in decode")
+    params = rep.pop("params")
+    tokens, logits = rep.pop("tokens"), rep.pop("prefill_logits")
+    if tokens.shape != (B, new) or logits.shape != (B, cfg.vocab) \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"{path}: tokens {tokens.shape}, logits {logits.shape} "
+                             "(or not finite)")
+    toks = torch.as_tensor(make_prompts(cfg.vocab, B, T), dtype=torch.long, device=device)
+    pe = None if prefix is None else torch.as_tensor(prefix, device=device)
+    n_slots = P + T + new
+    ref = _dense_prefill_logits(params, cfg, toks, pe, "ref", n_slots)
+    rel = _rel(logits, ref)
+    top1 = (logits.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    d32 = fp32_layers or cfg.n_layers
+    if d32 < cfg.n_layers:  # the first layers of the same weights, the rest freed
+        params, cfg32 = _first_layers(params, cfg, d32)
+        gc.collect()
+        torch.cuda.empty_cache()
+        k16 = _dense_prefill_logits(params, cfg32, toks, pe, "auto", n_slots)
+        r16 = _dense_prefill_logits(params, cfg32, toks, pe, "ref", n_slots)
+    else:
+        cfg32, k16, r16 = cfg, logits, ref
+    p32 = _tree_float(params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pe32 = None if pe is None else pe.float()
+    k32 = _dense_prefill_logits(p32, cfg32, toks, pe32, "auto", n_slots)
+    r32 = _dense_prefill_logits(p32, cfg32, toks, pe32, "ref", n_slots)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel32, floor, acc = _rel(k32, r32), _rel(r16, r32), _rel(k16, r32)
+    tol = DENSE_BF16_LOGITS_REL_TOL.get(arch, LOGITS_REL_TOL)
+    rep.update(path=path, layers=cfg.n_layers, full_layers=get_config(arch).n_layers,
+               fp32_layers=d32, launches_total=launches, route_launches=routes,
+               logits_rel=rel, top1=top1, logits_tol=tol, fp32_logits_rel=rel32,
+               bf16_roundoff_rel=floor, kernel_vs_fp32_rel=acc,
+               phase_s=time.perf_counter() - t0)
+    print(f"serve {path}:", json.dumps(rep))
+    print(f"{path} ({cfg.n_layers} of {rep['full_layers']} layers, prefix {P}): prefill "
+          f"{rep['prefill_s']:.4f} s, decode {rep['decode_tok_s']:.2f} tok/s, peak "
+          f"{rep['max_memory_allocated']} B against {rep['param_bytes']} B of weights; "
+          f"logits kernel vs plain: bf16 rel {rel:.4g} (tol {tol}), top-1 {top1:.2f}; at "
+          f"{d32} layers fp32 rel {rel32:.3g} (tol {FP32_LOGITS_REL_TOL}), plain bf16 vs "
+          f"fp32 {floor:.4g}, bf16 kernel vs fp32 {acc:.4g} (tol {ACCURACY_RATIO} x "
+          f"{floor:.4g})")
+    if not (math.isfinite(rel32) and rel32 <= FP32_LOGITS_REL_TOL):
+        raise AssertionError(f"{path}: fp32 prefill logits disagree: rel {rel32}")
+    if not (math.isfinite(rel) and rel <= tol):
+        raise AssertionError(f"{path}: bf16 prefill logits disagree: rel {rel}")
+    if not (math.isfinite(acc) and acc <= ACCURACY_RATIO * floor):
+        raise AssertionError(f"{path}: bf16 kernel run rel {acc} from fp32, plain run "
+                             f"{floor}")
+    return rep
+
+
+def gemma2_window_phase(arch: str = "gemma2-27b", device: str = "cuda") -> dict:
+    """gemma2-27b cut to one local and one global layer: one prompt of
+    ``GEMMA2_WINDOW_T`` tokens, past the local layer's 4096-token window,
+    through ``run_full`` (2 flash launches on "tc"), its prefill logits
+    against the plain versions in bf16 and in fp32. ``arch``/``device``:
+    the smoke config on the CPU, to rehearse the logic."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.serve import make_prompts, run_full
+
+    name = _cut_arch(arch, 2)
+    cfg = get_config(name)
+    T, new = GEMMA2_WINDOW_T, 8
+    if not T > cfg.block_defs["local"].attn.window:
+        raise AssertionError(f"gemma2 window phase: {T} tokens do not pass the window")
+    dispatch.reset_launches()
+    rep = run_full(name, batch=1, prompt_len=T, max_new=new, dtype=torch.bfloat16,
+                   device=device, seed=0, keep_params=True)
+    launches = dict(dispatch.LAUNCHES)
+    routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    PATH_LAUNCHES["dense-gemma2-window"] = {"flash_attn": 2, "moe_gmm": 0, "ssd_scan": 0,
+                                            "int4_matmul": 0}
+    if device == "cuda":
+        check_path("dense-gemma2-window", launches, routes)
+    params, logits = rep.pop("params"), rep.pop("prefill_logits")
+    rep.pop("tokens")
+    toks = torch.as_tensor(make_prompts(cfg.vocab, 1, T), dtype=torch.long, device=device)
+    ref = _dense_prefill_logits(params, cfg, toks, None, "ref", T + new)
+    p32 = _tree_float(params)
+    del params
+    k32 = _dense_prefill_logits(p32, cfg, toks, None, "auto", T + new)
+    r32 = _dense_prefill_logits(p32, cfg, toks, None, "ref", T + new)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel, rel32 = _rel(logits, ref), _rel(k32, r32)
+    rep.update(path="dense-gemma2-window", launches_total=launches, route_launches=routes,
+               logits_rel=rel, fp32_logits_rel=rel32, bf16_roundoff_rel=_rel(ref, r32),
+               kernel_vs_fp32_rel=_rel(logits, r32))
+    print("serve dense-gemma2-window:", json.dumps(rep))
+    if not (math.isfinite(rel32) and rel32 <= FP32_LOGITS_REL_TOL
+            and math.isfinite(rel) and rel <= LOGITS_REL_TOL):
+        raise AssertionError(f"gemma2 past its window: fp32 rel {rel32}, bf16 rel {rel}")
+    return rep
+
+
+def offload_prefix_phase(shared: list, arch: str = "olmoe", device: str = "cuda",
+                         capacity: int = 16) -> dict:
+    """The offloaded OLMoE engine with a prefix, on phase 15's weights,
+    pinned store and prompts: ``generate(prompts, 32, prefix_embed)`` with
+    ``OFFLOAD_PREFIX_LEN`` rows ahead of each prompt, C = 16, gamma,
+    counters set to 0 just before; launches by phase and route; the
+    prefill logits against a plain run on the same store.
+    ``arch``/``device``/``capacity``: a smaller model or the CPU, to
+    rehearse the phase's logic (no launch gates there)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import OffloadedMoEEngine
+
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    params, store, prompts = shared
+    B = prompts.shape[0]
+    prefix = np.random.default_rng(0).standard_normal(
+        (B, OFFLOAD_PREFIX_LEN, cfg.d_model)).astype(np.float32)
+    eng_kw = dict(capacity=capacity, policy="gamma", host_store=store, device=dev)
+    res, row = _serve_row(OffloadedMoEEngine(cfg, params, **eng_kw), prompts, dev,
+                          prefix_embed=prefix)
+    plain = OffloadedMoEEngine(cfg, params, kernel_backend="ref", **eng_kw).generate(
+        prompts, 1, prefix)["prefill_logits"].float().cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    logits = res["prefill_logits"].float().cpu()
+    path = "offloaded-olmoe-prefix"
+    row.update(path=path, prefix_len=OFFLOAD_PREFIX_LEN, logits_rel=_rel(logits, plain),
+               top1=(logits.argmax(-1) == plain.argmax(-1)).float().mean().item())
+    print("offloaded olmoe with a prefix:", json.dumps(
+        {k: v for k, v in row.items() if k != "by_phase"}), f"by phase {row['by_phase']}")
+    if device != "cuda":
+        return row
+    PATH_LAUNCHES[path] = {"moe_gmm": None, "flash_attn": cfg.n_layers, "int4_matmul": 0}
+    check_path(path, row["launches_total"], row["route_launches"])
+    gmm = {ph: r.get("moe_gmm", {}) for ph, r in row["by_phase"].items()}
+    L = cfg.n_moe_layers
+    if gmm["prefill"] != {"tc": 6 * L} or set(gmm["decode"]) != {"stream"} \
+            or gmm["decode"]["stream"] < 31 * L * 3:
+        raise AssertionError(f"{path}: moe_gmm by phase {gmm}, want {6 * L} 'tc' in the "
+                             f"prefill and at least {31 * L * 3} 'stream' in decode")
+    if res["tokens"].shape != (B, 32) or not (math.isfinite(row["logits_rel"])
+                                              and row["logits_rel"] <= LOGITS_REL_TOL):
+        raise AssertionError(f"{path}: tokens {tuple(res['tokens'].shape)}, prefill "
+                             f"logits rel {row['logits_rel']}")
+    return row
+
+
+def dense_phase(shared: list) -> dict:
+    """Phase 17: the dense paths (``DENSE_PATHS``), gemma2 past its window
+    and the offloaded OLMoE serve with a prefix."""
+    t_phase = time.perf_counter()
+    rows = {arch: serve_dense(arch, *depths) for arch, depths in DENSE_PATHS.items()}
+    rows["gemma2-window"] = gemma2_window_phase()
+    rows["offloaded-olmoe-prefix"] = offload_prefix_phase(shared)
+    rep = {"rows": rows, "phase_s": time.perf_counter() - t_phase}
+    print("dense path            layers  prefill_s  decode_tok/s  peak_B  weights_B  "
+          "bf16_rel  fp32_rel")
+    for arch in DENSE_PATHS:
+        r = rows[arch]
+        print(f"{arch:21s} {r['layers']:3d}/{r['full_layers']:<3d} {r['prefill_s']:9.4f} "
+              f"{r['decode_tok_s']:13.2f} {r['max_memory_allocated']} {r['param_bytes']} "
+              f"{r['logits_rel']:.4g} {r['fp32_logits_rel']:.3g}")
+    print(f"dense phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
+# The operations phase (18): phase 15's weights, pinned store and batch
 # (phase 4's). The fault specs: a transient fetch failure on 5% of copy
 # attempts, retried without limit (the naive policy: no little bank, so no
 # miss may degrade), and an eviction storm at a quarter of the decode steps
@@ -2030,7 +2332,7 @@ def _first_difference(a, b):
 
 def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
               device: str = "cuda", capacity: int = 16) -> dict:
-    """Phase 17, the operations stack: (a) phase 4's batch traced, bf16 and
+    """Phase 18, the operations stack: (a) phase 4's batch traced, bf16 and
     INT4; (b) the engine under a fetch-failure plan and an eviction storm;
     (c) the crash-safe wave server: journaled, checkpointed and audited,
     crashed mid-serve, resumed warm and, separately, cold; (d)
@@ -2229,7 +2531,7 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
     return rep
 
 
-# The fleet phase (18): two workers of full-width OLMoE on the one card,
+# The fleet phase (19): two workers of full-width OLMoE on the one card,
 # continuous batching with SERVE_SLOTS slots each, the continuous phase's
 # requests. fp32 workers take the CUDA-core routes, bf16 ones the
 # tensor-core and stream routes.
@@ -2302,7 +2604,7 @@ def _fleet_row(report: dict, t_wall: float) -> dict:
 
 
 def fleet_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
-    """Phase 18, the supervised fleet: two ``repro_torch.fleet.worker``
+    """Phase 19, the supervised fleet: two ``repro_torch.fleet.worker``
     processes of full-width OLMoE on the one card. (a) fp32, no fault;
     (b) fp32 with worker 0 killed at its fourth decode step (restart from
     its journal, tokens equal (a)'s); (c) bf16 ``python -m
@@ -2619,6 +2921,9 @@ def main() -> int:
     b_rep, shared = serve_baselines(tokens, p_rep["psi_scores"])
     l_rep = little_phase(tokens, main_stats, shared)
 
+    # ---- the dense and prefix-conditioned configs; OLMoE offloaded with a prefix
+    dn_rep = dense_phase(shared)
+
     # ---- the operations stack: tracing, faults, crash-safe serving
     o_rep = ops_phase(ops_main, ops_int4, shared)
 
@@ -2660,6 +2965,7 @@ def main() -> int:
              **{f"baseline-{n}": r["launches_total"] for n, r in b_rep["rows"].items()},
              **{f"little-{n}": r["launches_total"] for n, r in l_rep["rows"].items()
                 if "launches_total" in r},
+             **{r["path"]: r["launches_total"] for r in dn_rep["rows"].values()},
              **{f"ops-{n}": r["launches_total"] for n, r in o_rep["rows"].items()
                 if "launches_total" in r},
              **{f"fleet-{n}-worker{w['worker']}": w["launches"]
@@ -2676,6 +2982,7 @@ def main() -> int:
              **{f"baseline-{n}": r["route_launches"] for n, r in b_rep["rows"].items()},
              **{f"little-{n}": r["route_launches"] for n, r in l_rep["rows"].items()
                 if "route_launches" in r},
+             **{r["path"]: r["route_launches"] for r in dn_rep["rows"].values()},
              **{f"ops-{n}": r["route_launches"] for n, r in o_rep["rows"].items()
                 if "route_launches" in r},
              **{f"fleet-{n}-worker{w['worker']}": w["route_launches"]

@@ -1256,9 +1256,11 @@ class OffloadedMoEEngine:
             torch.cuda.synchronize(self.device)
 
     @torch.no_grad()
-    def generate(self, prompt_tokens, max_new_tokens: int, *, quality: float = 1.0,
-                 deadline_s: Optional[float] = None) -> dict:
-        """Greedy decoding. prompt_tokens (B, T) ints. Returns a dict with
+    def generate(self, prompt_tokens, max_new_tokens: int, prefix_embed=None, *,
+                 quality: float = 1.0, deadline_s: Optional[float] = None) -> dict:
+        """Greedy decoding. prompt_tokens (B, T) ints, after the P rows of
+        ``prefix_embed`` (B, P, d) where one is given: the prefill runs
+        over P + T positions and decoding starts at P + T. Returns a dict with
         tokens (B, n) int32 (n = ``max_new_tokens`` unless stopped early),
         the last prompt position's logits, metrics, both Eq.-3 clocks, the
         measured times, the host -> device expert copies and the kernel
@@ -1284,7 +1286,8 @@ class OffloadedMoEEngine:
         toks = torch.as_tensor(prompt_tokens).to(self.device, torch.long)
         B, T = toks.shape
         L_moe = len(self.moe_layer_ids)
-        self._n_slots = T + max_new_tokens
+        P = prefix_embed.shape[1] if prefix_embed is not None else 0
+        self._n_slots = P + T + max_new_tokens
         m = self.metrics
         elapsed = 0.0  # serial Eq.-3 seconds of this call's steps
         stopped_early = False
@@ -1292,12 +1295,12 @@ class OffloadedMoEEngine:
         with tr.span("engine.prefill", batch=B, prompt_len=T, impl="slab"):
             m.begin_step(L_moe)
             with tr.span("engine.embed"):
-                x = embed_tokens(self.params_top, cfg, toks)
+                x = embed_tokens(self.params_top, cfg, toks, prefix_embed)
                 self._obs_sync()
-            positions = torch.arange(T, device=self.device).expand(B, T)
+            positions = torch.arange(P + T, device=self.device).expand(B, P + T)
             caches: List = [None] * len(self.layers)
             x = self._forward_layers_slab(x, positions, caches)
-            m.add_flops(self._flops_per_token * B * T)
+            m.add_flops(self._flops_per_token * B * (P + T))
             with tr.span("engine.logits"):
                 logits = compute_logits(self.params_top, cfg, x[:, -1:])
                 next_tok = torch.argmax(logits, -1).to(torch.int32)
@@ -1309,7 +1312,7 @@ class OffloadedMoEEngine:
         elapsed += m.serial_span(self.hw, len(m.step_flops) - 1)
 
         out_tokens = [next_tok]
-        pos = T
+        pos = P + T
         for step in range(max_new_tokens - 1):
             if deadline_s is not None:
                 if elapsed >= deadline_s:

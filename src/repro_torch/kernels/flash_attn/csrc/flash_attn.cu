@@ -22,7 +22,9 @@
 // What bounds it on this card: the QK^T and PV FLOPs, here at the CUDA
 // cores' fp32 rate: 4 threads per query row, each owning hd/4 of the
 // dimensions, the partial dot products summed with two warp shuffles; K/V
-// staged by scalar loads. The bf16 serve paths do not run it (chip_smoke
+// staged by scalar loads; Ks and Vs are static shared memory, 2 * BKV * hd
+// * 4 bytes: 40 KB at hd 160, the largest head dim, under the 48 KB a
+// block may hold statically. The bf16 serve paths do not run it (chip_smoke
 // asserts so); it is kept for fp32 and as the "before" that chip_smoke
 // times beside the tensor-core route.
 #include <cuda_bf16.h>
@@ -181,6 +183,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, 
     case 64: return launch_hd<T, 64>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
     case 112: return launch_hd<T, 112>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);  // zamba2-7b
     case 128: return launch_hd<T, 128>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
+    case 160: return launch_hd<T, 160>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);  // stablelm-12b
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

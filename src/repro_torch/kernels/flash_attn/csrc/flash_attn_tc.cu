@@ -27,15 +27,19 @@
 //     query rows, whose Q tile stays in shared memory (as registers it
 //     would cost 4 * hd / 8 of them a thread and, measured, a block an SM);
 //     hd = 16 * (k-steps of QK^T) = 8 * (n8 tiles of PV): hd 112 is 7
-//     k-steps and 14 n-tiles;
+//     k-steps and 14 n-tiles, hd 160 (stablelm-12b) 10 and 20, whose 80
+//     fp32 accumulators a thread are a quarter more than hd 128's;
 //   * K/V tiles come through a two-stage cp.async ring (16-byte copies,
 //     zero-filled past S), the next tile in flight while the current one
 //     is multiplied; the walk runs from the window's lower bound to the
 //     block's causal frontier, and a warp skips the 16-key groups that lie
 //     wholly above its rows' diagonal;
 //   * shared-memory rows are padded by 8 elements (stride an odd number of
-//     16-byte units: 240 B at hd 112, 272 B at hd 128), so ldmatrix is free
-//     of bank conflicts;
+//     16-byte units: 240 B at hd 112, 272 B at hd 128, 336 B at hd 160),
+//     so ldmatrix is free of bank conflicts; the dynamic shared memory,
+//     (16 * RG + 2 * STAGES * BKV) * (hd + 8) * 2 bytes, is above the 48 KB
+//     default in both configurations (hd 160: 63 KB and 94.5 KB), so
+//     launch_cfg opts each kernel in to its size;
 //   * the softmax runs on the fp32 accumulator fragments in registers (a
 //     row's max and sum reduced over the 4 lanes that hold it), in base 2
 //     with log2(e) folded into the score; only tiles that cross the
@@ -360,6 +364,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Tq, 
     case 64: return launch_hd<64>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
     case 112: return launch_hd<112>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
     case 128: return launch_hd<128>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
+    case 160: return launch_hd<160>(q, k, v, o, B, Tq, S, Hkv, G, scale, softcap, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -23,7 +23,7 @@ ROUTES = ("tc", "fma")
 _ENTRIES = {("fma", torch.float32): "flash_attn_fwd_f32",
             ("fma", torch.bfloat16): "flash_attn_fwd_bf16",
             ("tc", torch.bfloat16): "flash_attn_fwd_bf16_tc"}
-HEAD_DIMS = (16, 32, 64, 112, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 160)
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
     ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 

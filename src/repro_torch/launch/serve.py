@@ -9,7 +9,9 @@ stage, Sec 3.2), or the full-model path with the whole model resident.
 
 A MoE architecture goes through ``run`` (below); an SSM, hybrid or dense
 one through ``run_full``, which also takes a MoE one (served whole from
-the command line by ``launch.bench_serve``): random weights from ``--seed`` resident on the device, one
+the command line by ``launch.bench_serve``), and a prefix-conditioned one
+(musicgen, internvl2) with ``prefix_len`` rows drawn from ``--seed``
+ahead of each prompt: random weights from ``--seed`` resident on the device, one
 prefill (``models.model.prefill``, where the Mamba2 layers launch the
 ``ssd_scan`` kernel, attention the ``flash_attn`` kernel and the MoE
 layers ``moe_gmm``) and a greedy ``decode_step`` loop, each timed to a
@@ -65,6 +67,14 @@ def make_prompts(vocab: int, batch: int, prompt_len: int) -> np.ndarray:
     rng = np.random.default_rng(0)
     return np.stack([lm.sample_sequence(rng)[0] for _ in range(batch)]
                     ).astype(np.int32)
+
+
+def make_prefix(cfg, batch: int, seed: int = 0) -> np.ndarray:
+    """(batch, cfg.prefix_len, d_model) fp32 conditioning rows standing in
+    for a frontend's output (image patches, audio codes), drawn N(0, 1)
+    like the token embeddings with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)
 
 
 def load_params(cfg, ckpt, *, dtype, device):
@@ -215,13 +225,14 @@ def _sync(dev) -> None:
 
 def run_full(arch: str, *, batch: int = 2, prompt_len: int = 32, max_new: int = 64,
              dtype=None, device=None, seed: int = 0, kernel_backend: str = "auto",
-             keep_params: bool = False, ckpt=None) -> dict:
+             keep_params: bool = False, ckpt=None, prefix_embed=None) -> dict:
     """Serve one batch through the full-model path, the whole model
     resident on the device (random from ``seed``, or read from ``ckpt``),
     and return the report (scalars, the launches of each phase,
     ``tokens`` (B, max_new) and the last prompt position's
-    ``prefill_logits`` (B, V)). ``keep_params`` puts the weights into the
-    report under ``params``."""
+    ``prefill_logits`` (B, V)). ``prefix_embed`` (B, P, d): rows the
+    prefill takes ahead of each prompt (``make_prefix``). ``keep_params``
+    puts the weights into the report under ``params``."""
     cfg = get_config(arch)
     dev = resolve_device(device)
     dt = cdtype(dtype or cfg.dtype)
@@ -236,11 +247,16 @@ def run_full(arch: str, *, batch: int = 2, prompt_len: int = 32, max_new: int = 
         torch.cuda.reset_peak_memory_stats(dev)
     toks = torch.as_tensor(make_prompts(cfg.vocab, batch, prompt_len), dtype=torch.long,
                            device=dev)
+    n_prefix = 0
+    if prefix_embed is not None:
+        prefix_embed = torch.as_tensor(prefix_embed).to(dev, dt)
+        n_prefix = prefix_embed.shape[1]
     with torch.inference_mode():
         _sync(dev)
         before = dict(dispatch.LAUNCHES)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, cfg, toks, rt, n_slots=prompt_len + max_new)
+        logits, cache = prefill(params, cfg, toks, rt, prefix_embed=prefix_embed,
+                                n_slots=n_prefix + prompt_len + max_new)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
         mid = dict(dispatch.LAUNCHES)
@@ -258,7 +274,8 @@ def run_full(arch: str, *, batch: int = 2, prompt_len: int = 32, max_new: int = 
         "arch": arch, "path": "full", "device": str(dev),
         "device_name": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
         "dtype": str(dt).replace("torch.", ""), "batch": batch,
-        "prompt_len": prompt_len, "max_new": max_new, "kernel_backend": kernel_backend,
+        "prompt_len": prompt_len, "prefix_len": n_prefix, "max_new": max_new,
+        "kernel_backend": kernel_backend,
         "param_bytes": sum(t.numel() * t.element_size()
                            for t in _leaves(params)),
         "prefill_s": prefill_s, "decode_s": decode_s,
@@ -302,12 +319,15 @@ def main(argv=None):
     ap.add_argument("--predictor", action="store_true", help="train + use Psi prefetch")
     ap.add_argument("--n-train-prompts", type=int, default=32)
     args = ap.parse_args(argv)
-    if not get_config(args.arch).has_router:
+    cfg = get_config(args.arch)
+    if not cfg.has_router:
         if args.quantized or args.predictor:
             ap.error("--quantized and --predictor apply to the offloaded MoE path")
         rep = run_full(args.arch, batch=args.batch, prompt_len=args.prompt_len,
                        max_new=args.max_new, dtype=args.dtype, device=args.device,
-                       seed=args.seed, ckpt=args.ckpt)
+                       seed=args.seed, ckpt=args.ckpt,
+                       prefix_embed=(make_prefix(cfg, args.batch, args.seed)
+                                     if cfg.prefix_len else None))
         print(f"full-model path: {args.max_new} tokens x batch {args.batch} on "
               f"{rep['device_name']}; prefill={rep['prefill_s']:.4f} s, "
               f"decode={rep['decode_tok_s']:.2f} tok/s, launches {rep['launches']}")

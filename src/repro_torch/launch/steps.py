@@ -1,8 +1,8 @@
-"""Training step builders, counterpart of the training half of
-``repro/launch/steps.py`` (single device: the pjit shardings of
-``train_shardings``/``decode_shardings`` wait for ``distributed/``).
+"""Step builders, counterpart of ``repro/launch/steps.py`` (single
+device: the pjit shardings of ``train_shardings``/``decode_shardings``
+wait for ``distributed/``): train, fine-tune, prefill and decode.
 
-A step is a plain function: the forward pass, ``torch.autograd.grad``
+A training step is a plain function: the forward pass, ``torch.autograd.grad``
 over the trainable leaves only, then the masked AdamW update
 (``training.optim``), in place. The trainable leaves enter the forward
 as detached views that require grad, one per repeat of a stacked leaf,
@@ -14,13 +14,13 @@ them to zero, which leaves the same update and clip norm).
 """
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..core.losses import combine, nll_loss
-from ..models.model import MelinoeRun, apply_model
+from ..models.model import MelinoeRun, apply_model, decode_step
 from ..models.runtime import Runtime
 from ..training.optim import OptConfig, adamw_update, global_norm
 
@@ -37,9 +37,11 @@ def _shift_loss(logits, tokens, labels, prefix_len: int):
 
 
 def device_batch(batch: dict, device) -> dict:
-    """A batch of numpy arrays (``data.synthetic``) as integer tensors on
-    ``device``; the ``cluster`` labels are dropped."""
-    return {k: torch.as_tensor(v, dtype=torch.long, device=device)
+    """A batch of numpy arrays (``data.synthetic``) as tensors on
+    ``device``: integers for the token arrays, ``prefix_embed`` as it is;
+    the ``cluster`` labels are dropped."""
+    return {k: torch.as_tensor(v, device=device,
+                               dtype=None if k == "prefix_embed" else torch.long)
             for k, v in batch.items() if k != "cluster"}
 
 
@@ -66,6 +68,36 @@ def make_loss_fn(cfg: ModelConfig, rt: Runtime, *, melinoe: bool):
         return nll, {"nll": nll, "loss": nll}
 
     return loss_fn
+
+
+def build_prefill_step(cfg: ModelConfig, rt: Runtime, *, n_slots: Optional[int] = None,
+                       window_override: Optional[int] = None):
+    """fn(params, batch) -> (last-position logits (B, 1, V), cache): the
+    batch's ``tokens`` after its ``prefix_embed`` rows, if it has them, into
+    a cache of ``n_slots`` positions (None: the prompt's own length)."""
+
+    def step(params, batch):
+        logits, aux = apply_model(params, cfg, batch["tokens"], rt,
+                                  prefix_embed=batch.get("prefix_embed"),
+                                  want_cache=True, cache_slots=n_slots or 0,
+                                  window_override=window_override)
+        return logits[:, -1:], aux["cache"]
+
+    return step
+
+
+def build_decode_step(cfg: ModelConfig, rt: Runtime, *,
+                      window_override: Optional[int] = None):
+    """fn(params, batch) -> (logits (B, 1, V), cache): one token
+    (``batch["tokens"]`` (B, 1)) through ``batch["cache"]``, which is
+    updated in place and returned."""
+
+    def step(params, batch):
+        logits, cache, _ = decode_step(params, cfg, batch["tokens"], batch["cache"], rt,
+                                       window_override=window_override)
+        return logits, cache
+
+    return step
 
 
 class _Views:

@@ -94,10 +94,16 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, dtype=None,
     return params
 
 
-def embed_tokens(params, cfg: ModelConfig, tokens):
+def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embed=None):
+    """Token embeddings (B, T, d), scaled where the config says so;
+    ``prefix_embed`` (B, P, d), the frontend's conditioning rows (audio,
+    image patches), goes ahead of them, cast to their dtype and not
+    scaled: (B, P + T, d)."""
     x = params["embed"][tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
+    if prefix_embed is not None:
+        x = torch.cat([torch.as_tensor(prefix_embed).to(x.device, x.dtype), x], dim=1)
     return x
 
 
@@ -154,7 +160,9 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
                 want_cache: bool = False, cache_slots: int = 0,
                 window_override: Optional[int] = None, lora=None,
                 lora_scale: float = 1.0, remat: bool = False):
-    """tokens (B, T) -> (logits (B, T, V) fp32, aux); ``aux["cache"]``
+    """tokens (B, T) -> (logits (B, P + T, V) fp32, aux), P the rows of
+    ``prefix_embed`` (B, P, d) placed ahead of the tokens (0 without
+    one; positions run over both); ``aux["cache"]``
     holds the per-group stacked block caches when ``want_cache``,
     ``aux["probs"]`` the router distributions when ``collect_probs``, and
     ``aux["cs_loss"]``/``aux["rm_loss"]`` the MELINOE losses (summed over
@@ -162,10 +170,8 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
 
     ``remat`` recomputes each repeat's blocks in the backward pass
     (``torch.utils.checkpoint``, non-reentrant): activation memory of one
-    repeat instead of all. ``prefix_embed`` raises until it is ported."""
-    if prefix_embed is not None:
-        raise NotImplementedError("apply_model: prefix_embed not ported yet")
-    x = embed_tokens(params, cfg, tokens)
+    repeat instead of all."""
+    x = embed_tokens(params, cfg, tokens, prefix_embed)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     want_probs = collect_probs or melinoe is not None
@@ -226,12 +232,15 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
     return logits, aux
 
 
-def prefill(params, cfg: ModelConfig, tokens, rt: Runtime, *,
+def prefill(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=None,
             n_slots: Optional[int] = None, window_override: Optional[int] = None,
             lora=None, lora_scale: float = 1.0):
-    """Process the prompt, returning (last-position logits (B,1,V), cache)."""
-    logits, aux = apply_model(params, cfg, tokens, rt, want_cache=True,
-                              cache_slots=n_slots or tokens.shape[1],
+    """Process the prompt (``prefix_embed`` rows, then the tokens),
+    returning (last-position logits (B,1,V), cache); the cache holds
+    ``n_slots`` positions, by default the prefix's and the tokens'."""
+    T = tokens.shape[1] + (prefix_embed.shape[1] if prefix_embed is not None else 0)
+    logits, aux = apply_model(params, cfg, tokens, rt, prefix_embed=prefix_embed,
+                              want_cache=True, cache_slots=n_slots or T,
                               window_override=window_override, lora=lora,
                               lora_scale=lora_scale)
     return logits[:, -1:], aux["cache"]

@@ -31,6 +31,7 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import baselines as tb  # noqa: E402
 from repro_torch.core.offload_engine import HardwareProfile  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -26,6 +26,7 @@ from repro.core import baselines as jb  # noqa: E402
 from repro.core.offload_engine import PCIE5_H100  # noqa: E402
 from repro_torch.bridge import params_from_jax, quantized_experts_from_jax  # noqa: E402
 from repro_torch.core import baselines as tb  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

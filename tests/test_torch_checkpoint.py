@@ -26,6 +26,7 @@ from repro_torch.recovery import array_record, record_array  # noqa: E402
 from repro_torch.recovery.msgpack_lite import packb, unpackb  # noqa: E402
 from repro_torch.training import load_checkpoint, merge_lora, save_checkpoint  # noqa: E402
 from repro_torch.training.checkpoint import tree_leaves, treedef_str  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

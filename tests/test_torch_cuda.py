@@ -142,6 +142,7 @@ def test_gmm_kernel_rejects_what_it_does_not_take(cuda):
     (4, 100, 16, 1, 128, None, None),  # olmoe heads, ragged T
     (2, 77, 8, 2, 64, None, None),
     (2, 100, 4, 2, 112, None, None),  # zamba2-7b's head dim, ragged T
+    (2, 90, 2, 4, 160, None, None),  # stablelm-12b's head dim, ragged T
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, T, Hkv, G, hd, cap, win):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -168,6 +169,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, T, Hkv, G, hd, cap, win):
     (4, 512, 32, 1, 112, None, None),  # zamba2-7b's prefill, full width
     (4, 300, 32, 1, 128, None, None),
     (2, 600, 16, 4, 64, 30.0, 200),
+    (2, 130, 2, 4, 160, None, None),  # stablelm-12b's head dim, ragged T
+    (4, 512, 8, 4, 160, None, None),  # stablelm-12b's prefill, full width
+    (2, 200, 2, 2, 160, 50.0, 64),  # softcap and window at hd 160
 ])
 def test_flash_tensor_core_route_matches_plain(cuda, B, T, Hkv, G, hd, cap, win):
     g = torch.Generator(device=cuda).manual_seed(1)

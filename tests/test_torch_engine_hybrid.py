@@ -6,6 +6,7 @@ import pytest
 
 pytest.importorskip("torch")
 from test_torch_engine_blocks import build, run_case  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -11,6 +11,7 @@ pytest.importorskip("torch")
 from _torch_engine_int4 import (CAP, POLICY, PREFETCH, build,  # noqa: E402
                                 check_int4_engine_matches_jax_slab_engine,
                                 check_int4_engine_quantizes_itself_like_the_bridged_store)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -12,6 +12,7 @@ import pytest
 pytest.importorskip("torch")
 from _torch_engine_int4 import (CAP, PREFETCH, build,  # noqa: E402
                                 check_int4_engine_matches_jax_slab_engine)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

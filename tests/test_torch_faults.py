@@ -40,6 +40,7 @@ from repro_torch.faults import (NAIVE_POLICY, NULL_FAULT_PLAN, FaultConfig,  # n
                                 FaultPlan, FetchPolicy, InjectedCrash, get_fault_plan,
                                 install_fault_plan, parse_fault_spec,
                                 uninstall_fault_plan)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = [pytest.mark.torch, pytest.mark.usefixtures("clean_globals")]
 

@@ -27,6 +27,7 @@ from repro_torch.inference import Request, ServingEngine, truncate_at_stop  # no
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 
@@ -156,8 +157,13 @@ def test_engine_and_full_path_refuse_what_is_not_ported(bridged):
     tests/test_torch_moe.py), and so is LoRA (tests/test_torch_lora.py:
     here a model without experts, where a LoRA tree has nothing to
     adapt), and remat (tests/test_torch_train.py; here it gives the
-    logits of the plain forward); prefix embeddings raise."""
-    _, tcfg, _, params = bridged
+    logits of the plain forward), and prefix embeddings (here their rows
+    reach the logits as in the JAX package; the dense and
+    prefix-conditioned configs in tests/test_torch_dense*.py). What stays
+    unported raises: the offload engine's ``impl="dict"``
+    (tests/test_torch_checkpoint.py, tests/test_torch_serving.py); expert
+    parallelism and the dry-run have no entry point in the port yet."""
+    jcfg, tcfg, tree, params = bridged
     toks = torch.zeros((1, 4), dtype=torch.long)
     req = [Request(np.arange(4, dtype=np.int32), 3)]
     np.testing.assert_array_equal(
@@ -166,8 +172,15 @@ def test_engine_and_full_path_refuse_what_is_not_ported(bridged):
     torch.testing.assert_close(tmodel.apply_model(params, tcfg, toks, CPU, remat=True)[0],
                                tmodel.apply_model(params, tcfg, toks, CPU)[0],
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="prefix_embed"):
-        tmodel.apply_model(params, tcfg, toks, CPU, prefix_embed=torch.zeros((1, 2, 8)))
+    prefix = np.random.default_rng(8).standard_normal((1, 2, tcfg.d_model)).astype(np.float32)
+    with_prefix, _ = tmodel.apply_model(params, tcfg, toks, CPU,
+                                        prefix_embed=torch.as_tensor(prefix))
+    jl, _ = jax_apply_model(jax.tree.map(jnp.asarray, tree), jcfg, jnp.asarray(toks.numpy()),
+                            JaxRuntime(kernel_backend="ref"), prefix_embed=jnp.asarray(prefix))
+    assert with_prefix.shape == (1, 6, tcfg.vocab)
+    np.testing.assert_allclose(with_prefix.numpy(), np.asarray(jl), **TOL_LOGITS)
+    plain, _ = tmodel.apply_model(params, tcfg, toks, CPU)
+    assert (with_prefix[:, 2:] - plain).abs().max().item() > 1e-3  # the rows reach the tokens
     caches = [tmodel.prefill(params, tcfg, toks, CPU, n_slots=6)[1] for _ in range(2)]
     lg_lora, _, _ = tmodel.decode_step(params, tcfg, toks[:, :1], caches[0], CPU, lora={})
     lg, _, _ = tmodel.decode_step(params, tcfg, toks[:, :1], caches[1], CPU)

@@ -27,20 +27,11 @@ from repro_torch.recovery import RequestJournal, recover  # noqa: E402
 from repro_torch.recovery.checkpoint import request_record  # noqa: E402
 from repro_torch.serving import RequestQueue, ServeRequest  # noqa: E402
 from repro_torch.serving.metrics import ServerMetrics  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 
 ARCH = "granite-moe-1b-a400m-smoke"
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Smoke-size torch on one thread: several times faster than sharing
-    every core with the other test workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _requests(pkg_request, n=4, vocab=512):

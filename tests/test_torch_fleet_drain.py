@@ -27,6 +27,7 @@ from repro_torch.launch.serve import load_params  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
 from repro_torch.recovery import recover  # noqa: E402
 from repro_torch.training import save_checkpoint  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = [pytest.mark.torch, pytest.mark.fleet]
 
@@ -37,17 +38,15 @@ WAIT_S = 90.0
 
 @pytest.fixture(autouse=True)
 def _no_leaked_plan_one_thread(monkeypatch):
-    """No fault plan leaks in or out; torch runs on one thread, here and in
-    the child processes (they copy this environment): at this size that
-    is several times faster than sharing every core with the other test
-    workers, and both sides of each comparison sum in one order."""
+    """No fault plan leaks in or out; torch runs on one thread, here
+    (``one_thread``) and in the child processes (they copy this
+    environment): at this size that is several times faster than sharing
+    every core with the other test workers, and both sides of each
+    comparison sum in one order."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     faults.uninstall_fault_plan()
     yield
     faults.uninstall_fault_plan()
-    torch.set_num_threads(threads)
 
 
 def subproc_env():

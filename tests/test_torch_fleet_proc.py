@@ -27,6 +27,7 @@ from repro.models.model import init_params as jax_init_params  # noqa: E402
 from repro.training.checkpoint import save_checkpoint as jax_save_checkpoint  # noqa: E402
 from repro_torch import faults, fleet, serving  # noqa: E402
 from repro_torch.fleet.worker import worker_launches  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = [pytest.mark.torch, pytest.mark.fleet]
 

@@ -18,6 +18,7 @@ from repro.kernels.moe_gmm import gmm as jax_gmm, gmm_ref as jax_gmm_ref  # noqa
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.flash_attn import flash  # noqa: E402
 from repro_torch.kernels.moe_gmm import gmm  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -50,6 +50,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.little_expert import truncate  # noqa: E402
 from repro_torch.core.lora import lora_scale  # noqa: E402
 from repro_torch.core.offload_engine import HardwareProfile, OffloadedMoEEngine  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -21,6 +21,7 @@ from repro.core.offload_engine import PCIE5_H100  # noqa: E402
 from repro_torch import serving  # noqa: E402
 from repro_torch.bridge import little_bank_from_jax  # noqa: E402
 from repro_torch.core.lora import lora_scale  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

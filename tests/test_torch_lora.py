@@ -32,6 +32,7 @@ from repro_torch.inference import Request, ServingEngine  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
 from repro_torch.training import merge_lora  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

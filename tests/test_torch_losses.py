@@ -27,6 +27,7 @@ from repro_torch.configs.base import MelinoeSpec  # noqa: E402
 from repro_torch.core import cache_sim as tcs  # noqa: E402
 from repro_torch.core import losses as tlosses  # noqa: E402
 from repro_torch.core import rank_match as trm  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -23,6 +23,7 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd, ssd_chunked, ssd_hopper, ssd_scan_ref  # noqa: E402
 from repro_torch.models import mamba2 as tmamba  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

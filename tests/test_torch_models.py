@@ -23,6 +23,7 @@ from repro_torch.configs.base import AttnSpec, MoESpec  # noqa: E402
 from repro_torch.models import attention as tatt, common as tcommon, moe as tmoe  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

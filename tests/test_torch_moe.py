@@ -30,6 +30,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import MoESpec  # noqa: E402
 from repro_torch.models import model as tmodel, moe as tmoe  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -46,6 +46,7 @@ from repro_torch.obs.reconcile import (COMPUTE_SPANS, FETCH_SPANS, OTHER,  # noq
                                        OVERHEAD_SPANS, STEP_SPANS)
 from repro_torch.obs.validate import main as validate_main  # noqa: E402
 from repro_torch.serving.metrics import ServerMetrics  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = [pytest.mark.torch, pytest.mark.usefixtures("clean_globals")]
 

@@ -33,6 +33,7 @@ from repro_torch.inference import routing_trace  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
 from repro_torch.serving import ServeRequest, predictor_expert_scores  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -36,6 +36,7 @@ from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.int4_matmul import (MatmulQWeight, dequant_ref,  # noqa: E402
                                              int4_matmul, int4_matmul_ref,
                                              quantize_matmul_weight)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -46,6 +46,7 @@ from repro_torch.recovery import msgpack_lite  # noqa: E402
 from repro_torch.recovery.checkpoint import (record_array, record_request,  # noqa: E402
                                              request_record)
 from repro_torch.serving import ServerMetrics  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = [pytest.mark.torch, pytest.mark.usefixtures("clean_globals")]
 

@@ -28,6 +28,7 @@ from repro import faults as jfaults  # noqa: E402
 from repro import recovery as jrecovery  # noqa: E402
 from repro import serving as jserving  # noqa: E402
 from repro_torch import faults, recovery, serving  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = [pytest.mark.torch, pytest.mark.usefixtures("clean_globals")]
 

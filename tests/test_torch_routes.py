@@ -7,9 +7,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import get_config, list_archs  # noqa: E402
 from repro_torch.kernels import dispatch  # noqa: E402
 from repro_torch.kernels.flash_attn import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 
@@ -65,10 +67,22 @@ def test_flash_rest_takes_the_cuda_core_kernel(hd, dtype, ptrs):
     assert flash_ops.route(hd, dtype, ptrs) == "fma"
 
 
-@pytest.mark.parametrize("hd", [8, 48, 96, 160, 256])
+@pytest.mark.parametrize("hd", [8, 48, 96, 80, 256])
 def test_flash_route_rejects_unknown_head_dims(hd):
     with pytest.raises(ValueError, match="head_dim"):
         flash_ops.route(hd, BF16, ALIGNED)
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_every_config_head_dim_takes_tensor_cores(arch):
+    """Every attention head dim of every config, and of its smoke variant,
+    is one that both flash kernels take, on tensor cores in bf16: a head
+    dim outside HEAD_DIMS raises on the card."""
+    for cfg in (get_config(arch), get_config(arch + "-smoke")):
+        for b in cfg.block_defs.values():
+            if b.attn is not None:
+                assert b.attn.head_dim in flash_ops.HEAD_DIMS, (cfg.name, b.attn.head_dim)
+                assert flash_ops.route(b.attn.head_dim, BF16) == "tc"
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

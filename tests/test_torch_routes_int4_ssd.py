@@ -12,6 +12,7 @@ from repro_torch.kernels import _build, dispatch  # noqa: E402
 from repro_torch.kernels.int4_matmul import ops as int4_ops  # noqa: E402
 from repro_torch.kernels.int4_matmul import quantize_matmul_weight  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

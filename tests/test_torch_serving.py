@@ -50,6 +50,7 @@ from repro_torch.serving import (  # noqa: E402
     serve_static,
     synthesize_workload,
 )
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -55,6 +55,7 @@ from repro_torch.training import optim as toptim  # noqa: E402
 from repro_torch.training import trainer as ttrainer  # noqa: E402
 from repro_torch.training.checkpoint import load_checkpoint  # noqa: E402
 from util import melinoe_test_config  # noqa: E402
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 

@@ -8,6 +8,7 @@ pytest.importorskip("torch")
 from _torch_wave import (build, test_wave_server_hooks_and_unported_knobs,  # noqa: E402,F401
                          test_wave_server_lora_moves_tokens_and_policies_agree,
                          test_wave_server_matches_reference)
+from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 
