@@ -217,7 +217,36 @@ From the root of a checkout, with CUDA available:
    seconds and tokens per wall second, and failover seconds, and gates
    that ``moe_gmm`` and ``flash_attn`` launched in every worker (``fma``
    in fp32, ``tc``/``stream`` in bf16);
-20. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+20. the per-expert engine (``OffloadedMoEEngine(impl="dict")``) beside the
+   slab engine on phase 4's batch, full-width OLMoE at C = 16: (a) fp32 on
+   the first 4 layers, dict against slab on one pinned store: equal
+   tokens, transfers, bytes, hits, misses, evictions and both Eq.-3
+   clocks; (b) bf16, full depth, both on one store: the dict engine's
+   prefill logits against its plain run, one ``flash_attn`` ``tc`` a layer
+   in its prefill and no ``moe_gmm`` or ``int4_matmul`` launch (its expert
+   products are ``torch.matmul``); (c) INT4 codes of the same experts, both
+   engines: the dict engine's ``int4_matmul`` on ``tc`` in prefill and
+   ``stream`` in decode, its logits against the INT4 slab engine's; (d)
+   ``launch.bench_serve --offloaded --engine-impl dict`` at full width on
+   phase 4's shape (4 requests of 128 + 32 tokens, one wave);
+   each engine's prefill s, decode tok/s, transfers, hit rate, clocks and
+   launches by phase and route printed side by side;
+21. expert parallelism: two processes over gloo (NCCL takes one rank per
+   device), (1, 2) ("data", "model") meshes: (a) on the card,
+   ``apply_moe_sharded`` at OLMoE's MoE width (32 experts a rank), 4 x 128
+   tokens, against ``apply_moe_local`` (fp32 1e-5, bf16 2e-2 relative),
+   ``moe_gmm`` launches per rank by route ("tc" in bf16); the DTensor model
+   path cannot run on CUDA tensors over gloo (DTensor's functional
+   collectives end the process with SIGSEGV there; the plain collectives
+   work), so (b) and (c) run it on a host mesh at OLMoE's full width cut to
+   2 layers, fp32, against the single-device run on the card: (b) a
+   prefill and 8 greedy decode steps (the card's tokens, prefill logits
+   within 1e-4), (c) the MELINOE train step's loss and gradients (the
+   card's loss, grad_norm and every leaf's gradient) (gloo stages CUDA
+   tensors through the host: (a)'s time is gloo's transport, not the
+   card's). ``tools/ep_mesh.py`` runs the DTensor path on four cards over
+   NCCL;
+22. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -976,7 +1005,8 @@ def _host_available_gib() -> float:
 
 
 def _rel(a, b) -> float:
-    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).norm() / b.norm()).item()
 
 
 def _strip_experts(params) -> None:
@@ -1283,6 +1313,15 @@ def slab_dequant_ms(gen, C=16, d=2048, f=1024, g=32) -> float:
 # ---------------------------------------------------------------------------
 # MELINOE training and the activation predictor (phases 11-14)
 # ---------------------------------------------------------------------------
+
+
+def _grad_leaves_raw(tree, path=""):
+    """(path, gradient) of a gradient tree, per-repeat lists as they are."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _grad_leaves_raw(v, f"{path}/{k}")
+    elif tree is not None:
+        yield path, tree
 
 
 def _grad_leaves(tree, path=""):
@@ -2765,6 +2804,455 @@ def fleet_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# The per-expert engine (phase 20) and expert parallelism (phase 21)
+# ---------------------------------------------------------------------------
+
+# Phase 20's fp32 comparison of the two engines on one store: the first
+# DICT_FP32_LAYERS layers of full-width OLMoE (as phase 17 cuts its fp32
+# checks), the main batch
+DICT_FP32_LAYERS = 4
+# the dict engine's bf16 serve: one flash_attn a layer in the prefill, its
+# expert products torch.matmul (no moe_gmm); INT4: int4_matmul, three per
+# needed expert and layer-step (a positive multiple of 3)
+PATH_LAUNCHES["dict-bf16"] = {"moe_gmm": 0, "flash_attn": 16, "int4_matmul": 0}
+PATH_LAUNCHES["dict-int4"] = {"moe_gmm": 0, "flash_attn": 16, "int4_matmul": None}
+# (d): the launcher at full width on phase 4's shape, one wave
+DICT_BENCH = ["--arch", "olmoe", "--offloaded", "--engine-impl", "dict", "--n-requests",
+              "4", "--slots", "4", "--prompt-len", "128", "--max-new", "32", "--arrival",
+              "all_at_once"]
+_COUNTS = ("transfers", "transfer_bytes", "hits", "misses", "evictions", "modeled_time_s",
+           "modeled_time_overlapped_s")
+
+
+def _slab_row(rep: dict) -> dict:
+    """Phase 4's or 5's report (``launch.serve.run``: the slab engine on the
+    same weights, batch and cache) as a row of the dict phase's table, its
+    tokens and prefill logits beside."""
+    return {**{k: rep[k] for k in ("prefill_s", "decode_tok_s", "transfers", "transfer_bytes",
+                                   "hit_rate", "hits", "misses", "modeled_time_s",
+                                   "modeled_time_overlapped_s")},
+            "by_phase": rep["route_launches"], "expert_copies": rep["expert_copies"],
+            "impl": "slab",
+            "tokens": torch.as_tensor(rep["tokens"]), "prefill_logits": rep["prefill_logits"]}
+
+
+def _engine_row(eng, prompts, dev) -> tuple:
+    """:func:`_serve_row` with the transfer bytes, evictions and the
+    expert copies by phase beside it."""
+    res, row = _serve_row(eng, prompts, dev)
+    m, st = res["metrics"], res["cache_stats"]
+    row.update(transfer_bytes=m.transfer_bytes, evictions=st.evictions, hits=st.hits,
+               misses=st.misses, modeled_time_s=res["modeled_time_s"],
+               modeled_time_overlapped_s=res["modeled_time_overlapped_s"],
+               expert_copies=res["expert_copies"], impl=eng.impl,
+               transfers=m.transfers)
+    return res, row
+
+
+def dict_bench(device: str = "cuda", capacity: int = 16, bench=DICT_BENCH) -> dict:
+    """Phase 20(d): ``launch.bench_serve --offloaded --engine-impl dict``;
+    every request finishes (its token budget or an end token), and
+    experts move."""
+    from repro_torch.launch import bench_serve
+
+    t0 = time.perf_counter()
+    results, mt = bench_serve.main(["--device", device, "--capacity", str(capacity)] + bench)
+    n = int(bench[bench.index("--n-requests") + 1])
+    row = {"requests": len(results), "transfers": mt.transfers,
+           "finish": sorted({r.finish_reason for r in results}),
+           "generated_tokens": mt.generated_tokens, "wall_s": time.perf_counter() - t0}
+    print("bench_serve --offloaded --engine-impl dict:", json.dumps(row))
+    if not (len(results) == n and set(row["finish"]) <= {"length", "eos"}
+            and mt.generated_tokens > 0 and mt.transfers > 0):
+        raise AssertionError(f"bench_serve --engine-impl dict: {row}")
+    return row
+
+
+def dict_phase(slab: dict, arch: str = "olmoe", device: str = "cuda",
+               fp32_layers: int = DICT_FP32_LAYERS, capacity: int = 16,
+               bench=DICT_BENCH) -> dict:
+    """Phase 20, the per-expert engine (``impl="dict"``) beside the slab
+    engine, full-width OLMoE at C = 16 (gamma), phase 4's batch: (a) fp32 on
+    the first ``fp32_layers`` layers, dict against slab on one store:
+    equal tokens, transfers and bytes, hits, misses, evictions and both
+    Eq.-3 clocks; (b) bf16, full depth, phase 4's weights: the dict
+    engine's prefill logits against its plain run (LOGITS_REL_TOL), one
+    ``flash_attn`` ``tc`` launch a layer in the prefill, no ``moe_gmm`` and
+    no ``int4_matmul`` launch; (c) INT4 (phase 5's codes, quantized again
+    from the same experts), bf16: ``int4_matmul`` on ``tc`` in the prefill
+    and ``stream`` in decode, both > 0, tokens equal to phase 5's or
+    prefill logits within LOGITS_REL_TOL of them; (d) :func:`dict_bench`.
+    Prints each engine's
+    prefill s, decode tok/s, transfers, hit rate, both clocks and launches
+    by phase and route beside the slab engine's of phases 4 and 5
+    (``slab``: :func:`_slab_row` of each, "slab-bf16" and "slab-int4").
+    ``arch``/``device``/``fp32_layers``/``capacity``/``bench``: a smaller
+    model or the CPU, to rehearse the phase's logic."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import OffloadedMoEEngine
+    from repro_torch.core.quant import matmul_layout, quantize_linear
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models.model import init_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    prompts = make_prompts(cfg.vocab, 4, 128)
+    kw = dict(capacity=capacity, policy="gamma", device=dev)
+    rows = dict(slab)
+
+    # ---- (a) fp32, the first layers: dict against slab on one store
+    cut = get_config(_cut_arch(arch, fp32_layers))
+    params = init_params(cut, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.float32, device=dev, expert_device="cpu")
+    eng = OffloadedMoEEngine(cut, params, **kw)
+    store = eng.host_store
+    _strip_experts(params)
+    res_s, rows["fp32-slab"] = _engine_row(eng, prompts, dev)
+    del eng
+    eng = OffloadedMoEEngine(cut, params, host_store=store, impl="dict", **kw)
+    res_d, rows["fp32-dict"] = _engine_row(eng, prompts, dev)
+    del eng, params, store
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok_eq = bool(torch.equal(res_s["tokens"], res_d["tokens"]))
+    diff = {k: (rows["fp32-dict"][k], rows["fp32-slab"][k]) for k in _COUNTS
+            if rows["fp32-dict"][k] != rows["fp32-slab"][k]}
+    fp32_rel = _rel(res_d["prefill_logits"], res_s["prefill_logits"])
+    print(f"dict vs slab, fp32, {fp32_layers} layers: tokens equal {tok_eq}, counts "
+          f"differing {diff}, prefill logits rel {fp32_rel:.3g}")
+    if not tok_eq or diff or not fp32_rel <= FP32_LOGITS_REL_TOL:
+        raise AssertionError(f"dict vs slab fp32: tokens equal {tok_eq}, counts {diff}, "
+                             f"logits rel {fp32_rel}")
+    del res_s, res_d
+
+    # ---- (b) bf16, full depth: phase 4's weights, the plain run on its store
+    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+                         dtype=torch.bfloat16, device=dev, expert_device="cpu")
+    eng = OffloadedMoEEngine(cfg, params, impl="dict", **kw)
+    store = eng.host_store
+    _strip_experts(params)
+    gc.collect()
+    res, rows["dict-bf16"] = _engine_row(eng, prompts, dev)
+    del eng
+    plain = OffloadedMoEEngine(cfg, params, host_store=store, impl="dict",
+                               kernel_backend="ref", **kw)
+    plain_logits = plain.generate(prompts, max_new_tokens=1)["prefill_logits"]
+    del plain
+    rows["dict-bf16"]["logits_rel_plain"] = rel = _rel(res["prefill_logits"], plain_logits)
+    del res
+    check_path("dict-bf16", rows["dict-bf16"]["launches_total"],
+               rows["dict-bf16"]["route_launches"])
+    flash_pre = rows["dict-bf16"]["by_phase"]["prefill"].get("flash_attn", {})
+    print(f"dict engine bf16 prefill logits vs plain: rel {rel:.3g} (tol {LOGITS_REL_TOL}); "
+          f"flash_attn in its prefill {flash_pre}")
+    if (dev.type == "cuda" and flash_pre != {"tc": cfg.n_layers}) or not (
+            math.isfinite(rel) and rel <= LOGITS_REL_TOL):
+        raise AssertionError(f"dict engine bf16: flash {flash_pre}, logits rel {rel}")
+
+    # ---- (c) INT4: phase 5's codes of the same experts
+    t0 = time.perf_counter()
+    qexp = [{k: matmul_layout(quantize_linear(layer[k].to(dev), iters=4, group=32))
+             for k in ("wg", "wu", "wd")} for layer in store]
+    for gi, g in enumerate(cfg.layout):  # the engines read only the experts' shapes
+        for bp in params["groups"][f"g{gi}"].values():
+            if "router" in bp.get("ffn", {}):
+                for k, v in store[0].items():
+                    bp["ffn"][k] = torch.empty((g.repeats,) + tuple(v.shape), dtype=v.dtype,
+                                               device="meta")
+    del store
+    print(f"INT4 codes for the dict phase: {time.perf_counter() - t0:.1f} s")
+    eng = OffloadedMoEEngine(cfg, params, quantized=True, quantized_experts=qexp,
+                             impl="dict", **kw)
+    res, rows["dict-int4"] = _engine_row(eng, prompts, dev)
+    check_path("dict-int4", rows["dict-int4"]["launches_total"],
+               rows["dict-int4"]["route_launches"])
+    del eng, qexp, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    int4 = {ph: r.get("int4_matmul", {}) for ph, r in rows["dict-int4"]["by_phase"].items()}
+    qrel = rows["dict-int4"]["logits_rel_slab"] = _rel(res["prefill_logits"],
+                                                       slab["slab-int4"]["prefill_logits"])
+    q_eq = rows["dict-int4"]["tokens_equal_slab"] = bool(torch.equal(
+        res["tokens"].cpu(), slab["slab-int4"]["tokens"].cpu()))
+    del res
+    print(f"dict engine INT4: int4_matmul by phase and route {int4}; tokens equal the INT4 "
+          f"slab engine's {q_eq}, prefill logits vs its rel {qrel:.3g} (tol {LOGITS_REL_TOL})")
+    if (dev.type == "cuda" and (set(int4["prefill"]) != {"tc"} or set(int4["decode"]) != {
+            "stream"} or min(n for r in int4.values() for n in r.values()) <= 0)
+            or not (q_eq or (math.isfinite(qrel) and qrel <= LOGITS_REL_TOL))):
+        raise AssertionError(f"dict engine INT4: int4_matmul {int4}, tokens equal {q_eq}, "
+                             f"logits rel {qrel}")
+
+    rows["bench-dict"] = dict_bench(device, capacity, bench)
+
+    print("engine          prefill_s  decode_tok/s  transfers  hit_rate  serial_s  "
+          "overlap_s  copies(pre/dec)  gmm(pre/dec)  flash(pre)  int4(pre/dec)")
+    for name, r in rows.items():
+        if "by_phase" not in r:
+            continue
+        ph, cp = r["by_phase"], r.get("expert_copies", {})
+        print(f"{name:15s} {r['prefill_s']:10.4f} {r['decode_tok_s']:13.2f} "
+              f"{r['transfers']:10d} {r['hit_rate']:9.4f} {r['modeled_time_s']:9.4f} "
+              f"{r['modeled_time_overlapped_s']:10.4f}  "
+              f"{cp.get('prefill')}/{cp.get('decode')}  "
+              f"{ph['prefill'].get('moe_gmm')}/{ph['decode'].get('moe_gmm')}  "
+              f"{ph['prefill'].get('flash_attn')}  "
+              f"{ph['prefill'].get('int4_matmul')}/{ph['decode'].get('int4_matmul')}")
+    for r in rows.values():  # the report keeps numbers only
+        r.pop("tokens", None)
+        r.pop("prefill_logits", None)
+    rep = {"rows": rows, "phase_s": time.perf_counter() - t_phase}
+    print(f"dict phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
+# Phase 21: two processes on the one card over gloo (NCCL takes one rank
+# per device), (1, 2) ("data", "model") meshes. gloo runs the plain c10d
+# collectives on CUDA tensors (all_reduce, all_gather, reduce_scatter,
+# all_to_all, broadcast; staged through the host), but DTensor's
+# redistribute runs the functional collectives, which end the process with
+# SIGSEGV on CUDA tensors over gloo (torch 2.11.0+cu128, NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md, PR 23). So: (a) the expert-parallel MoE layer on
+# the card, whose only collective is the c10d all_to_all (its DTensors keep
+# their placements, and on a data axis of 1 a rank's output is the whole):
+# OLMoE's MoE width, 4 x 128 tokens, zero_drop, fp32 within EP_FP32_REL of
+# apply_moe_local on the card (the order of sums differs), bf16 within
+# LOGITS_REL_TOL, moe_gmm launches per rank by route; (b) and (c) the
+# DTensor model path on a host mesh (gloo, CPU tensors, EP_HOST_THREADS
+# threads a rank) at OLMoE's full width cut to EP_FP32_LAYERS layers, fp32,
+# against the single-device run of the same weights on the card: (b) a
+# prefill and EP_DECODE greedy steps, the card's tokens and prefill logits
+# within FP32_LOGITS_REL_TOL; (c) the MELINOE train step's loss and
+# gradients (EP_TRAIN_B x EP_TRAIN_T tokens; on the card under the
+# trainer's kernel spec): the card's loss within EP_LOSS_REL, every leaf's
+# gradient within GRAD_REL_TOL of its largest element and grad_norm within
+# GRAD_REL_TOL (the fine-tune's fp32 gradient gate: kernels against plain
+# versions, only the order of sums differs). The parameters after a first
+# AdamW step are not compared: it moves each element by about lr x the
+# sign of its gradient, so a gradient off by a factor passes such a check.
+EP_RANKS = 2
+EP_FP32_REL = 1e-5
+EP_DECODE = 8
+EP_FP32_LAYERS = 2
+EP_HOST_THREADS = 4
+EP_TRAIN_B, EP_TRAIN_T, EP_TRAIN_LR = 4, 128, 1e-3
+EP_LOSS_REL = 1e-5
+EP_LIMIT_S = 600
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _ep_serve(cfg, params, host, single, toks, steps: int) -> dict:
+    """``params`` (a whole tree on the card, the same on every rank): the
+    single-device prefill + ``steps`` greedy decode steps on the card, then
+    the same on ``host``'s mesh from a CPU copy of the weights, sharded."""
+    from repro_torch.distributed.sharding import distribute_params
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+
+    def serve(p, rt, tk):
+        _sync(tk.device)
+        t0 = time.perf_counter()
+        logits, cache = build_prefill_step(cfg, rt, n_slots=tk.shape[1] + steps)(
+            p, {"tokens": tk})
+        first = logits.full_tensor() if hasattr(logits, "full_tensor") else logits
+        _sync(tk.device)
+        t1 = time.perf_counter()
+        out = [first.argmax(-1)]
+        dec = build_decode_step(cfg, rt)
+        for _ in range(steps):
+            logits, cache = dec(p, {"tokens": out[-1], "cache": cache})
+            out.append((logits.full_tensor() if hasattr(logits, "full_tensor")
+                        else logits).argmax(-1))
+        _sync(tk.device)
+        return {"prefill_logits": first[:, 0].float().cpu(), "tokens": torch.cat(out, 1).cpu(),
+                "prefill_s": t1 - t0,
+                "decode_tok_s": tk.shape[0] * steps / (time.perf_counter() - t1)}
+
+    with torch.no_grad():
+        one = serve(params, single, toks)
+        sharded = serve(distribute_params(_to(params, "cpu"), cfg, host), host, toks.cpu())
+    return {"tokens_equal_card": bool(torch.equal(sharded["tokens"], one["tokens"])),
+            "logits_rel_card": _rel(sharded["prefill_logits"], one["prefill_logits"]),
+            "tokens": sharded["tokens"].tolist(),
+            "card_prefill_s": one["prefill_s"], "card_decode_tok_s": one["decode_tok_s"],
+            "host_prefill_s": sharded["prefill_s"],
+            "host_decode_tok_s": sharded["decode_tok_s"]}
+
+
+def _ep_worker(rank: int, world: int, port: int, out_dir: str, arch: str,
+               device: str) -> None:
+    """One rank of phase 21; rank 0 writes ``out_dir/ep.json``."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(EP_HOST_THREADS)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.distributed.sharding import distribute, distribute_params
+        from repro_torch.kernels import _build, dispatch
+        from repro_torch.launch.mesh import make_debug_mesh
+        from repro_torch.launch.steps import build_train_step
+        from repro_torch.models.model import init_params
+        from repro_torch.models.moe import apply_moe_local, apply_moe_sharded, init_moe
+        from repro_torch.models.runtime import Runtime
+        from repro_torch.training.optim import OptConfig
+        from repro_torch.training.trainer import train_runtime
+
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(0)  # every rank on the one card
+            _build.lib()
+        mesh = make_debug_mesh(1, world, device_type=dev.type)
+        host_mesh = make_debug_mesh(1, world, device_type="cpu")
+        single = Runtime(device=dev)
+        host = Runtime(device=torch.device("cpu"), mesh=host_mesh)
+        cfg = get_config(arch)
+        rep = {"rank": rank, "device": str(dev)}
+        t0 = time.perf_counter()
+
+        # ---- (a) the expert-parallel MoE layer on the card, OLMoE's width
+        spec, d = cfg.moe_spec, cfg.d_model
+        zrt = Runtime(device=dev, mesh=mesh, zero_drop=True)
+        moe = {}
+        for dtype, tol in ((torch.float32, EP_FP32_REL), (torch.bfloat16, LOGITS_REL_TOL)):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            p = init_moe(d, spec, dtype, generator=gen, device=dev)
+            x = torch.randn((4 * 128, d), generator=gen, device=dev).to(dtype)
+            with torch.no_grad():
+                y_loc, _ = apply_moe_local(p, x, spec, zrt.local())
+                dp = {"router": distribute(p["router"], (None, None), mesh),
+                      **{k: distribute(p[k], ("model", None, None), mesh)
+                         for k in ("wg", "wu", "wd")}}
+                dx = distribute(x, ("data", None), mesh)
+                _sync(dev)
+                dispatch.reset_launches()
+                t1 = time.perf_counter()
+                with zrt.dist():
+                    y, _ = apply_moe_sharded(dp, dx, spec, zrt)
+                y = y.to_local()  # the data axis is 1: the whole output
+                _sync(dev)
+                moe[str(dtype).replace("torch.", "")] = {
+                    "rel": _rel(y, y_loc), "tol": tol, "s": time.perf_counter() - t1,
+                    "moe_gmm_routes": dict(dispatch.ROUTE_LAUNCHES["moe_gmm"])}
+            del p, x, dp, dx, y, y_loc
+        rep["moe"] = moe
+
+        # ---- (b) the sharded model path on the host mesh, fp32, first layers
+        cut = get_config(_cut_arch(arch, EP_FP32_LAYERS))
+        fp32 = init_params(cut, generator=torch.Generator(device=dev).manual_seed(0),
+                           dtype=torch.float32, device=dev)
+        toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (4, 128)),
+                               device=dev)
+        rep["serve_fp32"] = _ep_serve(cut, fp32, host, single, toks, EP_DECODE)
+
+        # ---- (c) the MELINOE train step's loss and gradients, same layers
+        batch = {"tokens": np.random.default_rng(1).integers(0, cfg.vocab,
+                                                             (EP_TRAIN_B, EP_TRAIN_T))}
+        batch["labels"] = batch["tokens"]
+        oc = OptConfig(peak_lr=EP_TRAIN_LR, total_steps=10)
+        l1, _, g1 = build_train_step(cut, train_runtime(dev), oc, melinoe=True).loss_and_grads(
+            fp32, batch)
+        g1 = {p: g.cpu() for p, g in _grad_leaves(g1)}
+        dp = distribute_params(_to(fp32, "cpu"), cut, host)
+        del fp32
+        t1 = time.perf_counter()
+        l2, _, g2 = build_train_step(cut, host, oc, melinoe=True).loss_and_grads(dp, batch)
+        g2 = {p: (torch.stack([x.full_tensor() for x in g]) if isinstance(g, list)
+                  else g.full_tensor()) for p, g in _grad_leaves_raw(g2)}
+        host_s = time.perf_counter() - t1
+        loss1, loss2 = l1.item(), l2.full_tensor().item()
+        rel = {p: ((g2[p] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+               for p, g in g1.items()}
+        gn1, gn2 = (math.sqrt(sum(float(g.double().square().sum()) for g in t.values()))
+                    for t in (g1, g2))
+        worst = max(rel, key=rel.get)
+        rep["train"] = {"loss_card": loss1, "loss_host_sharded": loss2,
+                        "loss_rel": abs(loss2 - loss1) / abs(loss1),
+                        "grad_rel_worst_leaf": rel[worst], "worst_leaf": worst,
+                        "grad_norm_rel": abs(gn2 - gn1) / gn1,
+                        "leaves": len(rel), "leaves_equal": sorted(g1) == sorted(g2),
+                        "host_loss_and_grads_s": host_s}
+        rep["worker_s"] = time.perf_counter() - t0
+        reps = [None] * world
+        dist.all_gather_object(reps, rep)
+        if rank == 0:
+            Path(out_dir, "ep.json").write_text(json.dumps(reps))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def ep_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
+    """Phase 21 (see EP_RANKS): spawns the two ranks, waits for them within
+    EP_LIMIT_S, stops both, and gates their report. ``arch``/``device``: a
+    smaller model or the CPU, to rehearse the phase's logic."""
+    import socket
+
+    t_phase = time.perf_counter()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as d:
+        ctx = torch.multiprocessing.start_processes(
+            _ep_worker, args=(EP_RANKS, port, d, arch, device), nprocs=EP_RANKS,
+            join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() - t_phase > EP_LIMIT_S:
+                    raise TimeoutError(f"phase 21: the ranks took over {EP_LIMIT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        reps = json.loads(Path(d, "ep.json").read_text())
+    for r in reps:
+        print(f"ep rank {r['rank']}:", json.dumps(r))
+    bad = []
+    for r in reps:
+        for name, m in r["moe"].items():
+            if not m["rel"] <= m["tol"] or (device == "cuda"
+                                            and sum(m["moe_gmm_routes"].values()) <= 0):
+                bad.append((r["rank"], "moe", name, m))
+        if device == "cuda" and set(r["moe"]["bfloat16"]["moe_gmm_routes"]) != {"tc"}:
+            bad.append((r["rank"], "moe bf16 routes", r["moe"]["bfloat16"]["moe_gmm_routes"]))
+        t, s32 = r["train"], r["serve_fp32"]
+        if not (t["leaves_equal"] and t["loss_rel"] <= EP_LOSS_REL
+                and t["grad_rel_worst_leaf"] <= GRAD_REL_TOL
+                and t["grad_norm_rel"] <= GRAD_REL_TOL):
+            bad.append((r["rank"], "train", t))
+        if not (s32["tokens_equal_card"] and s32["logits_rel_card"] <= FP32_LOGITS_REL_TOL):
+            bad.append((r["rank"], "serve fp32", s32))
+    r0 = reps[0]
+    print(f"expert parallelism, {EP_RANKS} ranks over gloo: MoE layer on the card rel "
+          f"{ {k: v['rel'] for k, v in r0['moe'].items()} }, moe_gmm a rank "
+          f"{ {k: v['moe_gmm_routes'] for k, v in r0['moe'].items()} }; sharded on the host "
+          f"mesh, {EP_FP32_LAYERS} layers fp32: tokens equal the card's "
+          f"{r0['serve_fp32']['tokens_equal_card']}, logits rel "
+          f"{r0['serve_fp32']['logits_rel_card']:.3g}; train loss rel "
+          f"{r0['train']['loss_rel']:.3g}, gradients worst leaf rel "
+          f"{r0['train']['grad_rel_worst_leaf']:.3g} (tol {GRAD_REL_TOL}), grad_norm rel "
+          f"{r0['train']['grad_norm_rel']:.3g}")
+    if bad:
+        raise AssertionError(f"phase 21: {bad}")
+    rep = {"ranks": reps, "phase_s": time.perf_counter() - t_phase}
+    print(f"expert-parallel phase: {rep['phase_s']:.1f} s")
+    return rep
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it. ``source`` is the kernel the
@@ -2835,6 +3323,7 @@ def main() -> int:
     print("serve olmoe:", json.dumps({k: v for k, v in rep.items()
                                       if k not in ("tokens", "prefill_logits")}))
     print(f"launches on the main path: {launches}")
+    slab_rows = {"slab-bf16": _slab_row(rep)}
     main_stats = {k: rep[k] for k in ("transfers", "prefetch_transfers", "hit_rate",
                                       "modeled_time_s", "decode_tok_s", "prefill_s")}
     ops_main = dict(main_stats, tokens=tokens, launches=launches, routes=routes)
@@ -2864,6 +3353,7 @@ def main() -> int:
         {k: v for k, v in qrep.items()
          if k not in ("tokens", "prefill_logits", "quantized_experts", "host_store")}))
     print(f"launches on the INT4 path: {q_launches}")
+    slab_rows["slab-int4"] = _slab_row(qrep)
     ops_int4 = {"tokens": qrep["tokens"], "transfers": qrep["transfers"],
                 "decode_tok_s": qrep["decode_tok_s"], "launches": q_launches,
                 "routes": q_routes}
@@ -2930,6 +3420,16 @@ def main() -> int:
     # ---- the supervised fleet: two OLMoE workers on the card
     f_rep = fleet_phase()
 
+    # ---- the per-expert engine beside the slab engine; expert parallelism
+    dc_rep = dict_phase(slab_rows)
+    ep_rep = ep_phase()
+    ep_paths = {}
+    for r in ep_rep["ranks"]:
+        gmm = r["moe"]["bfloat16"]["moe_gmm_routes"]
+        ep_paths[f"ep-moe-bf16-rank{r['rank']}"] = (
+            {"moe_gmm": sum(gmm.values()), "flash_attn": 0, "int4_matmul": 0, "ssd_scan": 0},
+            {"moe_gmm": gmm, "flash_attn": {}, "int4_matmul": {}, "ssd_scan": {}})
+
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",
                      "src/repro/kernels/moe_gmm/kernel.py:64", g_cases,
@@ -2969,7 +3469,10 @@ def main() -> int:
              **{f"ops-{n}": r["launches_total"] for n, r in o_rep["rows"].items()
                 if "launches_total" in r},
              **{f"fleet-{n}-worker{w['worker']}": w["launches"]
-                for n, r in f_rep["rows"].items() for w in r.get("workers", ())}}
+                for n, r in f_rep["rows"].items() for w in r.get("workers", ())},
+             **{f"phase20-{n}": r["launches_total"] for n, r in dc_rep["rows"].items()
+                if "launches_total" in r},
+             **{p: lr[0] for p, lr in ep_paths.items()}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
@@ -2986,7 +3489,10 @@ def main() -> int:
              **{f"ops-{n}": r["route_launches"] for n, r in o_rep["rows"].items()
                 if "route_launches" in r},
              **{f"fleet-{n}-worker{w['worker']}": w["route_launches"]
-                for n, r in f_rep["rows"].items() for w in r.get("workers", ())}}
+                for n, r in f_rep["rows"].items() for w in r.get("workers", ())},
+             **{f"phase20-{n}": r["route_launches"] for n, r in dc_rep["rows"].items()
+                if "route_launches" in r},
+             **{p: lr[1] for p, lr in ep_paths.items()}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

@@ -36,7 +36,7 @@ import torch
 def topk_request(probs: torch.Tensor, k: int, mode: str = "soft") -> torch.Tensor:
     """probs (..., E) -> request vector r (..., E) with ||r||_1 = K."""
     _, eids = torch.topk(probs, k, dim=-1)
-    mask = torch.zeros_like(probs).scatter_(-1, eids, 1.0)
+    mask = torch.zeros_like(probs).scatter(-1, eids, 1.0)  # out of place: DTensors too
     if mode == "hard":
         return mask
     pm = probs * mask

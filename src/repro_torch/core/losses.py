@@ -20,7 +20,16 @@ def melinoe_layer_losses(*, probs: torch.Tensor, moe_h: Optional[torch.Tensor],
     """Per-layer (cs, rm) contributions, each a scalar mean over (B, T).
     probs (B, T, E) the fine-tuned router distribution; moe_h (B, T, d)
     the hidden states fed to the router; base_router (d, E) the frozen
-    base router."""
+    base router. On DTensors (a sharded mesh) each rank takes its own
+    batch rows (``models.runtime.on_rows``)."""
+    from ..models.runtime import is_distributed, on_rows
+
+    if is_distributed(probs):
+        if is_distributed(base_router):
+            base_router = base_router.full_tensor()
+        return on_rows(lambda p, h: melinoe_layer_losses(
+            probs=p, moe_h=h, base_router=base_router, spec=spec,
+            cache_capacity=cache_capacity, top_k=top_k), probs, moe_h)
     cs = cache_sim_loss(probs, top_k=top_k, gamma=spec.gamma,
                         cache_capacity=cache_capacity, request_mode=spec.request_mode,
                         impl=getattr(spec, "cs_impl", "scan"))

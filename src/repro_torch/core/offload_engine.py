@@ -73,8 +73,18 @@ Faults (``faults/``): the fetch trials of ``_guard_fetch`` under
 and crash points in ``generate``, and ``_guard_prefetch``, drawing from
 the installed ``FaultPlan`` in the reference's order. Recovery:
 ``cache_state``, ``revive(warm=)``, ``resync_slabs`` and ``audit``.
-The reference's ``impl="dict"`` engine is not ported: asking for it
-raises.
+
+``impl="dict"`` is the reference's pre-rewrite engine, the per-expert
+baseline the slab engine is measured against: one dict of device weights
+per MoE layer (expert id -> its three matrices, or its INT4 codes), the
+cache manager called token by token (``ModelExpertCache.access``, each
+miss through its fault trial and quality roll in the reference's order,
+then one copy of that expert), and an eager loop over the experts a step
+needs: three products each (``torch.matmul`` for fp weights, as the
+reference's ``x @ w``; ``qmatmul`` -> ``int4_matmul`` for INT4 codes where
+the kernel launches, else weights dequantized to fp32 once at the copy),
+LoRA as a separate low-rank term, gate-massed fp32 accumulation. Its
+attention, norms and router are the slab engine's.
 """
 from __future__ import annotations
 
@@ -437,15 +447,6 @@ def _tree_map(fn, tree):
             else fn(tree))
 
 
-def _unported(**knobs) -> None:
-    """Raise for the reference's engine options that are not ported
-    (name -> (given, what it is))."""
-    given = [f"{k} ({what})" for k, (on, what) in knobs.items() if on]
-    if given:
-        raise NotImplementedError("OffloadedMoEEngine: " + ", ".join(given)
-                                  + " not ported yet")
-
-
 class OffloadedMoEEngine:
     """Greedy decoding with a per-layer offloaded expert cache."""
 
@@ -482,9 +483,10 @@ class OffloadedMoEEngine:
         (``faults.FetchPolicy``, default ``FetchPolicy()``): the retry
         budget of a fetch the installed fault plan fails."""
         assert cfg.has_router, "offload engine needs an MoE architecture"
-        _unported(impl=(impl != "slab", "the reference's dict engine, the pre-rewrite "
-                                        "baseline of benchmarks/offload_bench.py"))
+        if impl not in ("slab", "dict"):
+            raise ValueError(f"impl {impl!r}: 'slab' or 'dict'")
         self.cfg = cfg
+        self.impl = impl
         self.fetch_policy = fetch_policy or FetchPolicy()
         self.cpu_execute = cpu_execute
         self.stream_all = stream_all
@@ -575,14 +577,16 @@ class OffloadedMoEEngine:
                                       policy=policy, gamma=gamma)
         self.metrics = EngineMetrics()
         self._flops_per_token = cfg.param_counts()["active"] * 2  # fwd only
-        # zero-filled slabs (never-written slots hold finite values)
+        # zero-filled slabs (never-written slots hold finite values); the
+        # dict engine's residents instead: per MoE layer, expert id -> weights
         self._slabs = [
             ExpertSlab(E, capacity, {
                 k: torch.zeros((capacity,) + tuple(v.shape[1:]), dtype=v.dtype,
                                device=dev)
                 for k, v in self.host_store[0].items()})
             for _ in self.moe_layer_ids
-        ]
+        ] if impl == "slab" else []
+        self.resident: List[Dict[int, dict]] = [{} for _ in self.moe_layer_ids]
         self.slab_bytes = sum(b.nbytes for s in self._slabs
                               for b in s.buffers.values())
         self.lora_bytes = sum(t.nbytes for layer in self.layers if layer["lora"]
@@ -664,6 +668,43 @@ class OffloadedMoEEngine:
                 for k, v in self.host_store[0].items()}
         return {k: v[:n] for k, v in self._overflow.items()}
 
+    def _device_weights(self, moe_idx: int, e: int) -> dict:
+        """Expert ``e`` on the device, in buffers of its own (the dict
+        engine's residents and transient experts): fp, ``{k: (K, N)}`` in
+        the store's dtype; INT4, ``MatmulQWeight`` codes where
+        ``int4_matmul`` launches its kernel, else the codes dequantized
+        to fp32 once here (the reference's "ref" engine), so the products
+        do not repeat the dequant. One copy of each stored leaf."""
+        buf = {k: torch.empty((1,) + tuple(v.shape[1:]), dtype=v.dtype, device=self.device)
+               for k, v in self.host_store[moe_idx].items()}
+        self._load(moe_idx, e, buf, 0)
+        if not self.quantized:
+            return {k: v[0] for k, v in buf.items()}
+        w = {k: MatmulQWeight(q.packed[0], q.scale[0], q.zero[0], q.group)
+             for k, q in self._qlayout.views(buf["q"]).items()}
+        if self.rt.kernel_choice("int4_matmul"):
+            return w
+        return {k: dequant_ref(q.packed, q.scale, q.zero, q.group) for k, q in w.items()}
+
+    def _fetch(self, moe_idx: int, eid: int, *, prefetch: bool = False) -> None:
+        """Host -> device copy of one expert into the dict engine's
+        residents (a ``moe.fetch`` or ``moe.prefetch`` span), charged as a
+        demand or a prefetch transfer; then the device budget: residents
+        the cache manager no longer holds are dropped."""
+        with get_tracer().span("moe.prefetch" if prefetch else "moe.fetch",
+                               layer=moe_idx, experts=1):
+            w = self._device_weights(moe_idx, eid)
+            self._obs_sync()
+        res = self.resident[moe_idx]
+        res[eid] = w
+        if prefetch:
+            self.metrics.add_prefetch_transfers(moe_idx, 1, self.expert_bytes)
+        else:
+            self.metrics.add_demand_transfers(moe_idx, 1, self.expert_bytes)
+        cached = self.cache.layers[moe_idx].resident
+        for stale in [e for e in res if e not in cached and e != eid]:
+            del res[stale]
+
     # ------------------------------------------------------------------
     # physical residency
     # ------------------------------------------------------------------
@@ -715,6 +756,12 @@ class OffloadedMoEEngine:
             self.cache.prefill_from_scores(scores)
             if get_fault_plan().enabled:
                 self._guard_prefetch()
+            if self.impl == "dict":
+                for moe_idx, cache in enumerate(self.cache.layers):
+                    for e in cache.resident:
+                        if e not in self.resident[moe_idx]:
+                            self._fetch(moe_idx, e, prefetch=True)
+                return
             for moe_idx in range(len(self.moe_layer_ids)):
                 with tr.span("moe.prefetch", layer=moe_idx):
                     added = self._sync_slab(moe_idx)
@@ -747,7 +794,13 @@ class OffloadedMoEEngine:
         loaded = 0
         if warm:
             with get_tracer().span("engine.revive"):
-                for moe_idx in range(len(self.moe_layer_ids)):
+                if self.impl == "dict":
+                    for moe_idx, cache in enumerate(self.cache.layers):
+                        for e in sorted(cache.resident):
+                            if e not in self.resident[moe_idx]:
+                                self._fetch(moe_idx, e, prefetch=True)
+                                loaded += 1
+                for moe_idx in range(len(self._slabs)):
                     added = self._sync_slab(moe_idx)
                     if added:
                         self.metrics.add_prefetch_transfers(moe_idx, added,
@@ -761,8 +814,15 @@ class OffloadedMoEEngine:
     def resync_slabs(self) -> int:
         """Self-heal: force physical residency back in line with the cache
         manager (drop stale slab residents, load missing cached experts).
-        Only the watchdog calls this, on detected drift."""
+        Only the watchdog calls this, on detected drift. The dict engine
+        drops its residents outside the manager's set."""
         healed = 0
+        if self.impl == "dict":
+            for moe_idx, cache in enumerate(self.cache.layers):
+                res = self.resident[moe_idx]
+                for e in [e for e in res if e not in cache.resident]:
+                    del res[e]
+                    healed += 1
         for moe_idx, slab in enumerate(self._slabs):
             target = self.cache.layers[moe_idx].resident
             drift = len(set(slab.residents) - target)
@@ -774,9 +834,21 @@ class OffloadedMoEEngine:
         slot maps against the cache manager's accounting. Returns
         ``(severity, message)`` tuples; ``"hard"`` means corrupted
         bookkeeping. Slab residents outside the manager's set are normal
-        (the slab keeps evicted experts by compute-use recency)."""
+        (the slab keeps evicted experts by compute-use recency). The dict
+        engine's residents outside that set are ``"drift"`` (healed by
+        :meth:`resync_slabs`), more than the capacity besides them hard."""
         v: List[tuple] = [("hard", f"cache: {msg}") for msg in self.cache.audit()]
         E = self.moe_spec.num_experts
+        if self.impl == "dict":
+            for moe_idx, cache in enumerate(self.cache.layers):
+                res = self.resident[moe_idx]
+                stale = sorted(set(res) - cache.resident)
+                if stale:
+                    v.append(("drift", f"dict[L{moe_idx}]: physical residents "
+                              f"outside the cache budget: {stale[:8]}"))
+                if len(res) > self.capacity + len(stale):
+                    v.append(("hard", f"dict[L{moe_idx}]: {len(res)} residents "
+                              f"exceed capacity {self.capacity}"))
         for moe_idx, slab in enumerate(self._slabs):
             pre = f"slab[L{moe_idx}]"
             if len(slab.free) + len(slab.residents) != slab.C:
@@ -986,6 +1058,14 @@ class OffloadedMoEEngine:
         n_charged = sum(1 for e in missed if int(e) not in degraded)
         return sorted(degraded), n_charged
 
+    def _miss_verdict(self, moe_idx: int, e: int) -> bool:
+        """One miss's degrade verdict on the dict engine's token-sequential
+        path: the quality roll first (degrading by choice skips the copy
+        and its fault trial), then the fault-plan trial."""
+        if self.little is not None and self._degrade_roll(moe_idx, e):
+            return True
+        return bool(self._guard_fetch(moe_idx, [e]))
+
     def _apply_storm(self, frac: float) -> None:
         """Eviction storm: a co-tenant thrashes device memory; a ``frac``
         fraction of every layer's residents is dropped (modeled and from
@@ -995,9 +1075,10 @@ class OffloadedMoEEngine:
             for v in plan.storm_victims(cache.resident, frac):
                 cache.resident.discard(v)
                 cache.evictions += 1
-                slab = self._slabs[moe_idx]
-                if v in slab.residents:
-                    slab.drop(v)
+                if self.impl == "dict":
+                    self.resident[moe_idx].pop(v, None)
+                elif v in self._slabs[moe_idx].residents:
+                    self._slabs[moe_idx].drop(v)
 
     def _guard_prefetch(self) -> None:
         """Fault trials for the pending prefetch loads (cache residents the
@@ -1005,7 +1086,8 @@ class OffloadedMoEEngine:
         resident set before the copies, so they stay cold."""
         for moe_idx in range(len(self.moe_layer_ids)):
             target = self.cache.layers[moe_idx].resident
-            have = self._slabs[moe_idx].residents
+            have = (self.resident[moe_idx].keys() if self.impl == "dict"
+                    else self._slabs[moe_idx].residents)
             new = sorted(e for e in target if e not in have)
             for e in self._guard_fetch(moe_idx, new, prefetch=True):
                 target.discard(e)
@@ -1136,9 +1218,23 @@ class OffloadedMoEEngine:
 
     def _quant_spillover(self, ws, h2f, gates, eids, missing, lora):
         """The experts the INT4 slab could not hold (``ws``, as
-        :meth:`_spill_load` copied them), one by one (the JAX
-        ``_per_expert_contrib``): three ``qmatmul`` calls each (the
-        ``int4_matmul`` kernel on the card), with gate-massed fp32
+        :meth:`_spill_load` copied them) through :meth:`_per_expert_contrib`.
+        Returns (N, d) fp32."""
+        slot = {e: i for i, e in enumerate(missing)}
+        return self._per_expert_contrib(
+            h2f, gates, eids, missing,
+            lambda e: {k: MatmulQWeight(v.packed[slot[e]], v.scale[slot[e]],
+                                        v.zero[slot[e]], v.group) for k, v in ws.items()},
+            lora)
+
+    def _per_expert_contrib(self, h2f, gates, eids, expert_ids, weight_for, lora):
+        """The eager per-expert gated MLP of the dict engine and the INT4
+        spillover (the JAX ``_per_expert_contrib``): for each expert of
+        ``expert_ids`` in order, its weights ``weight_for(e)`` (fp ``(K,
+        N)`` tensors, or ``MatmulQWeight`` codes), three products
+        (``qmatmul`` for codes, the ``int4_matmul`` kernel on the card;
+        ``torch.matmul`` in the promoted type of the activations and the
+        weights otherwise, the reference's ``x @ w``), gate-massed fp32
         accumulation. LoRA as the reference's eager term: ``scale * ((x @
         a) @ b)`` in the promoted type of ``x`` and the adapters, cast to
         the activation type. Returns (N, d) fp32."""
@@ -1151,25 +1247,89 @@ class OffloadedMoEEngine:
         be = self.rt.kernel_backend
         sc = self.lora_scale
 
+        def mm(x, w):
+            if isinstance(w, MatmulQWeight):
+                return qmatmul(x, w, backend=be)
+            ct = torch.promote_types(x.dtype, w.dtype)
+            return x.to(ct) @ w.to(ct)
+
         def low_rank(x, t, e, out_dtype):
             a, b = lora[t]["a"][e], lora[t]["b"][e]
             ct = torch.promote_types(x.dtype, a.dtype)
             return sc * ((x.to(ct) @ a.to(ct)) @ b.to(ct)).to(out_dtype)
 
         out = torch.zeros(h2f.shape, dtype=torch.float32, device=self.device)
-        for i, e in enumerate(missing):
-            w = {k: MatmulQWeight(v.packed[i], v.scale[i], v.zero[i], v.group)
-                 for k, v in ws.items()}
-            hg = qmatmul(h2f, w["wg"], backend=be)
-            hu = qmatmul(h2f, w["wu"], backend=be)
+        for e in expert_ids:
+            w = weight_for(e)
+            hg, hu = mm(h2f, w["wg"]), mm(h2f, w["wu"])
             if lora is not None:
                 hu = hu + low_rank(h2f, "wu", e, hu.dtype)
             h_act = silu(hg) * hu
-            ye = qmatmul(h_act, w["wd"], backend=be)
+            ye = mm(h_act, w["wd"])
             if lora is not None:
                 ye = ye + low_rank(h_act, "wd", e, ye.dtype)
             out = out + mass[:, e:e + 1] * ye.float()
         return out
+
+    def _moe_forward(self, layer: dict, h2):
+        """The dict engine's MoE layer, h2 (B, T, d) -> (B, T, d): router
+        and top-k (``moe.pre``); the cache manager token by token
+        (``moe.account``: ``stream_all`` charges every assignment,
+        ``cpu_execute`` books each miss as host-executed, else each miss
+        passes its degrade verdict under the resilience hooks and is
+        fetched, in the reference's order); then the eager per-expert
+        compute over the step's routed experts less the degraded ones
+        (residents, or a transient copy), the little tier for those, and
+        the shared expert (``moe.compute``)."""
+        tr = get_tracer()
+        moe_idx, spec = layer["moe_idx"], layer["spec"].moe
+        B, T, dm = h2.shape
+        h2f = h2.reshape(B * T, dm)
+        with tr.span("moe.pre", layer=moe_idx):
+            probs = router_probs(layer["params"]["ffn"], h2f, spec)
+            gates, eids = top_k_route(probs, spec.top_k)
+            eids_np = eids.cpu().numpy()
+        m = self.metrics
+        degraded: set = set()
+        resilient = self._resilience_active()
+        # the account span brackets the loop; the demand copies nest their
+        # own moe.fetch spans inside it
+        with tr.span("moe.account", layer=moe_idx, tokens=B * T):
+            for n in range(B * T):
+                if self.stream_all:
+                    m.add_demand_transfers(moe_idx, spec.top_k,
+                                           spec.top_k * self.expert_bytes)
+                    continue
+                for e in self.cache.access(moe_idx, eids_np[n]):
+                    e = int(e)
+                    if self.cpu_execute:  # a cost model: computed on the device
+                        m.host_executed += 1
+                    elif resilient and self._miss_verdict(moe_idx, e):
+                        # abandoned fetch / quality roll: the little expert
+                        # serves, and the expert stays modeled-non-resident
+                        self.cache.layers[moe_idx].resident.discard(e)
+                        if e not in degraded:
+                            m.degraded_uses += 1
+                        degraded.add(e)
+                    else:  # a later fetch supersedes an earlier give-up
+                        degraded.discard(e)
+                        self._fetch(moe_idx, e)
+        needed = sorted(set(np.unique(eids_np).tolist()) - degraded)
+        res = self.resident[moe_idx]
+        with tr.span("moe.compute", layer=moe_idx, experts=len(needed)):
+            out = self._per_expert_contrib(
+                h2f, gates, eids, needed,
+                lambda e: res[e] if e in res else self._device_weights(moe_idx, e),
+                layer["lora"])
+            if degraded:
+                with tr.span("moe.degraded", layer=moe_idx, experts=len(degraded)):
+                    out = out + self.little.contrib(moe_idx, h2f, gates, eids,
+                                                    sorted(degraded))
+            y = out.to(h2.dtype)
+            if spec.shared_d_ff:
+                y = y + apply_mlp(layer["params"]["ffn"]["shared"], h2f)
+            self._obs_sync()
+        return y.reshape(B, T, dm)
 
     def _overflow_set(self, moe_idx: int, eids_np, missing):
         """A transient stack of the experts the slab could not hold this
@@ -1182,15 +1342,16 @@ class OffloadedMoEEngine:
         return w, soe[eids_np], np.asarray(missing, np.int64)
 
     # ------------------------------------------------------------------
-    def _forward_layers_slab(self, x, positions, caches, decode_pos=None):
+    def _forward_layers(self, x, positions, caches, decode_pos=None):
         """One engine step through every layer: attention (prefill through
         the flash kernel, or one decode position), router, MoE; a block
-        without experts runs whole (:meth:`_block_forward`)."""
+        without experts, and every block of the dict engine, runs through
+        :meth:`_block_forward`."""
         cfg = self.cfg
         tr = get_tracer()
         for idx, layer in enumerate(self.layers):
             b, p = layer["spec"], layer["params"]
-            if b.kind != "attn_moe":
+            if self.impl == "dict" or b.kind != "attn_moe":
                 x = self._block_forward(layer, x, positions, caches, idx, decode_pos)
                 continue
             with tr.span("moe.pre", layer=layer["moe_idx"]):
@@ -1218,8 +1379,10 @@ class OffloadedMoEEngine:
 
     def _block_forward(self, layer: dict, x, positions, caches, idx, decode_pos=None):
         """A block without experts (``attn_dense``, ``shared_attn``,
-        ``mamba``), whole on the device: full sequence (``decode_pos``
-        None, filling ``caches[idx]``) or one decode step."""
+        ``mamba``), whole on the device, or a dict engine's ``attn_moe``
+        block (attention and norms in a ``moe.pre`` span, then
+        :meth:`_moe_forward`): full sequence (``decode_pos`` None, filling
+        ``caches[idx]``) or one decode step."""
         cfg, b, p = self.cfg, layer["spec"], layer["params"]
         tr = get_tracer()
         if b.kind == "mamba":
@@ -1234,7 +1397,9 @@ class OffloadedMoEEngine:
                     x2 = x + y
                 self._obs_sync()
             return x2
-        with tr.span("engine.block", kind=b.kind, idx=idx):
+        moe = b.moe is not None
+        with (tr.span("moe.pre", layer=layer["moe_idx"]) if moe
+              else tr.span("engine.block", kind=b.kind, idx=idx)):
             h = rms_norm(p["ln1"], x, cfg.norm_eps)
             if decode_pos is None:
                 y, (k, v) = attend_full(p["mixer"], b.attn, h, positions, b.attn.window,
@@ -1246,6 +1411,8 @@ class OffloadedMoEEngine:
             x = x + y
             h2 = rms_norm(p["ln2"], x, cfg.norm_eps)
             self._obs_sync()
+        if moe:
+            return x + self._moe_forward(layer, h2)
         with tr.span("engine.block", kind="ffn", idx=idx):
             x = x + apply_mlp(p["ffn"], h2)
             self._obs_sync()
@@ -1292,14 +1459,14 @@ class OffloadedMoEEngine:
         elapsed = 0.0  # serial Eq.-3 seconds of this call's steps
         stopped_early = False
 
-        with tr.span("engine.prefill", batch=B, prompt_len=T, impl="slab"):
+        with tr.span("engine.prefill", batch=B, prompt_len=T, impl=self.impl):
             m.begin_step(L_moe)
             with tr.span("engine.embed"):
                 x = embed_tokens(self.params_top, cfg, toks, prefix_embed)
                 self._obs_sync()
             positions = torch.arange(P + T, device=self.device).expand(B, P + T)
             caches: List = [None] * len(self.layers)
-            x = self._forward_layers_slab(x, positions, caches)
+            x = self._forward_layers(x, positions, caches)
             m.add_flops(self._flops_per_token * B * (P + T))
             with tr.span("engine.logits"):
                 logits = compute_logits(self.params_top, cfg, x[:, -1:])
@@ -1326,12 +1493,12 @@ class OffloadedMoEEngine:
                 if frac:
                     self._apply_storm(frac)
             self._gen_step = step + 1
-            with tr.span("engine.decode_step", step=step, batch=B, impl="slab"):
+            with tr.span("engine.decode_step", step=step, batch=B, impl=self.impl):
                 m.begin_step(L_moe)
                 with tr.span("engine.embed"):
                     x = embed_tokens(self.params_top, cfg, next_tok.long())
                     self._obs_sync()
-                x = self._forward_layers_slab(x, positions, caches, decode_pos=pos)
+                x = self._forward_layers(x, positions, caches, decode_pos=pos)
                 with tr.span("engine.logits"):
                     next_tok = torch.argmax(compute_logits(self.params_top, cfg, x), -1
                                             ).to(torch.int32)

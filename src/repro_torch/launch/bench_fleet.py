@@ -73,7 +73,7 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["fcfs", "sjf", "expert-affinity"])
     ap.add_argument("--engine-impl", default="slab",
                     choices=["slab", "dict"],
-                    help="offloaded engine implementation (dict: not ported, raises)")
+                    help="offloaded engine implementation (dict: the per-expert engine)")
     ap.add_argument("--overlap", action="store_true")
     ap.add_argument("--n-requests", type=int, default=8)
     ap.add_argument("--arrival", default="poisson",

@@ -46,7 +46,8 @@ The operations stack, as the reference's launcher:
   with ``--cold-restore``); ``--audit-every N`` runs the invariant
   watchdog every N steps (and always after a restore).
 
-``--engine-impl dict`` raises in the engine (not ported).
+``--engine-impl dict`` serves through the per-expert engine (the reference's
+pre-rewrite baseline; tokens and accounting are the slab engine's).
 
 A SIGTERM mid-serve drains the server gracefully: admission stops,
 in-flight requests finish, a journaled run anchors a final checkpoint
@@ -134,7 +135,7 @@ def _parser() -> argparse.ArgumentParser:
                          "deadline pressure; offloaded path only)")
     ap.add_argument("--little-rank", type=int, default=8)
     ap.add_argument("--engine-impl", default="slab", choices=["slab", "dict"],
-                    help="offloaded engine implementation (dict: not ported, raises)")
+                    help="offloaded engine implementation (dict: the per-expert engine)")
     ap.add_argument("--faults", default=None, metavar="SPEC",
                     help="install a deterministic fault plan, e.g. "
                          "'fail=0.1,spike=0.05:2e-3,storm=0.02:0.5,seed=7' "

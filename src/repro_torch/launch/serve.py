@@ -202,7 +202,7 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         "modeled_tok_s": res["throughput_tok_s"],
         "modeled_overlapped_tok_s": res["throughput_overlapped_tok_s"],
         "prefill_s": res["prefill_s"], "decode_tok_s": res["decode_tok_s"],
-        "route_launches": res["route_launches"],
+        "route_launches": res["route_launches"], "expert_copies": res["expert_copies"],
         "wall_s": m.wall_time,
         "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
                                  if dev.type == "cuda" else None),

@@ -1,6 +1,16 @@
-"""Step builders, counterpart of ``repro/launch/steps.py`` (single
-device: the pjit shardings of ``train_shardings``/``decode_shardings``
-wait for ``distributed/``): train, fine-tune, prefill and decode.
+"""Step builders, counterpart of ``repro/launch/steps.py``: train,
+fine-tune, prefill and decode. (The reference's ``train_shardings`` and
+``decode_shardings``, placement trees for its pjit, come with the
+dry-run that calls them; here arguments are placed by
+``distribute_params`` and :func:`place_batch`.)
+
+On a sharded ``Runtime`` the steps run on DTensors: parameters (and
+optimizer moments, ``init_opt_state`` of the placed parameters) placed by
+``distributed.sharding.distribute_params``, and a batch that every rank
+holds whole placed by ``batch_pspecs`` inside the step (a ``cache`` given
+to the decode step comes from the sharded prefill). The train step
+recomputes each repeat in the backward pass there (``remat=rt.sharded``,
+as the reference).
 
 A training step is a plain function: the forward pass, ``torch.autograd.grad``
 over the trainable leaves only, then the masked AdamW update
@@ -20,13 +30,17 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.losses import combine, nll_loss
+from ..distributed.sharding import batch_pspecs, distribute
 from ..models.model import MelinoeRun, apply_model, decode_step
-from ..models.runtime import Runtime
+from ..models.runtime import Runtime, is_distributed, on_rows
 from ..training.optim import OptConfig, adamw_update, global_norm
 
 
 def _shift_loss(logits, tokens, labels, prefix_len: int):
-    """Next-token NLL with the prefix-embedding offset."""
+    """Next-token NLL with the prefix-embedding offset (on a sharded mesh
+    each rank on its own batch rows, ``on_rows``)."""
+    if is_distributed(logits):
+        return on_rows(lambda lg, lb: _shift_loss(lg, None, lb, prefix_len), logits, labels)
     if prefix_len:
         pred = logits[:, prefix_len - 1: -1]
         tgt = labels
@@ -45,6 +59,16 @@ def device_batch(batch: dict, device) -> dict:
             for k, v in batch.items() if k != "cluster"}
 
 
+def place_batch(batch: dict, rt: Runtime) -> dict:
+    """On a sharded ``rt``, the batch's tensors as DTensors of
+    ``batch_pspecs`` (each rank keeps its rows); as they are otherwise."""
+    if not rt.sharded:
+        return batch
+    specs = batch_pspecs(batch, rt)
+    return {k: v if is_distributed(v) else distribute(v, specs[k], rt.mesh)
+            for k, v in batch.items()}
+
+
 def make_loss_fn(cfg: ModelConfig, rt: Runtime, *, melinoe: bool):
     """loss_fn(params, batch) -> (loss, metrics). With ``melinoe`` (and a
     config that has a router and a MELINOE spec) the loss is Eq. 6, the
@@ -59,8 +83,10 @@ def make_loss_fn(cfg: ModelConfig, rt: Runtime, *, melinoe: bool):
             mel = MelinoeRun(spec=cfg.melinoe, cache_capacity=cfg.melinoe_cache_capacity(),
                              base_routers=extract_base_routers(params, cfg))
         logits, aux = apply_model(params, cfg, batch["tokens"], rt,
-                                  prefix_embed=batch.get("prefix_embed"), melinoe=mel)
-        nll = _shift_loss(logits, batch["tokens"], batch["labels"], cfg.prefix_len)
+                                  prefix_embed=batch.get("prefix_embed"), melinoe=mel,
+                                  remat=rt.sharded)
+        with rt.dist():
+            nll = _shift_loss(logits, batch["tokens"], batch["labels"], cfg.prefix_len)
         if use_mel:
             total = combine(nll, aux["cs_loss"], aux["rm_loss"], cfg.melinoe)
             return total, {"nll": nll, "cs_loss": aux["cs_loss"],
@@ -77,6 +103,7 @@ def build_prefill_step(cfg: ModelConfig, rt: Runtime, *, n_slots: Optional[int] 
     a cache of ``n_slots`` positions (None: the prompt's own length)."""
 
     def step(params, batch):
+        batch = place_batch(batch, rt)
         logits, aux = apply_model(params, cfg, batch["tokens"], rt,
                                   prefix_embed=batch.get("prefix_embed"),
                                   want_cache=True, cache_slots=n_slots or 0,
@@ -93,7 +120,8 @@ def build_decode_step(cfg: ModelConfig, rt: Runtime, *,
     updated in place and returned."""
 
     def step(params, batch):
-        logits, cache, _ = decode_step(params, cfg, batch["tokens"], batch["cache"], rt,
+        tokens = place_batch({"tokens": batch["tokens"]}, rt)["tokens"]
+        logits, cache, _ = decode_step(params, cfg, tokens, batch["cache"], rt,
                                        window_override=window_override)
         return logits, cache
 
@@ -158,18 +186,28 @@ def build_train_step(cfg: ModelConfig, rt: Runtime, opt_cfg: OptConfig, *,
     """Full-parameter training step (pretrain / integrated-technique mode).
     fn(params, opt_state, batch) -> (params, opt_state, metrics); params
     and opt_state are updated in place (``opt_state`` from
-    ``training.optim.init_opt_state(params)``)."""
+    ``training.optim.init_opt_state(params)``).
+    ``step.loss_and_grads(params, batch)`` gives the loss, metrics and
+    gradients (per-repeat lists at stacked leaves) without updating
+    anything."""
     loss_fn = make_loss_fn(cfg, rt, melinoe=melinoe)
 
+    def loss_and_grads(params, batch):
+        batch = place_batch(device_batch(batch, params["embed"].device), rt)
+        with rt.dist():  # the backward (remat's recompute) too
+            views = _Views(params, True, _params_stacked)
+            loss, metrics = loss_fn(views.tree, batch)
+            (grads,) = _grads(loss, [views])
+        return loss, metrics, grads
+
     def step(params, opt_state, batch):
-        batch = device_batch(batch, params["embed"].device)
-        views = _Views(params, True, _params_stacked)
-        loss, metrics = loss_fn(views.tree, batch)
-        (grads,) = _grads(loss, [views])
-        gn = global_norm(grads)
-        _, opt_state, om = adamw_update(grads, opt_state, params, opt_cfg)
+        _, metrics, grads = loss_and_grads(params, batch)
+        with rt.dist():
+            gn = global_norm(grads)
+            _, opt_state, om = adamw_update(grads, opt_state, params, opt_cfg)
         return params, opt_state, dict(_detached(metrics), grad_norm=gn, lr=om["lr"])
 
+    step.loss_and_grads = loss_and_grads
     return step
 
 

@@ -1,5 +1,7 @@
 """Block zoo: init/apply for each block kind, full-sequence and decode
-(counterpart of ``repro/models/blocks.py``, single device).
+(counterpart of ``repro/models/blocks.py``). On a sharded ``Runtime`` the
+full-sequence block constrains its residual stream to the batch spec after
+the attention and after the FFN, where the reference does.
 
 An ``attn_moe`` block runs its MoE FFN through ``moe.apply_moe`` (the
 local path, ``moe_gmm`` for the expert products); with ``want_probs`` its
@@ -96,9 +98,10 @@ def apply_block_full(params, cfg: ModelConfig, b: BlockSpec, x, positions, rt: R
         aux["kv"] = cache_from_prefill(k, v, b.attn, cache_slots or k.shape[1])
     else:
         y = attend_full(params["mixer"], b.attn, h, positions, w, rt=rt)
-    x = x + y
+    x = rt.constrain(x + y, rt.batch_spec_entry())
     h2 = rms_norm(params["ln2"], x, cfg.norm_eps)
-    return x + _ffn(params, b, h2, rt, aux, want_probs, lora, lora_scale), aux
+    x = x + _ffn(params, b, h2, rt, aux, want_probs, lora, lora_scale)
+    return rt.constrain(x, rt.batch_spec_entry()), aux
 
 
 def apply_block_decode(params, cfg: ModelConfig, b: BlockSpec, x, cache, pos,

@@ -2,10 +2,27 @@
 (counterpart of ``repro/models/common.py``)."""
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
 import torch
+
+# The reference's ``REPRO_OPT`` switches of the sharded path, read from
+# ``REPRO_TORCH_OPT`` (the same names) or set with :func:`set_opt_flags`:
+# ``moe_dispatch_shard`` (``moe.apply_moe_sharded``) and
+# ``loss_token_shard`` (``model.compute_logits``).
+OPT_FLAGS = {name: name in os.environ.get("REPRO_TORCH_OPT", "")
+             for name in ("moe_dispatch_shard", "loss_token_shard")}
+
+
+def set_opt_flags(**kw) -> None:
+    """Set ``REPRO_TORCH_OPT`` switches by name; an unknown name raises."""
+    for k, v in kw.items():
+        if k not in OPT_FLAGS:
+            raise KeyError(k)
+        OPT_FLAGS[k] = bool(v)
+
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}

@@ -92,7 +92,7 @@ def apply_mamba_full(params, x_in, spec: SSMSpec, *,
     """x_in (B, T, d) -> (B, T, d).
 
     ``rt``: Runtime for kernel dispatch (None: the plain path). The scan
-    goes through ``ssd_scan.ops.ssd`` under ``rt.kernel_backend``: the
+    goes through ``ssd_scan.ops.ssd`` under ``rt.backend``: the
     Hopper kernel for a CUDA tensor, ``ssd_chunked`` otherwise, both with
     the D skip added in fp32 so that y is rounded to the model dtype once."""
     B, T, d_model = x_in.shape
@@ -113,7 +113,7 @@ def apply_mamba_full(params, x_in, spec: SSMSpec, *,
         xs.contiguous(), dt.contiguous(), A.contiguous(), Bm.contiguous(),
         Cm.contiguous(), init=ssm_init.contiguous() if ssm_init is not None else None,
         D=params["D"].contiguous(), chunk=spec.chunk,
-        backend=rt.kernel_backend if rt is not None else "ref")
+        backend=rt.backend if rt is not None else "ref")
     y = y.reshape(B, T, di)
     y = rms_norm(params["norm_w"], y * silu(z))
     out = y @ params["out_proj"]

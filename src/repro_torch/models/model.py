@@ -1,7 +1,7 @@
 """Model assembly: parameter init, embeddings, logits, and the
 full-model (fits-in-memory) path — ``apply_model``, ``prefill``,
 ``init_cache`` and ``decode_step`` (counterpart of
-``repro/models/model.py``, single device). A Python loop over each
+``repro/models/model.py``). A Python loop over each
 group's ``repeats`` takes the place of ``lax.scan``: it indexes the
 stacked leaves (views, no copies).
 
@@ -34,6 +34,18 @@ that kind, each its own autograd leaf).
 Training (``apply_model(melinoe=MelinoeRun(...))``) adds the per-layer
 cache-simulation and rank-matching losses of every MoE block, the JAX
 ``_melinoe_layer``.
+
+On a sharded ``Runtime`` (a mesh of several devices) the same functions
+run on DTensors: parameters from ``distributed.sharding.distribute_params``,
+tokens sharded over the data axes (``batch_pspecs``), activations
+constrained where the reference constrains them (after the embedding, the
+logits), plain tensors made inside the model counted as replicated
+(``Runtime.dist``). ``param_shapes`` is the tree of ``init_params`` on the
+``meta`` device: shapes and dtypes, no storage.
+
+Under the reference's ``REPRO_OPT`` switch ``loss_token_shard``
+(``common.OPT_FLAGS``) the LM head's token dim is sharded over every
+mesh axis on a sharded mesh.
 """
 from __future__ import annotations
 
@@ -45,8 +57,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import MelinoeSpec, ModelConfig
 from .blocks import apply_block_decode, apply_block_full, init_block, init_block_cache
-from .common import cdtype, dense_init, embed_init, rms_norm, rms_norm_init, softcap
-from .runtime import Runtime, resolve_device
+from .common import OPT_FLAGS, cdtype, dense_init, embed_init, rms_norm, rms_norm_init, softcap
+from .runtime import Runtime, is_distributed, resolve_device
 
 
 @dataclass(frozen=True)
@@ -94,12 +106,29 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, dtype=None,
     return params
 
 
+def param_shapes(cfg: ModelConfig, dtype=None):
+    """The tree of :func:`init_params` on the ``meta`` device: every leaf's
+    shape and dtype (the reference's ``jax.eval_shape`` of ``init_params``),
+    no storage."""
+    return init_params(cfg, generator=torch.Generator().manual_seed(0), dtype=dtype,
+                       device="meta")
+
+
 def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embed=None):
     """Token embeddings (B, T, d), scaled where the config says so;
     ``prefix_embed`` (B, P, d), the frontend's conditioning rows (audio,
     image patches), goes ahead of them, cast to their dtype and not
-    scaled: (B, P + T, d)."""
-    x = params["embed"][tokens]
+    scaled: (B, P + T, d). A DTensor table is gathered whole and looked up
+    with ``embedding`` (rows of a replicated table: the one lookup, and
+    backward, that every torch release's DTensor propagates)."""
+    embed = params["embed"]
+    if is_distributed(embed):
+        from torch.distributed.tensor import Replicate
+
+        whole = embed.redistribute(embed.device_mesh, [Replicate()] * embed.device_mesh.ndim)
+        x = torch.nn.functional.embedding(tokens, whole)
+    else:
+        x = embed[tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
     if prefix_embed is not None:
@@ -107,11 +136,27 @@ def embed_tokens(params, cfg: ModelConfig, tokens, prefix_embed=None):
     return x
 
 
-def compute_logits(params, cfg: ModelConfig, x):
-    """Final norm + LM head; logits in fp32 (after the optional softcap)."""
+def compute_logits(params, cfg: ModelConfig, x, rt: Optional[Runtime] = None):
+    """Final norm + LM head; logits in fp32 (after the optional softcap).
+    On a sharded ``rt`` the logits are constrained to (batch over the data
+    axes, vocab over "model"), or, under ``loss_token_shard`` with more
+    than one position, computed with the tokens sharded over every axis."""
     x = rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return softcap((x @ head).float(), cfg.logit_softcap)
+    if rt is None or not rt.sharded:
+        return softcap((x @ head).float(), cfg.logit_softcap)
+    if OPT_FLAGS["loss_token_shard"] and x.shape[1] > 1:
+        # the token dim over ALL mesh axes (by default tokens go over the
+        # data axes only, so every model shard computes the full-vocab
+        # logits of its whole local batch)
+        axes = tuple(rt.data_axes) + (("model",) if rt.model_axis else ())
+        # fold tokens into the batch-of-tokens dim and shard it over all axes
+        B, T, d = x.shape
+        x2 = rt.constrain(x.reshape(B * T, d), axes)
+        logits = softcap((x2 @ head).float(), cfg.logit_softcap)
+        return rt.constrain(logits, axes, None).reshape(B, T, -1)
+    logits = softcap((x @ head).float(), cfg.logit_softcap)
+    return rt.constrain(logits, rt.batch_spec_entry(), None, rt.model_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +215,19 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
 
     ``remat`` recomputes each repeat's blocks in the backward pass
     (``torch.utils.checkpoint``, non-reentrant): activation memory of one
-    repeat instead of all."""
-    x = embed_tokens(params, cfg, tokens, prefix_embed)
+    repeat instead of all. On a sharded ``rt`` everything is a DTensor (see
+    the module's docstring)."""
+    with rt.dist():
+        return _apply_model(params, cfg, tokens, rt, prefix_embed=prefix_embed,
+                            melinoe=melinoe, collect_probs=collect_probs,
+                            want_cache=want_cache, cache_slots=cache_slots,
+                            window_override=window_override, lora=lora,
+                            lora_scale=lora_scale, remat=remat)
+
+
+def _apply_model(params, cfg, tokens, rt, *, prefix_embed, melinoe, collect_probs,
+                 want_cache, cache_slots, window_override, lora, lora_scale, remat):
+    x = rt.constrain(embed_tokens(params, cfg, tokens, prefix_embed), rt.batch_spec_entry())
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     want_probs = collect_probs or melinoe is not None
@@ -219,7 +275,7 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
         if want_cache:
             cache[f"g{gi}"] = {f"p{pi}": _stack(c) for pi, c in enumerate(kvs)}
         probs_out += [torch.stack(p) for p in probs if p]
-    logits = compute_logits(params, cfg, x)
+    logits = compute_logits(params, cfg, x, rt)
     aux = {}
     if melinoe is not None:
         n_moe = max(cfg.n_moe_layers, 1)
@@ -274,8 +330,15 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, rt: Runtime, *,
     batch in lockstep) or a (B,) tensor (per-row positions). Returns
     (logits (B,1,V), cache, aux); the cache is updated in place, and
     ``aux["probs"]`` holds the router distributions when ``collect_probs``."""
+    with rt.dist():
+        return _decode_step(params, cfg, tokens, cache, rt, window_override=window_override,
+                            collect_probs=collect_probs, lora=lora, lora_scale=lora_scale)
+
+
+def _decode_step(params, cfg, tokens, cache, rt, *, window_override, collect_probs, lora,
+                 lora_scale):
     pos = cache["pos"]
-    x = embed_tokens(params, cfg, tokens)
+    x = rt.constrain(embed_tokens(params, cfg, tokens), rt.batch_spec_entry())
     probs_out = []
     for gi, g in enumerate(cfg.layout):
         gparams, gcache = params["groups"][f"g{gi}"], cache[f"g{gi}"]
@@ -291,11 +354,11 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, rt: Runtime, *,
                     want_probs=collect_probs and b.moe is not None,
                     lora=_block_lora(lora_g, pi, r), lora_scale=lora_scale)
                 for dst, src in zip(c, new_c):
-                    if src.data_ptr() != dst.data_ptr():
+                    if src is not dst and src.data_ptr() != dst.data_ptr():
                         dst.copy_(src)
                 if "probs" in aux:
                     probs[pi].append(aux["probs"])
         probs_out += [torch.stack(p) for p in probs if p]
     cache["pos"] = pos + 1
-    return compute_logits(params, cfg, x), cache, (
+    return compute_logits(params, cfg, x, rt), cache, (
         {"probs": probs_out} if collect_probs else {})

@@ -1,5 +1,5 @@
-"""Sparsely-gated MoE layer (Eq. 1-2) with capacity-based dispatch
-(counterpart of ``repro/models/moe.py``, local path).
+"""Sparsely-gated MoE layer (Eq. 1-2) with capacity-based dispatch and
+expert parallelism (counterpart of ``repro/models/moe.py``).
 
 Dispatch is GShard-style: per-expert capacity ``cap``; overflow tokens
 are dropped (gate mass zeroed), the later tokens first. ``zero_drop``
@@ -7,9 +7,29 @@ are dropped (gate mass zeroed), the later tokens first. ``zero_drop``
 expert FFN goes through ``kernels.moe_gmm`` with each expert's kept
 count as its group size, so the kernel skips empty experts. LoRA
 adapters on the expert projections are merged into the weights before
-the grouped products, as the reference does. The sharded path (expert
-parallelism over a mesh) is not ported: ``apply_moe`` runs the local
-path.
+the grouped products, as the reference does.
+
+Two execution paths share the dispatch logic:
+  * local   — one device (the offload engine, the smoke tests);
+  * sharded — on a mesh (``apply_moe_sharded``): tokens sharded over the
+              data axes, experts over "model"; each rank dispatches its
+              own tokens into buffers for all E experts, one
+              ``all_to_all`` over the mesh's "model" group sends each
+              expert's rows to the rank that holds it, the grouped FFN
+              runs over that rank's E/ms experts, and a second
+              ``all_to_all`` brings the rows back to combine. The exchange
+              carries its gradient (:class:`_AllToAll`), so the train
+              step's backward passes through it. The local body runs on
+              one rank's plain tensors, so its products go through the
+              port's dispatch as on one device (``moe_gmm`` on the card);
+              the reference keeps that body on its reference einsum only
+              because its Pallas kernels were not validated under
+              ``shard_map``.
+
+The reference's ``REPRO_OPT`` switch ``moe_dispatch_shard``
+(``common.OPT_FLAGS``): the dispatch
+shards the tokens over the model axis as well, so the ms ranks of a data
+row no longer dispatch identical buffers.
 """
 from __future__ import annotations
 
@@ -20,10 +40,9 @@ import torch
 
 from ..configs.base import MoESpec
 from ..kernels.moe_gmm import ops as gmm_ops
-from .common import dense_init, silu
+from .common import OPT_FLAGS, dense_init, silu
 from .mlp import apply_mlp, init_mlp
-from .runtime import Runtime
-
+from .runtime import Runtime, is_distributed
 
 def init_moe(d_model: int, spec: MoESpec, dtype, *, generator, device, lead=(),
              expert_device=None):
@@ -148,7 +167,7 @@ def expert_ffn(params, buf, rt: Runtime, lora: Optional[dict] = None,
     wd = _expert_weights(params, lora, lora_scale, "wd")
 
     def gmm(a, b):
-        return gmm_ops.gmm(a, b, sizes, backend=rt.kernel_backend)
+        return gmm_ops.gmm(a, b, sizes, backend=rt.backend)
 
     h = silu(gmm(buf, wg)) * gmm(buf, wu)
     return gmm(h, wd)
@@ -180,8 +199,158 @@ def apply_moe_local(params, x2d, spec: MoESpec, rt: Runtime, lora=None,
     return y, probs
 
 
+# ---------------------------------------------------------------------------
+# Sharded path (expert parallel over "model", tokens over data axes)
+# ---------------------------------------------------------------------------
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` of equal blocks along dim 0 over ``group``
+    (block j to rank j, block i of the output from rank i), with its
+    gradient: the same exchange of the output's gradient (equal blocks make
+    the exchange its own transpose). Plain c10d collectives, which gloo
+    also runs on CUDA tensors."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        ctx.group = group
+        x = x.contiguous()  # the output takes the input's layout
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllToAll.apply(grad, ctx.group), None
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, its gradient times ``c``."""
+
+    @staticmethod
+    def forward(ctx, x, c: float):
+        ctx.c = c
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.c, None
+
+
+def _on_mesh(t, rt: Runtime):
+    """``t`` as a DTensor on ``rt.mesh`` (a plain tensor counts as
+    replicated, as inside ``Runtime.dist``)."""
+    if is_distributed(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, rt.mesh, [Replicate()] * rt.mesh.ndim, run_check=False)
+
+
+def _gathered(tree):
+    """Every DTensor leaf of ``tree`` (a dict, or None) whole on each rank."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _gathered(v) for k, v in tree.items()}
+    return tree.full_tensor() if is_distributed(tree) else tree
+
+
+def _local_on_mesh(params, x2d, spec: MoESpec, rt: Runtime, lora, lora_scale, probs):
+    """The local path on a mesh without expert parallelism (one model
+    shard, E not divisible by it, or ``pure_fsdp``): the whole batch and
+    every weight gathered on each rank, the local layer, its output
+    replicated — the single-device result, capacity drops included."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = [Replicate()] * rt.mesh.ndim
+    y, probs = apply_moe_local(_gathered(params), _gathered(x2d), spec, rt.local(),
+                               _gathered(lora), lora_scale, _gathered(probs))
+    return (DTensor.from_local(y, rt.mesh, rep, run_check=False),
+            DTensor.from_local(probs, rt.mesh, rep, run_check=False))
+
+
+def apply_moe_sharded(params, x2d, spec: MoESpec, rt: Runtime, lora=None,
+                      lora_scale: float = 1.0, probs=None):
+    """x2d (N, dm) DTensor -> (y (N, dm), probs): expert parallelism over
+    the mesh's "model" axis (the module's docstring), step by step the
+    reference's ``shard_map`` body. The capacity is computed from each
+    rank's own token count. LoRA slices ride with their experts; the
+    shared expert is added outside."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from ..distributed.sharding import placements
+
+    ms = rt.axis_size("model")
+    E = spec.num_experts
+    if ms == 1 or E % ms != 0:
+        return _local_on_mesh(params, x2d, spec, rt, lora, lora_scale, probs)
+
+    mesh = rt.mesh
+    N = x2d.shape[0]
+    data_axes = rt.data_axes
+    dp = rt.axis_size(data_axes) if data_axes else 1
+    # optimized dispatch: tokens sharded over the model axis as well
+    if OPT_FLAGS["moe_dispatch_shard"] and N % (dp * ms) == 0:
+        tok_axes, n_loc = tuple(data_axes) + ("model",), N // (dp * ms)
+    elif data_axes and N % dp == 0:
+        tok_axes, n_loc = tuple(data_axes), N // dp
+    else:
+        tok_axes, n_loc = (), N
+    tok_pl = placements((tok_axes or None,), mesh)
+
+    if probs is None:
+        probs = router_probs(params, x2d, spec)
+    gates, eids = top_k_route(probs, spec.top_k)
+    cap = _capacity(spec, n_loc, rt.zero_drop)
+
+    # The body's gradient, as the reference's shard_map transposes it:
+    # the ranks a token row is replicated over (the mesh axes not in
+    # tok_axes) each send a copy of it to the experts, so each copy's
+    # output takes 1/rep of the output's gradient, and every input's
+    # gradient is a partial sum over the mesh axes it is replicated over
+    # (the experts' over the data axes: each data row's tokens give their
+    # own part).
+    rep = mesh.size() // rt.axis_size(tok_axes) if tok_axes else mesh.size()
+
+    def local(t, pl):
+        grad_pl = [Partial() if p == Replicate() else p for p in pl]
+        return _on_mesh(t, rt).redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    ew_pl = placements(("model", None, None), mesh)
+    x_loc, g_loc, e_loc = (local(t, tok_pl) for t in (x2d, gates, eids))
+    p_loc = {k: local(params[k], ew_pl) for k in ("wg", "wu", "wd")}
+    lora_loc = (None if lora is None else
+                {k: {f: local(v, ew_pl) for f, v in ab.items()} for k, ab in lora.items()})
+    group = mesh.get_group("model")
+
+    def exchange(buf):  # (ms, ...) blocks: block j to model rank j, back in order
+        return _AllToAll.apply(buf, group)
+
+    d = make_dispatch(g_loc, e_loc, spec, cap)
+    buf = dispatch_tokens(d, x_loc, E)  # (E, cap, dm)
+    # (E = ms * E_loc, cap, dm) -> rows of my experts from every peer
+    buf = exchange(buf.reshape(ms, E // ms, cap, -1))
+    # (ms, E_loc, cap, dm): axis 0 now indexes the source shard
+    buf = buf.transpose(0, 1).reshape(E // ms, ms * cap, -1)
+    out = expert_ffn(p_loc, buf, rt.local(), lora_loc, lora_scale)
+    out = out.reshape(E // ms, ms, cap, -1).transpose(0, 1)
+    out = exchange(out).reshape(E, cap, -1)
+    y = DTensor.from_local(_ScaleGrad.apply(combine_tokens(d, out), 1.0 / rep), mesh, tok_pl,
+                           run_check=False)
+    if spec.shared_d_ff:
+        y = y + apply_mlp(params["shared"], x2d)
+    return y, probs
+
+
 def apply_moe(params, x2d, spec: MoESpec, rt: Runtime, lora=None,
               lora_scale: float = 1.0, probs=None):
-    """The local path: the port's ``Runtime`` has no mesh, so there is no
-    expert-parallel branch yet."""
+    """The sharded path on a mesh with a model axis, the local path on one
+    device."""
+    if rt.sharded and rt.model_axis is not None:
+        return apply_moe_sharded(params, x2d, spec, rt, lora, lora_scale, probs)
+    if rt.sharded:
+        return _local_on_mesh(params, x2d, spec, rt, lora, lora_scale, probs)
     return apply_moe_local(params, x2d, spec, rt, lora, lora_scale, probs)

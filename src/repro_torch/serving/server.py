@@ -421,8 +421,8 @@ class OffloadedWaveServer:
     ``little_bank``, ...). With ``little_experts`` each request's
     ``quality`` dial and its SLO's deadline pressure send misses to the
     engine's low-rank little tier; ``fetch_policy`` is the engine's retry
-    budget under an installed fault plan. ``engine_impl="dict"`` raises in
-    the engine (not ported)."""
+    budget under an installed fault plan. ``engine_impl="dict"`` serves
+    through the per-expert engine."""
 
     def __init__(
         self,

@@ -71,7 +71,7 @@ def _leaves(tree, mask=True, path=""):
 def init_opt_state(params, mask=True) -> dict:
     """``{"mu", "nu": {path: fp32 zeros}, "step": 0}`` for the leaves that
     ``mask`` (a bool or a bool tree) marks trainable."""
-    zeros = {p: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+    zeros = {p: torch.zeros_like(t, dtype=torch.float32)  # placed as t on a mesh
              for p, t, m in _leaves(params, mask) if m}
     return {"mu": zeros, "nu": {p: torch.zeros_like(z) for p, z in zeros.items()},
             "step": 0}

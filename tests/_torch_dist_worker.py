@@ -1,0 +1,118 @@
+"""The worker of ``tests/test_torch_distributed.py``: one rank of a (2, 2)
+("data", "model") mesh over gloo on the CPU. Imports torch and the port
+only (no JAX): the test computes its references in its own process.
+
+``run(rank, world, port, root)`` reads ``root/inputs.pt`` (the same on
+every rank), runs every sharded case, and rank 0 writes the gathered
+results to ``root/results.pt``. Every collective (a ``full_tensor``
+included) runs on all ranks.
+"""
+import copy
+
+import torch
+import torch.distributed as dist
+
+TRAIN_OPT = dict(peak_lr=1e-3, total_steps=10)
+DECODE_STEPS = 4
+
+
+def _full(tree):
+    """A tree of DTensors (per-repeat lists stacked) as whole tensors."""
+    if isinstance(tree, dict):
+        return {k: _full(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return torch.stack([_full(x) for x in tree])
+    return tree.full_tensor() if hasattr(tree, "full_tensor") else tree
+
+
+def _train(inp, rt):
+    """The step's gradients at the initial weights, then the step itself."""
+    from repro_torch.distributed.sharding import distribute_params
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.training.optim import OptConfig, init_opt_state
+
+    params = distribute_params(copy.deepcopy(inp["params"]), inp["cfg"], rt)
+    batch = {"tokens": inp["train_tokens"], "labels": inp["train_tokens"]}
+    step = build_train_step(inp["cfg"], rt, OptConfig(**TRAIN_OPT), melinoe=True)
+    _, _, grads = step.loss_and_grads(params, batch)
+    grads = _full(grads)
+    params, _, m = step(params, init_opt_state(params), batch)
+    return {"loss": _full(m["loss"]).item(), "grad_norm": _full(m["grad_norm"]).item(),
+            "grads": grads, "params": _full(params)}
+
+
+def _serve(inp, rt):
+    from repro_torch.distributed.sharding import distribute_params
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step
+
+    params = distribute_params(inp["params"], inp["cfg"], rt)
+    toks = inp["serve_tokens"]
+    with torch.no_grad():
+        logits, cache = build_prefill_step(inp["cfg"], rt, n_slots=toks.shape[1] + DECODE_STEPS)(
+            params, {"tokens": toks})
+        first = _full(logits)
+        out = [first.argmax(-1)]
+        decode = build_decode_step(inp["cfg"], rt)
+        for _ in range(DECODE_STEPS):
+            logits, cache = decode(params, {"tokens": out[-1], "cache": cache})
+            out.append(_full(logits).argmax(-1))
+    return {"prefill_logits": first[:, 0], "tokens": torch.cat(out, 1)}
+
+
+def _moe(inp, rt, lora=None):
+    from repro_torch.distributed.sharding import distribute
+    from repro_torch.models.moe import apply_moe_sharded
+
+    mesh = rt.mesh
+    p = inp["moe_params"]
+    dp = {"router": distribute(p["router"], (None, None), mesh),
+          **{k: distribute(p[k], ("model", None, None), mesh) for k in ("wg", "wu", "wd")}}
+    dl = None if lora is None else {
+        k: {f: distribute(t, ("model", None, None), mesh) for f, t in ab.items()}
+        for k, ab in lora.items()}
+    x = distribute(inp["moe_x"], ("data", None), mesh)
+    with rt.dist():
+        y, _ = apply_moe_sharded(dp, x, inp["moe_spec"], rt, lora=dl, lora_scale=0.5)
+    return {"y": y.full_tensor(), "placements": tuple(y.placements)}
+
+
+def run(rank, world, port, root):
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_debug_mesh
+        from repro_torch.models.common import set_opt_flags
+        from repro_torch.models.runtime import Runtime
+
+        inp = torch.load(f"{root}/inputs.pt", weights_only=False)
+        mesh = make_debug_mesh(2, 2, device_type="cpu")
+        tp = Runtime(kernel_backend="ref", device=torch.device("cpu"), mesh=mesh)
+        fsdp = Runtime(kernel_backend="ref", device=torch.device("cpu"), mesh=mesh,
+                       profile="pure_fsdp")
+        moe_rt = Runtime(kernel_backend="ref", device=torch.device("cpu"), mesh=mesh,
+                         zero_drop=True)
+        res = {"moe": _moe(inp, moe_rt), "moe_lora": _moe(inp, moe_rt, inp["moe_lora"])}
+        set_opt_flags(moe_dispatch_shard=True)
+        try:
+            res["moe_dispatch_shard"] = _moe(inp, moe_rt)
+        finally:
+            set_opt_flags(moe_dispatch_shard=False)
+        res["train_tp"] = _train(inp, tp)
+        res["serve_tp"] = _serve(inp, tp)
+        res["train_pure_fsdp"] = _train(inp, fsdp)
+        res["serve_pure_fsdp"] = _serve(inp, fsdp)
+        set_opt_flags(loss_token_shard=True)
+        try:
+            res["train_loss_token_shard"] = _train(inp, tp)
+        finally:
+            set_opt_flags(loss_token_shard=False)
+        set_opt_flags(moe_dispatch_shard=True)
+        try:
+            res["train_moe_dispatch_shard"] = _train(inp, tp)
+        finally:
+            set_opt_flags(moe_dispatch_shard=False)
+        if rank == 0:
+            torch.save(res, f"{root}/results.pt")
+    finally:
+        dist.destroy_process_group()

@@ -219,7 +219,7 @@ def test_wave_server_hooks_and_unported_knobs(wave_model):
     # the knobs of the operations stack work (their parity tests:
     # tests/test_torch_recovery.py, tests/test_torch_faults.py): a journaled,
     # checkpointed and audited serve of the remaining requests; the dict
-    # engine still raises
+    # engine serves the slab engine's tokens (tests/test_torch_engine_dict.py)
     from repro_torch.faults import FetchPolicy
     from repro_torch.recovery import RequestJournal, recover
 
@@ -236,8 +236,11 @@ def test_wave_server_hooks_and_unported_knobs(wave_model):
         assert len(state.engine["cache"]) == m["tcfg"].n_moe_layers
     for a, b in zip(res, res2):
         np.testing.assert_array_equal(a.tokens, b.tokens)
-    with pytest.raises(NotImplementedError, match="dict engine"):
-        serving.OffloadedWaveServer(m["tcfg"], m["tparams"], **kw, engine_impl="dict")
+    res3, _ = serving.OffloadedWaveServer(m["tcfg"], m["tparams"], **kw, engine_impl="dict"
+                                          ).run(serving.RequestQueue(_requests(serving, m,
+                                                                               "nolora")))
+    for a, b in zip(res2, res3):
+        np.testing.assert_array_equal(a.tokens, b.tokens)
     # the little-expert tier is ported (tests/test_torch_little*.py)
     little = serving.OffloadedWaveServer(m["tcfg"], m["tparams"], little_experts=True,
                                          little_rank=2, **kw).engine.little

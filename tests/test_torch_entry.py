@@ -95,7 +95,8 @@ def _port_files():
 
 def test_port_sources_import_neither_jax_nor_repro():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
-    bad = {str(p.relative_to(ROOT)): pat.findall(p.read_text()) for p in _port_files()}
+    files = _port_files() + sorted((ROOT / "tools").glob("*.py"))  # the chip tools too
+    bad = {str(p.relative_to(ROOT)): pat.findall(p.read_text()) for p in files}
     assert not {k: v for k, v in bad.items() if v}
 
 
@@ -124,7 +125,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.recovery.checkpoint", "repro_torch.recovery.journal",
             "repro_torch.recovery.audit", "repro_torch.fleet", "repro_torch.fleet.heartbeat",
             "repro_torch.fleet.worker", "repro_torch.fleet.supervisor",
-            "repro_torch.launch.bench_fleet"} <= set(mods)
+            "repro_torch.launch.bench_fleet", "repro_torch.distributed",
+            "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
+            "repro_torch.models.runtime"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"

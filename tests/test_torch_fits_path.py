@@ -159,10 +159,10 @@ def test_engine_and_full_path_refuse_what_is_not_ported(bridged):
     adapt), and remat (tests/test_torch_train.py; here it gives the
     logits of the plain forward), and prefix embeddings (here their rows
     reach the logits as in the JAX package; the dense and
-    prefix-conditioned configs in tests/test_torch_dense*.py). What stays
-    unported raises: the offload engine's ``impl="dict"``
-    (tests/test_torch_checkpoint.py, tests/test_torch_serving.py); expert
-    parallelism and the dry-run have no entry point in the port yet."""
+    prefix-conditioned configs in tests/test_torch_dense*.py), and the
+    offload engine's ``impl="dict"`` (tests/test_torch_engine_dict.py) and
+    expert parallelism (tests/test_torch_distributed.py). The dry-run has
+    no entry point in the port yet."""
     jcfg, tcfg, tree, params = bridged
     toks = torch.zeros((1, 4), dtype=torch.long)
     req = [Request(np.arange(4, dtype=np.int32), 3)]

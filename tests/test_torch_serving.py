@@ -164,8 +164,9 @@ def test_unported_knobs_raise(setup, tmp_path):
     knobs of ``run`` (journal, checkpoints, the watchdog, resume), the
     engine's ``fetch_policy`` and ``ServerMetrics.publish`` each work here
     (their parity tests: tests/test_torch_recovery.py,
-    tests/test_torch_faults.py, tests/test_torch_obs.py). The engine's
-    ``impl="dict"`` still raises."""
+    tests/test_torch_faults.py, tests/test_torch_obs.py), and so is the
+    engine's ``impl="dict"`` (tests/test_torch_engine_dict.py): here it
+    decodes the slab engine's tokens."""
     from repro_torch.core.offload_engine import OffloadedMoEEngine
     from repro_torch.faults import FetchPolicy
     from repro_torch.obs import MetricsRegistry
@@ -188,8 +189,11 @@ def test_unported_knobs_raise(setup, tmp_path):
     eng = OffloadedMoEEngine(cfg, params, capacity=2, device="cpu",
                              fetch_policy=FetchPolicy(max_retries=1))
     assert eng.fetch_policy.max_retries == 1
-    with pytest.raises(NotImplementedError, match="dict engine"):
-        OffloadedMoEEngine(cfg, params, capacity=2, device="cpu", impl="dict")
+    toks = np.arange(12, dtype=np.int32).reshape(2, 6) % cfg.vocab
+    by_impl = [OffloadedMoEEngine(cfg, params, capacity=2, device="cpu", impl=impl
+                                  ).generate(toks, 3) for impl in ("slab", "dict")]
+    np.testing.assert_array_equal(by_impl[0]["tokens"].numpy(), by_impl[1]["tokens"].numpy())
+    assert by_impl[0]["metrics"].transfers == by_impl[1]["metrics"].transfers > 0
     reg = MetricsRegistry()
     mt.publish(reg)
     assert reg.snapshot()['serve_requests{policy="fcfs"}'] == 2.0
