@@ -246,13 +246,38 @@ From the root of a checkout, with CUDA available:
    tensors through the host: (a)'s time is gloo's transport, not the
    card's). ``tools/ep_mesh.py`` runs the DTensor path on four cards over
    NCCL;
-22. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+22. the dry run (``repro_torch.launch.dryrun``): (a) its one-card
+   prediction held against the card, full-width OLMoE-1B-7B in bf16 on a
+   ``Runtime`` without a mesh: a prefill of 4 x 512 tokens, a decode step
+   over a 4 x 1024-slot cache, and the full-parameter MELINOE train step
+   at 8 x 128 cut to ``DRY_TRAIN_LAYERS`` layers (at full depth it is
+   predicted only: AdamW's fp32 moments alone do not leave it room on one
+   card); for each, ``dry_run`` on fake tensors of the card first, then
+   the real step on the card: predicted argument bytes within 1% of the
+   ``memory_allocated`` rise as the arguments are placed, predicted peak
+   within 10% of ``max_memory_allocated`` over the step (from before the
+   arguments), the step's own rise (peak less arguments, which the
+   arguments would otherwise hide) within 10% of the card's
+   (``max_memory_allocated`` less ``memory_allocated`` after placement),
+   and the predicted launches by op and route equal to the
+   card's; the shape function's split-K count of ``int4_matmul`` equal to
+   the kernel library's at phase 3's shapes; (b) the production meshes,
+   ``python -m repro_torch.launch.dryrun --arch olmoe`` over
+   ``decode_32k``, ``prefill_32k`` and ``long_500k`` on both meshes
+   (``train_4k`` is left out: ``DRY_CLI``), in a child process group that
+   sees no card, started right after the kernel build so that it runs
+   beside phases 3-21 (within ``DRY_CLI_LIMIT_S``): per record a device's
+   argument and peak GB, TFLOP, collective GB by kind, launches by op,
+   trace seconds and whether the peak fits the card; every record's
+   collective bytes above 0;
+23. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import gc
 import json
@@ -3253,6 +3278,227 @@ def ep_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# The dry run (phase 22)
+# ---------------------------------------------------------------------------
+
+# (a) full-width OLMoE-1B-7B, bf16, one card: (name, mode, batch, length,
+# layers). The full-parameter train step at full depth does not fit one
+# card (AdamW's fp32 moments alone are 55.4 GB): it is predicted at full
+# depth and run, and predicted again, at DRY_TRAIN_LAYERS.
+DRY_TRAIN_LAYERS = 8
+DRY_CASES = (("prefill", "prefill", 4, 512, None), ("decode", "decode", 4, 1024, None),
+             ("train", "train", TRAIN_B, TRAIN_T, DRY_TRAIN_LAYERS))
+# the gates: arguments, peak and the step's own rise (peak less arguments,
+# which the arguments do not dominate: prefill's rise is 8% of its peak,
+# decode's 0.5%) as a share of the card's
+DRY_ARG_REL, DRY_PEAK_REL, DRY_RISE_REL = 0.01, 0.10, 0.10
+# (b) the production meshes, by the command line in a child process that
+# sees no card: (shape, meshes). train_4k on the single pod is left out: its
+# trace took 237.4 s on the host of an H100 80GB HBM3 machine (the cs-loss
+# scan runs 4096 steps a layer), above the 150 s this phase allows it;
+# ``python -m repro_torch.launch.dryrun --shape train_4k`` runs it.
+DRY_CLI = (("decode_32k", "both"), ("prefill_32k", "both"), ("long_500k", "both"))
+DRY_CLI_LIMIT_S = 900
+
+
+def start_production_dryruns(out_dir: Path, arch: str = "olmoe") -> subprocess.Popen:
+    """Phase 22(b), started right after the kernel build so that it runs
+    beside phases 3-21: ``python -m repro_torch.launch.dryrun`` for each of
+    ``DRY_CLI`` in turn, in one child process group that sees no card
+    (``CUDA_VISIBLE_DEVICES`` empty: the production meshes are a host
+    computation, the fake tensors stand in for the card), one torch thread.
+    Stopped at exit whatever happens."""
+    import atexit
+    import shlex
+
+    cmds = [f"{shlex.quote(sys.executable)} -m repro_torch.launch.dryrun --arch {arch} "
+            f"--shape {shape} --mesh {mesh} --out-dir {shlex.quote(str(out_dir))}"
+            for shape, mesh in DRY_CLI]
+    env = dict(_src_env(), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = open(out_dir / "dryrun.log", "w")
+    proc = subprocess.Popen(["sh", "-c", " && ".join(cmds)], stdout=log,
+                            stderr=subprocess.STDOUT, env=env, start_new_session=True)
+    proc.t0, proc.arch = time.perf_counter(), arch
+
+    def stop():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait(10)
+        log.close()
+
+    atexit.register(stop)
+    return proc
+
+
+def _dry_inputs(cfg, mode: str, B: int, T: int, dev):
+    """The real step's arguments on the card: seeded weights (bf16), the
+    batch's tokens, the optimizer state or an empty cache of T slots."""
+    from repro_torch.models.model import init_cache, init_params
+    from repro_torch.training.optim import init_opt_state
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, generator=gen, dtype=torch.bfloat16, device=dev)
+    toks = torch.randint(0, cfg.vocab, (B, T if mode != "decode" else 1), generator=gen,
+                         device=dev)
+    if mode == "train":
+        labels = torch.randint(0, cfg.vocab, (B, T), generator=gen, device=dev)
+        return (params, init_opt_state(params), {"tokens": toks, "labels": labels})
+    if mode == "prefill":
+        return (params, {"tokens": toks})
+    return (params, {"tokens": toks, "cache": init_cache(cfg, B, T, torch.bfloat16, device=dev)})
+
+
+def _dry_card(cfg, mode: str, B: int, T: int, device: str = "cuda") -> dict:
+    """The step of ``mode`` on the card: the rise of memory_allocated as the
+    arguments are placed, max_memory_allocated over the step from before
+    them, and the launches by op and route (on the CPU, to rehearse: no
+    memory figures)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.steps import build_decode_step, build_prefill_step, build_train_step
+    from repro_torch.models.runtime import Runtime
+    from repro_torch.training import TRAIN_KERNEL_BACKEND, OptConfig
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def allocated():
+        _sync(dev)
+        return torch.cuda.memory_allocated() if cuda else 0
+
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    base = allocated()
+    args = _dry_inputs(cfg, mode, B, T, dev)
+    placed = allocated()
+    if mode == "train":
+        step = build_train_step(cfg, Runtime(kernel_backend=TRAIN_KERNEL_BACKEND, device=dev),
+                                OptConfig(total_steps=1000), melinoe=True)
+    elif mode == "prefill":
+        step = build_prefill_step(cfg, Runtime(device=dev), n_slots=T)
+    else:
+        step = build_decode_step(cfg, Runtime(device=dev))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    out = step(*args)
+    _sync(dev)
+    step_s = time.perf_counter() - t0
+    launches = dict(dispatch.LAUNCHES)
+    routes = dispatch.route_snapshot()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    logits = out[0] if mode != "train" else out[2]["loss"]
+    finite = bool(torch.isfinite(logits.float()).all())
+    del out, args
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"argument_bytes": placed - base, "peak_bytes": peak - base,
+            "step_rise_bytes": peak - placed, "launches": launches,
+            "routes": routes, "finite": finite, "step_s": step_s}
+
+
+def _gb(n) -> str:
+    return f"{n / 1e9:.3f}"
+
+
+def dryrun_phase(bg: subprocess.Popen, out_dir: Path, arch: str = "olmoe",
+                 cases=DRY_CASES, cli=DRY_CLI, device: str = "cuda") -> dict:
+    """Phase 22: (a) the dry run's one-card prediction against the card for
+    each of ``cases``, (b) the production-mesh records of ``bg``
+    (:func:`start_production_dryruns`). ``arch``/``cases``/``cli``/
+    ``device``: a smaller model, shapes and the CPU, to rehearse the
+    phase's logic (no gate in (a) there: the CPU has no memory figures and
+    launches no kernel)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels.int4_matmul.ops import fake_splits, splits
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.models.runtime import Runtime
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    total = torch.cuda.get_device_properties(0).total_memory if cuda else 80e9
+    # (a) the prediction against the card
+    rows, bad = {}, []
+    for name, mode, B, T, layers in cases:
+        shape = ShapeSpec(name, T, B, mode)
+        if layers is not None:  # the full depth, predicted only
+            full = dry_run(get_config(arch), shape, Runtime(device=torch.device("cuda")))
+            fm = full["memory_analysis"]
+            print(f"dry run {arch} {name} {B}x{T}, all {get_config(arch).n_layers} layers "
+                  f"(predicted only): arguments {_gb(fm['argument_size_in_bytes'])} GB, peak "
+                  f"{_gb(fm['peak_bytes'])} GB, fits the card's {_gb(total)} GB: "
+                  f"{fm['peak_bytes'] <= total}; trace {full['trace_s']} s")
+        cfg = get_config(_cut_arch(arch, layers))
+        pred = dry_run(cfg, shape, Runtime(device=torch.device("cuda")))
+        card = _dry_card(cfg, mode, B, T, device)
+        pm = pred["memory_analysis"]
+        arg_rel = abs(pm["argument_size_in_bytes"] - card["argument_bytes"]) / max(
+            card["argument_bytes"], 1)
+        peak_rel = abs(pm["peak_bytes"] - card["peak_bytes"]) / max(card["peak_bytes"], 1)
+        rise = pm["peak_bytes"] - pm["argument_size_in_bytes"]
+        launches = {op: n for op, n in pred["kernel_launches"].items()}
+        row = {"layers": cfg.n_layers, "batch": B, "length": T, "predicted": pred,
+               "card": card, "argument_rel": arg_rel, "peak_rel": peak_rel,
+               "step_rise_rel": abs(rise - card["step_rise_bytes"]) / max(card["step_rise_bytes"], 1),
+               "launches_equal": launches == card["launches"] and pred["kernel_routes"]
+               == {op: r for op, r in card["routes"].items() if r}}
+        rows[name] = row
+        print(f"dry run vs card, {arch} {name} {B}x{T} ({cfg.n_layers} layers): arguments "
+              f"{pm['argument_size_in_bytes']} predicted, {card['argument_bytes']} on the card "
+              f"(rel {arg_rel:.3g}); peak {pm['peak_bytes']} / {card['peak_bytes']} (rel "
+              f"{peak_rel:.3g}); the step's own rise {rise} / {card['step_rise_bytes']} (rel "
+              f"{row['step_rise_rel']:.3g}); launches {pred['kernel_routes']} / "
+              f"{card['routes']}; trace {pred['trace_s']} s, step {card['step_s']:.3f} s")
+        if cuda and not (arg_rel <= DRY_ARG_REL and peak_rel <= DRY_PEAK_REL
+                         and row["step_rise_rel"] <= DRY_RISE_REL
+                         and row["launches_equal"] and card["finite"]):
+            bad.append((name, {k: row[k] for k in ("argument_rel", "peak_rel", "step_rise_rel",
+                                                   "launches_equal")}, card["finite"]))
+    # the shape function's split-K count against the kernel library's
+    for M in (1, 4, 7, 512) if cuda else ():
+        for K, N in ((2048, 1024), (1024, 2048), (2048, 1000)):
+            for route in ("stream", "tc") if M <= 16 else ("tc",):
+                if fake_splits(route, M, K, N, 32) != splits(route, M, K, N, 32):
+                    bad.append(("int4 splits", route, M, K, N))
+    # (b) the production meshes
+    try:
+        bg.wait(max(1.0, DRY_CLI_LIMIT_S - (time.perf_counter() - bg.t0)))
+    except subprocess.TimeoutExpired:
+        raise TimeoutError(f"phase 22(b): the production dry runs took over "
+                           f"{DRY_CLI_LIMIT_S} s") from None
+    bg_s = time.perf_counter() - bg.t0
+    log = (out_dir / "dryrun.log").read_text()
+    print("\n".join(line for line in log.splitlines() if line.startswith(("[ok]", "[FAIL]"))))
+    if bg.returncode != 0:
+        raise AssertionError(f"phase 22(b): the dry run exited {bg.returncode}: {log[-3000:]}")
+    records = []
+    for shape, mesh in cli:
+        for kind in (("single", "multi") if mesh == "both" else (mesh,)):
+            rec = json.loads((out_dir / f"{bg.arch}__{shape}__{kind}.json").read_text())
+            mem, coll = rec["memory_analysis"], rec["collectives"]
+            records.append(rec)
+            print(f"dry run {bg.arch} {shape} on {kind} {rec['mesh_shape']}: a device holds "
+                  f"{_gb(mem['argument_size_in_bytes'])} GB of arguments, peaks at "
+                  f"{_gb(mem['peak_bytes'])} GB (fits {_gb(total)} GB: "
+                  f"{mem['peak_bytes'] <= total}), computes "
+                  f"{rec['flops_per_device'] / 1e12:.3f} TFLOP, sends "
+                  f"{ {k: round(v / 1e9, 3) for k, v in coll['bytes_by_kind'].items()} } GB; "
+                  f"launches {rec['kernel_launches']}; trace {rec['trace_s']} s")
+            if not coll["total_bytes"] > 0:
+                bad.append((shape, kind, "no collective bytes"))
+    if bad:
+        raise AssertionError(f"phase 22: {bad}")
+    rep = {"rows": rows, "records": records, "production_s": bg_s,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"dry-run phase: {rep['phase_s']:.1f} s (the production dry runs, started with the "
+          f"kernel build, traced {sum(r['trace_s'] for r in records):.1f} s in all and were "
+          f"collected {bg_s:.1f} s after their start)")
+    return rep
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it. ``source`` is the kernel the
@@ -3289,6 +3535,9 @@ def main() -> int:
     t0 = t_start = time.perf_counter()
     _build.lib()
     print(f"kernel build and load: {time.perf_counter() - t0:.1f} s")
+    dry_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    atexit.register(shutil.rmtree, dry_dir, True)
+    dry_bg = start_production_dryruns(dry_dir)  # phase 22(b), beside phases 3-21
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     g_cases = gmm_cases(gen)
@@ -3423,6 +3672,9 @@ def main() -> int:
     # ---- the per-expert engine beside the slab engine; expert parallelism
     dc_rep = dict_phase(slab_rows)
     ep_rep = ep_phase()
+
+    # ---- the dry run: its one-card prediction against the card; the production meshes
+    dr_rep = dryrun_phase(dry_bg, dry_dir)
     ep_paths = {}
     for r in ep_rep["ranks"]:
         gmm = r["moe"]["bfloat16"]["moe_gmm_routes"]
@@ -3472,7 +3724,8 @@ def main() -> int:
                 for n, r in f_rep["rows"].items() for w in r.get("workers", ())},
              **{f"phase20-{n}": r["launches_total"] for n, r in dc_rep["rows"].items()
                 if "launches_total" in r},
-             **{p: lr[0] for p, lr in ep_paths.items()}}
+             **{p: lr[0] for p, lr in ep_paths.items()},
+             **{f"dryrun-{n}": r["card"]["launches"] for n, r in dr_rep["rows"].items()}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
@@ -3492,7 +3745,8 @@ def main() -> int:
                 for n, r in f_rep["rows"].items() for w in r.get("workers", ())},
              **{f"phase20-{n}": r["route_launches"] for n, r in dc_rep["rows"].items()
                 if "route_launches" in r},
-             **{p: lr[1] for p, lr in ep_paths.items()}}
+             **{p: lr[1] for p, lr in ep_paths.items()},
+             **{f"dryrun-{n}": r["card"]["routes"] for n, r in dr_rep["rows"].items()}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

@@ -34,13 +34,31 @@ registry as ``kernel_dispatch_total{op, backend="hopper", route}``. The
 reference counts its selections once per compilation, inside
 ``resolve()``; the port selects per eager call, so its counter follows
 the launches, read at publish time: no registry work on the launch path.
+
+Shape functions (the dry run, ``launch/dryrun.py``): a kernel wrapper
+given fake tensors (``FakeTensorMode``: shape, dtype and device, no data)
+launches nothing. It takes its fake implementation instead: the outputs
+and any workspace the kernel would get, allocated as fake tensors; the
+route its ``route`` gives for aligned pointers (a fake tensor has no data
+pointer, and fresh allocations are 256-byte aligned); and the kernel's
+operation count, the one its bound in ``PERF.md`` uses. Such a call
+counts nowhere above. It goes to the observers of :func:`observe_fake`
+(the dry run's ledger) as (op, route, operations, bytes). A real tensor
+never takes that path. A torch without CUDA cannot index a fake CUDA
+tensor, so on such a host the dry run stands fake CPU tensors in for the
+card: inside :func:`card_stand_in` a CPU device counts as the card
+(:func:`on_card_device`, the one place that says so, which both
+:func:`use_kernel` and the wrappers' :func:`on_card` ask). A real CPU
+tensor that reaches a wrapper there raises, as ``hopper`` on the CPU does.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from ..obs.trace import get_tracer
 
@@ -81,6 +99,63 @@ def publish(registry=None) -> None:
                              op=op, backend="hopper", route=route).value = float(n)
 
 
+def is_fake(t) -> bool:
+    """True for a fake tensor (shape, dtype and device without data): a
+    kernel wrapper takes its shape function for it and launches nothing."""
+    return isinstance(t, FakeTensor)
+
+
+# the observers of fake kernel calls (see the module docstring)
+_FAKE_OBSERVERS: list = []
+
+
+def count_fake(op: str, route: str, operations: float, nbytes: float) -> None:
+    """A kernel's fake call: ``operations`` (its bound's count) and
+    ``nbytes`` (each input read once, each output written once) to every
+    observer; nothing is launched or counted in :data:`LAUNCHES`."""
+    for fn in _FAKE_OBSERVERS:
+        fn(op, route, operations, nbytes)
+
+
+@contextlib.contextmanager
+def observe_fake(fn):
+    """``fn(op, route, operations, nbytes)`` is called for every fake
+    kernel call inside the block."""
+    _FAKE_OBSERVERS.append(fn)
+    try:
+        yield
+    finally:
+        _FAKE_OBSERVERS.remove(fn)
+
+
+_stand_in_depth = 0  # written by card_stand_in() alone
+
+
+@contextlib.contextmanager
+def card_stand_in():
+    """Fake CPU tensors stand in for the card inside the block (a dry run on
+    a host whose torch has no CUDA)."""
+    global _stand_in_depth
+    _stand_in_depth += 1
+    try:
+        yield
+    finally:
+        _stand_in_depth -= 1
+
+
+def on_card_device(device) -> bool:
+    """True for the device the kernels run on: CUDA, or the CPU inside
+    :func:`card_stand_in`."""
+    kind = getattr(device, "type", device)
+    return kind == "cuda" or (_stand_in_depth > 0 and kind == "cpu")
+
+
+def on_card(t) -> bool:
+    """True for a tensor the kernels take: on :func:`on_card_device`, and a
+    CUDA tensor or a fake one (a real CPU tensor has no kernel)."""
+    return on_card_device(t.device) and (t.is_cuda or is_fake(t))
+
+
 def count_grad(op: str, product: str) -> None:
     GRAD_LAUNCHES[op][product] = GRAD_LAUNCHES[op].get(product, 0) + 1
 
@@ -101,9 +176,9 @@ def refuse_grad(op: str, *tensors) -> None:
 
 def on_one_cuda_device(*tensors) -> bool:
     """True when every tensor lies on one CUDA device (what a kernel
-    wrapper asks before it launches)."""
+    wrapper asks before it launches; see :func:`on_card`)."""
     dev = tensors[0].device
-    return dev.type == "cuda" and all(t.device == dev for t in tensors)
+    return on_card(tensors[0]) and all(t.device == dev for t in tensors)
 
 
 def route_snapshot() -> dict:
@@ -170,7 +245,7 @@ def use_kernel(op: str, spec: Optional[str], device) -> bool:
     backend = op_backend(op, spec)
     if backend == "ref":
         return False
-    on_cuda = getattr(device, "type", device) == "cuda"
+    on_cuda = on_card_device(device)
     if backend == "hopper" and not on_cuda:
         raise RuntimeError(
             f"{op}: backend 'hopper' needs a CUDA tensor, got one on {device}")

@@ -59,11 +59,22 @@ def flash(q, k, v, *, softcap: Optional[float] = None,
     return flash_hopper(q, k, v, softcap=softcap, window=window)
 
 
+def operations(B: int, T: int, Hkv: int, G: int, hd: int,
+               window: Optional[int] = None) -> float:
+    """The kernel's operation count, its bound's: QKᵀ and PV, 4 hd per
+    causal (query, key) pair inside the window."""
+    w = T if window is None else min(window, T)
+    # sum over query t of min(t + 1, w): a triangle, then full windows
+    pairs = w * (w + 1) // 2 + (T - w) * w
+    return 4.0 * hd * pairs * B * Hkv * G
+
+
 def flash_hopper(q, k, v, *, softcap: Optional[float] = None,
                  window: Optional[int] = None, force_route: Optional[str] = None):
     """Launch the Hopper kernel that :func:`route` picks, or
     ``force_route`` (to time one route against another; a route that
-    cannot take the inputs raises)."""
+    cannot take the inputs raises). Fake tensors take the shape function
+    (``dispatch``): the output, no launch."""
     dispatch.refuse_grad("flash_attn", q, k, v)
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash: want q (B,T,Hkv,G,hd), k/v (B,S,Hkv,hd); got "
@@ -72,15 +83,21 @@ def flash_hopper(q, k, v, *, softcap: Optional[float] = None,
     S = k.shape[1]
     if k.shape[0] != B or k.shape[2:] != (Hkv, hd):
         raise ValueError(f"flash: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    if not (dispatch.on_card(q) and k.device == q.device and v.device == q.device):
         raise ValueError("flash: the kernel takes CUDA tensors on one device")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash: dtypes {q.dtype}, {k.dtype}, {v.dtype}")
     if window is not None and window <= 0:
         raise ValueError(f"flash: window {window} must be positive")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    which = route(hd, q.dtype, (q.data_ptr(), k.data_ptr(), v.data_ptr()), force_route)
+    fake = dispatch.is_fake(q)
+    which = route(hd, q.dtype, () if fake else (q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                  force_route)
     out = torch.empty_like(q)
+    if fake:  # the shape function: the output, no launch
+        dispatch.count_fake("flash_attn", which, operations(B, T, Hkv, G, hd, window),
+                            (2 * q.numel() + 2 * k.numel()) * q.element_size())
+        return out
     if out.numel() == 0:
         return out
     fn = _build.entry(_ENTRIES[which, q.dtype], _ARGS)

@@ -118,12 +118,43 @@ def splits(which: str, M: int, K: int, N: int, group: int) -> int:
     return _build.entry("int4_tc_splits", [ctypes.c_int] * 3)(M, K, N)
 
 
+# the kernel library's split constants (csrc/int4_matmul_tc.cu), for the
+# shape function, which cannot ask the library: "stream" SBN, TARGET_BLOCKS,
+# SMAX_KS; "tc" TBM, TBN, TK, TC_TARGET_BLOCKS
+_SBN, _TARGET_BLOCKS, _SMAX_KS = 64, 264, 512
+_TBM, _TBN, _TK, _TC_TARGET_BLOCKS = 64, 64, 64, 256
+
+
+def fake_splits(which: str, M: int, K: int, N: int, group: int) -> int:
+    """:func:`splits` computed in Python, as ``int4_stream_split_groups``
+    and ``int4_tc_splits`` compute it (chip_smoke holds the two equal on
+    the card)."""
+    if which == "stream":
+        groups, tiles = K // group, -(-N // _SBN)
+        gps = max(1, -(-groups // -(-_TARGET_BLOCKS // tiles)))
+        if gps * group > _SMAX_KS:
+            gps = _SMAX_KS // group
+        return -(-K // (gps * group))
+    blocks = -(-N // _TBN) * -(-M // _TBM)
+    nk = -(-K // _TK)
+    n = min(max(_TC_TARGET_BLOCKS // max(blocks, 1), 1), 4, nk)
+    sps = -(-nk // n)
+    return -(-nk // sps)
+
+
+def operations(M: int, K: int, N: int) -> float:
+    """The kernel's operation count, its bound's: 2 K N per row of x."""
+    return 2.0 * M * K * N
+
+
 def int4_matmul_hopper(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
                        zero: torch.Tensor, group: int, *,
                        force_route: Optional[str] = None) -> torch.Tensor:
     """Launch the Hopper kernel that :func:`route` picks on x (M, K), or
     ``force_route`` (to time one route against another; a route that
-    cannot take the inputs raises, as does anything no kernel takes)."""
+    cannot take the inputs raises, as does anything no kernel takes).
+    Fake tensors take the shape function (``dispatch``): the output and the
+    split-K workspace, no launch."""
     dispatch.refuse_grad("int4_matmul", x, scale, zero)
     if x.dim() != 2 or packed.dim() != 2:
         raise ValueError(f"int4_matmul: want x (M,K), packed (K//2,N); got "
@@ -145,9 +176,18 @@ def int4_matmul_hopper(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tenso
                         "bf16, packed uint8, scale/zero fp32)")
     if not all(t.is_contiguous() for t in (x, packed, scale, zero)):
         raise ValueError("int4_matmul: the kernel takes contiguous tensors")
-    ptrs = (x.data_ptr(), packed.data_ptr(), scale.data_ptr(), zero.data_ptr())
+    fake = dispatch.is_fake(x)
+    ptrs = () if fake else (x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                            zero.data_ptr())
     which = route(M, K, N, group, x.dtype, ptrs, force_route)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if fake:  # the shape function: the output and the split-K workspace, no launch
+        n = fake_splits(which, M, K, N, group) if which != "fma" else 1
+        if n > 1:
+            torch.empty((n, M, N), dtype=torch.float32, device=x.device)
+        dispatch.count_fake("int4_matmul", which, operations(M, K, N), sum(
+            t.numel() * t.element_size() for t in (x, packed, scale, zero, out)))
+        return out
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream

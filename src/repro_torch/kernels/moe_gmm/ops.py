@@ -74,12 +74,15 @@ class GmmFn(torch.autograd.Function):
         a, b, group_sizes = ctx.saved_tensors
         dy = dy.contiguous()
         da = db = None
+        real = not dispatch.is_fake(dy)
         if ctx.needs_input_grad[0]:
             da = gmm_hopper(dy, b.transpose(1, 2).contiguous(), group_sizes)
-            dispatch.count_grad("moe_gmm", "dA")
+            if real:
+                dispatch.count_grad("moe_gmm", "dA")
         if ctx.needs_input_grad[1]:
             db = gmm_hopper(a.transpose(1, 2).contiguous(), dy)
-            dispatch.count_grad("moe_gmm", "dB")
+            if real:
+                dispatch.count_grad("moe_gmm", "dB")
         return da, db, None
 
 
@@ -108,6 +111,13 @@ def route(M: int, K: int, N: int, dtype: torch.dtype, ptrs=(),
     return force
 
 
+def operations(E: int, M: int, K: int, N: int, rows: Optional[int] = None) -> float:
+    """The kernel's operation count, its bound's: 2 K N per row it
+    multiplies, ``rows`` of the E x M (the group sizes' sum; all of them
+    where the sizes are not known)."""
+    return 2.0 * (E * M if rows is None else rows) * K * N
+
+
 def gmm_hopper(a: torch.Tensor, b: torch.Tensor,
                group_sizes: Optional[torch.Tensor] = None, *,
                force_route: Optional[str] = None) -> torch.Tensor:
@@ -115,28 +125,35 @@ def gmm_hopper(a: torch.Tensor, b: torch.Tensor,
     ``force_route`` (to time one route against another; a route that
     cannot take the inputs raises). The output has no gradient: under
     grad, with an input that requires it, this raises (:func:`gmm` takes
-    :class:`GmmFn` there)."""
+    :class:`GmmFn` there). Fake tensors take the shape function
+    (``dispatch``): the output and the group sizes' int32 copy, no
+    launch."""
     dispatch.refuse_grad("moe_gmm", a, b)
     if a.dim() != 3 or b.dim() != 3:
         raise ValueError(f"gmm: want a (E,M,K), b (E,K,N); got {a.shape}, {b.shape}")
     E, M, K = a.shape
     if b.shape[:2] != (E, K):
         raise ValueError(f"gmm: shape mismatch {tuple(a.shape)} @ {tuple(b.shape)}")
-    if not (a.is_cuda and b.device == a.device):
+    if not (dispatch.on_card(a) and b.device == a.device):
         raise ValueError("gmm: the kernel takes CUDA tensors on one device")
     if a.dtype not in (torch.float32, torch.bfloat16) or b.dtype != a.dtype:
         raise TypeError(f"gmm: dtypes {a.dtype}, {b.dtype} (want fp32 or bf16, equal)")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("gmm: the kernel takes contiguous a and b")
     N = b.shape[2]
-    which = route(M, K, N, a.dtype, (a.data_ptr(), b.data_ptr()), force_route)
+    fake = dispatch.is_fake(a)
+    which = route(M, K, N, a.dtype, () if fake else (a.data_ptr(), b.data_ptr()), force_route)
     sizes_ptr = None
     if group_sizes is not None:
         group_sizes = group_sizes.to(device=a.device, dtype=torch.int32).contiguous()
         if group_sizes.shape != (E,):
             raise ValueError(f"gmm: group_sizes {tuple(group_sizes.shape)} != ({E},)")
-        sizes_ptr = group_sizes.data_ptr()
+        sizes_ptr = None if fake else group_sizes.data_ptr()
     out = torch.empty((E, M, N), dtype=a.dtype, device=a.device)
+    if fake:  # the shape function: every row counts (a fake tensor's sizes have no values)
+        dispatch.count_fake("moe_gmm", which, operations(E, M, K, N),
+                            (a.numel() + b.numel() + out.numel()) * a.element_size())
+        return out
     if out.numel() == 0:
         return out
     fn = _build.entry(_ENTRIES[which, a.dtype], _ARGS)

@@ -67,15 +67,26 @@ def ssd(x, dt, A, Bm, Cm, *, init=None, D=None, chunk: int = 128,
     return ssd_hopper(x, dt, A, Bm, Cm, init, D=D, chunk=chunk)
 
 
+def operations(B: int, T: int, H: int, P: int, N: int, G: int, chunk: int) -> float:
+    """The kernel's operation count, its bound's: the chunked algorithm, C Bᵀ
+    once per group and P-wide products with each chunk's causal half, and
+    the state's two (P, N) products per row."""
+    rows = [min(chunk, T - c) for c in range(0, T, chunk)]
+    tri = sum(r * (r + 1) // 2 for r in rows)
+    return 2.0 * (B * G * tri * N + B * H * tri * P + 2 * B * H * T * P * N)
+
+
 def ssd_hopper(x, dt, A, Bm, Cm, init=None, *, D=None, chunk: int = 128,
                force_route: Optional[str] = None):
     """Launch the Hopper kernel that :func:`route` picks, or
     ``force_route`` (to time one route against another; a route that
     cannot take the inputs raises, as does anything no kernel takes). The
-    chunk is min(chunk, T) rows; the last chunk's tail is masked."""
+    chunk is min(chunk, T) rows; the last chunk's tail is masked. Fake
+    tensors take the shape function (``dispatch``): the outputs and, on
+    "tc", the state workspace, no launch."""
     dispatch.refuse_grad("ssd_scan", x, dt, A, Bm, Cm, init, D)
     if Bm.dim() == 3:  # shared across heads == one group
-        Bm, Cm = Bm[:, :, None], Cm[:, :, None]
+        Bm, Cm = Bm.unsqueeze(2), Cm.unsqueeze(2)
     if x.dim() != 4 or Bm.dim() != 4:
         raise ValueError(f"ssd: want x (B,T,H,P), Bm/Cm (B,T,G,N); got "
                          f"{tuple(x.shape)}, {tuple(Bm.shape)}")
@@ -108,9 +119,20 @@ def ssd_hopper(x, dt, A, Bm, Cm, init=None, *, D=None, chunk: int = 128,
                         "or bf16, dt/A/init/D fp32)")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("ssd: the kernel takes contiguous tensors")
-    which = route(x.dtype, [t.data_ptr() for t in tensors], force_route)
+    fake = dispatch.is_fake(x)
+    which = route(x.dtype, () if fake else [t.data_ptr() for t in tensors], force_route)
     y = torch.empty_like(x)
     fin = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    if fake:  # the shape function: outputs and workspace, no launch
+        if which == "tc":  # alive together, as during the launch
+            nc = -(-T // L)
+            ws = (torch.empty((B, nc, H, P, N), dtype=torch.float32, device=x.device),
+                  torch.empty((B, nc, H), dtype=torch.float32, device=x.device),
+                  torch.empty((B, H), dtype=torch.int32, device=x.device))
+            del ws
+        dispatch.count_fake("ssd_scan", which, operations(B, T, H, P, N, G, L),
+                            sum(t.numel() * t.element_size() for t in tensors + [y, fin]))
+        return y, fin
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             init.data_ptr() if init is not None else None,

@@ -1,8 +1,15 @@
 """Step builders, counterpart of ``repro/launch/steps.py``: train,
-fine-tune, prefill and decode. (The reference's ``train_shardings`` and
-``decode_shardings``, placement trees for its pjit, come with the
-dry-run that calls them; here arguments are placed by
-``distribute_params`` and :func:`place_batch`.)
+fine-tune, prefill and decode, and the placement trees of their
+arguments.
+
+The placement trees are the reference's ``NamedSharding`` trees for its
+pjit: :func:`ns_tree` turns a spec tree into a tree of DTensor
+placements (a tuple of ``Placement``, one per mesh dim, at each spec),
+:func:`train_shardings` gives those of (params, opt state, batch) and
+:func:`decode_shardings` those of (params, {tokens, cache}). The dry run
+(``launch/dryrun.py``) places its arguments through them; a step run on
+whole tensors places them itself (``distribute_params``,
+:func:`place_batch`), to the same placements.
 
 On a sharded ``Runtime`` the steps run on DTensors: parameters (and
 optimizer moments, ``init_opt_state`` of the placed parameters) placed by
@@ -30,8 +37,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.losses import combine, nll_loss
-from ..distributed.sharding import batch_pspecs, distribute
-from ..models.model import MelinoeRun, apply_model, decode_step
+from ..distributed.sharding import (batch_pspecs, cache_pspecs, distribute, param_pspecs,
+                                    placements)
+from ..models.model import MelinoeRun, apply_model, decode_step, param_shapes
 from ..models.runtime import Runtime, is_distributed, on_rows
 from ..training.optim import OptConfig, adamw_update, global_norm
 
@@ -67,6 +75,35 @@ def place_batch(batch: dict, rt: Runtime) -> dict:
     specs = batch_pspecs(batch, rt)
     return {k: v if is_distributed(v) else distribute(v, specs[k], rt.mesh)
             for k, v in batch.items()}
+
+
+def ns_tree(rt: Runtime, spec_tree):
+    """A spec tree (dicts and named tuples of specs) -> the same tree of
+    placements on ``rt.mesh`` (a ``DeviceMesh`` or an ``AbstractMesh``)."""
+    if isinstance(spec_tree, dict):
+        return {k: ns_tree(rt, v) for k, v in spec_tree.items()}
+    if hasattr(spec_tree, "_fields"):  # KVCache, MambaState
+        return type(spec_tree)(*(ns_tree(rt, v) for v in spec_tree))
+    return placements(spec_tree, rt.mesh)
+
+
+def train_shardings(cfg: ModelConfig, rt: Runtime, batch_specs):
+    """(params, opt_state, batch) placement trees for the train step; the
+    moments ``mu``/``nu`` as the parameters, ``step`` replicated (the
+    port's ``training.optim.init_opt_state`` of placed parameters keys its
+    moments by leaf path and places each as its parameter)."""
+    pspec = param_pspecs(param_shapes(cfg), cfg, rt)
+    opt_spec = {"mu": pspec, "nu": pspec, "step": ()}
+    return (ns_tree(rt, pspec), ns_tree(rt, opt_spec),
+            ns_tree(rt, batch_pspecs(batch_specs, rt)))
+
+
+def decode_shardings(cfg: ModelConfig, rt: Runtime, batch_specs):
+    """(params, {tokens, cache}) placement trees for the decode step."""
+    pspec = param_pspecs(param_shapes(cfg), cfg, rt)
+    bspec = {"tokens": batch_pspecs(batch_specs["tokens"], rt),
+             "cache": cache_pspecs(batch_specs["cache"], rt)}
+    return ns_tree(rt, pspec), ns_tree(rt, bspec)
 
 
 def make_loss_fn(cfg: ModelConfig, rt: Runtime, *, melinoe: bool):

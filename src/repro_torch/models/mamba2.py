@@ -20,6 +20,7 @@ from ..configs.base import SSMSpec
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan import ref as ssd_ref
 from .common import dense_init, rms_norm, rms_norm_init, silu
+from .runtime import is_distributed
 
 
 class MambaState(NamedTuple):
@@ -94,7 +95,19 @@ def apply_mamba_full(params, x_in, spec: SSMSpec, *,
     ``rt``: Runtime for kernel dispatch (None: the plain path). The scan
     goes through ``ssd_scan.ops.ssd`` under ``rt.backend``: the
     Hopper kernel for a CUDA tensor, ``ssd_chunked`` otherwise, both with
-    the D skip added in fp32 so that y is rounded to the model dtype once."""
+    the D skip added in fp32 so that y is rounded to the model dtype once.
+    On a DTensor rank by rank (:func:`on_rows`), the scan under
+    ``rt.local()``'s backend."""
+    if is_distributed(x_in):
+        rl = rt.local() if rt is not None else None
+
+        def local(p, x, st):
+            out = apply_mamba_full(p, x, spec, init_state=st, return_state=return_state,
+                                   rt=rl)
+            return out if return_state else (out, None)
+
+        y, st = on_rows(local, params, x_in, init_state)
+        return (y, st) if return_state else y
     B, T, d_model = x_in.shape
     di = spec.d_inner(d_model)
     nh = spec.n_heads(d_model)
@@ -122,8 +135,45 @@ def apply_mamba_full(params, x_in, spec: SSMSpec, *,
     return out
 
 
+def on_rows(fn, params, x, state: Optional[MambaState] = None):
+    """``fn(params, x, state)`` -> (y, new state or None) of a mixer whose
+    input ``x`` is a DTensor, rank by rank: each rank takes its own batch
+    rows of ``x`` and ``state`` (sharded as ``x``'s dim 0, replicated on
+    every other mesh dim) and the mixer's weights whole, and runs ``fn`` on
+    local tensors; y and the new state come back as DTensors of those rows
+    (the state in ``state``'s own placements where one is given). The
+    weights' gradients are partial sums over the mesh dims that split the
+    rows. DTensor's strategies for the mixer's slices and reshapes of its
+    model-sharded conv dim send torch's redistribution planner into a loop
+    without end (torch 2.13), so the mixer does not run on DTensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
+    whole = (Replicate(),) * mesh.ndim
+    partial = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
+
+    def local(t, pl, grad_pl):
+        return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
+
+    w = {k: local(v, whole, partial) for k, v in params.items()}
+    st = None if state is None else MambaState(*(local(t, rows, rows) for t in state))
+    y, new = fn(w, local(x, rows, rows), st)
+    y = DTensor.from_local(y, mesh, rows, run_check=False)
+    if new is not None:
+        new = MambaState(*(DTensor.from_local(t, mesh, rows, run_check=False)
+                           for t in new))
+        if state is not None:
+            new = MambaState(*(t.redistribute(mesh, s.placements)
+                               for t, s in zip(new, state)))
+    return y, new
+
+
 def apply_mamba_decode(params, x_in, state: MambaState, spec: SSMSpec):
-    """Single-token step. x_in (B, 1, d) -> (out (B,1,d), new state)."""
+    """Single-token step. x_in (B, 1, d) -> (out (B,1,d), new state); on a
+    DTensor rank by rank (:func:`on_rows`)."""
+    if is_distributed(x_in):
+        return on_rows(lambda p, x, s: apply_mamba_decode(p, x, s, spec), params, x_in, state)
     B, _, d_model = x_in.shape
     di = spec.d_inner(d_model)
     nh = spec.n_heads(d_model)

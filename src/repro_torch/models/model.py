@@ -56,6 +56,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import MelinoeSpec, ModelConfig
+from ..kernels import dispatch
 from .blocks import apply_block_decode, apply_block_full, init_block, init_block_cache
 from .common import OPT_FLAGS, cdtype, dense_init, embed_init, rms_norm, rms_norm_init, softcap
 from .runtime import Runtime, is_distributed, resolve_device
@@ -354,7 +355,8 @@ def _decode_step(params, cfg, tokens, cache, rt, *, window_override, collect_pro
                     want_probs=collect_probs and b.moe is not None,
                     lora=_block_lora(lora_g, pi, r), lora_scale=lora_scale)
                 for dst, src in zip(c, new_c):
-                    if src is not dst and src.data_ptr() != dst.data_ptr():
+                    if src is not dst and (is_distributed(src) or dispatch.is_fake(src)
+                                           or src.data_ptr() != dst.data_ptr()):
                         dst.copy_(src)
                 if "probs" in aux:
                     probs[pi].append(aux["probs"])

@@ -333,8 +333,10 @@ def apply_moe_sharded(params, x2d, spec: MoESpec, rt: Runtime, lora=None,
     buf = dispatch_tokens(d, x_loc, E)  # (E, cap, dm)
     # (E = ms * E_loc, cap, dm) -> rows of my experts from every peer
     buf = exchange(buf.reshape(ms, E // ms, cap, -1))
-    # (ms, E_loc, cap, dm): axis 0 now indexes the source shard
-    buf = buf.transpose(0, 1).reshape(E // ms, ms * cap, -1)
+    # (ms, E_loc, cap, dm): axis 0 now indexes the source shard; with one
+    # row a shard (cap 1) the reshape is a strided view, and the kernel takes
+    # contiguous rows
+    buf = buf.transpose(0, 1).reshape(E // ms, ms * cap, -1).contiguous()
     out = expert_ffn(p_loc, buf, rt.local(), lora_loc, lora_scale)
     out = out.reshape(E // ms, ms, cap, -1).transpose(0, 1)
     out = exchange(out).reshape(E, cap, -1)

@@ -76,6 +76,26 @@ def _moe(inp, rt, lora=None):
     return {"y": y.full_tensor(), "placements": tuple(y.placements)}
 
 
+def run_model(rank, world, port, root):
+    """The model cases alone (train and serve under the "tp" profile), for
+    the config in ``root/inputs.pt``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_debug_mesh
+        from repro_torch.models.runtime import Runtime
+
+        inp = torch.load(f"{root}/inputs.pt", weights_only=False)
+        tp = Runtime(kernel_backend="ref", device=torch.device("cpu"),
+                     mesh=make_debug_mesh(2, 2, device_type="cpu"))
+        res = {"train_tp": _train(inp, tp), "serve_tp": _serve(inp, tp)}
+        if rank == 0:
+            torch.save(res, f"{root}/results.pt")
+    finally:
+        dist.destroy_process_group()
+
+
 def run(rank, world, port, root):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,

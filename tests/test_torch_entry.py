@@ -127,7 +127,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.fleet.worker", "repro_torch.fleet.supervisor",
             "repro_torch.launch.bench_fleet", "repro_torch.distributed",
             "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
-            "repro_torch.models.runtime"} <= set(mods)
+            "repro_torch.models.runtime", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
