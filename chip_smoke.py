@@ -3057,6 +3057,19 @@ def dict_phase(slab: dict, arch: str = "olmoe", device: str = "cuda",
 # versions, only the order of sums differs). The parameters after a first
 # AdamW step are not compared: it moves each element by about lr x the
 # sign of its gradient, so a gradient off by a factor passes such a check.
+# (d) the head-parallel Mamba2 mixer (models/mamba2.py::apply_mamba_sharded)
+# on the card: one mixer at EP_MAMBA_ARCH's full width (d 3584, 112 heads,
+# 56 a rank), its weights placed by distributed/sharding.py's rules, a
+# prefill of EP_MAMBA_B x EP_MAMBA_T then EP_MAMBA_DECODE steps from the
+# state it returns, against the local mixer on the card on the same weights
+# and inputs: y of every step and the state after each (each rank's shard),
+# fp32 within EP_FP32_REL (the order of sums differs: the gated norm's
+# squares and the output are summed over the ranks), bf16 within
+# LOGITS_REL_TOL; ssd_scan launches per rank by route ("tc" in bf16, one a
+# prefill: each rank's heads). Its collectives are c10d ones (all_to_all,
+# all_reduce) on the card's tensors.
+EP_MAMBA_ARCH = "zamba2-7b"
+EP_MAMBA_B, EP_MAMBA_T, EP_MAMBA_DECODE = 4, 512, 8
 EP_RANKS = 2
 EP_FP32_REL = 1e-5
 EP_DECODE = 8
@@ -3110,8 +3123,80 @@ def _ep_serve(cfg, params, host, single, toks, steps: int) -> dict:
             "host_decode_tok_s": sharded["decode_tok_s"]}
 
 
+def _shard_of(whole, dt):
+    """This rank's part of ``whole`` as the DTensor ``dt`` splits it (its
+    local tensor's place), without a collective."""
+    mesh = dt.device_mesh
+    for i, p in enumerate(dt.placements):
+        if p.is_shard():
+            n = whole.shape[p.dim] // mesh.shape[i]
+            whole = whole.narrow(p.dim, mesh.get_local_rank(i) * n, n)
+    return whole
+
+
+def _ep_mamba(mesh, dev, arch: str = EP_MAMBA_ARCH) -> dict:
+    """Phase 21(d) on this rank (see EP_MAMBA_ARCH)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import distribute, leaf_spec
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import mamba2
+    from repro_torch.models.runtime import Runtime
+
+    cfg = get_config(arch)
+    spec, d = cfg.block_defs["mamba"].ssm, cfg.d_model
+    rt, one = Runtime(device=dev, mesh=mesh), Runtime(device=dev)
+    rows = ("data", None, None)
+    out = {}
+    for dtype, tol in ((torch.float32, EP_FP32_REL), (torch.bfloat16, LOGITS_REL_TOL)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = mamba2.init_mamba(d, spec, dtype, generator=gen, device=dev)
+        p["norm_w"] = (0.1 * torch.randn(p["norm_w"].shape, generator=gen, device=dev)
+                       ).to(dtype)  # zeros at init: a wrong slice of it would not show
+        p["conv_b"] = (0.1 * torch.randn(p["conv_b"].shape, generator=gen, device=dev)
+                       ).to(dtype)
+        x = torch.randn((EP_MAMBA_B, EP_MAMBA_T, d), generator=gen, device=dev).to(dtype)
+        xs = [torch.randn((EP_MAMBA_B, 1, d), generator=gen, device=dev).to(dtype)
+              for _ in range(EP_MAMBA_DECODE)]
+        with torch.no_grad():
+            y1, st1 = mamba2.apply_mamba_full(p, x, spec, return_state=True, rt=one)
+            want = [(y1, st1)]
+            for xt in xs:
+                want.append(mamba2.apply_mamba_decode(p, xt, want[-1][1], spec))
+            dp = {k: distribute(v, rt.prune_spec(v.shape, leaf_spec(
+                f"mixer/{k}", v, fsdp=False, data_axes=rt.data_axes)), mesh)
+                for k, v in p.items()}
+            _sync(dev)
+            dispatch.reset_launches()
+            t1 = time.perf_counter()
+            with rt.dist():
+                got = [mamba2.apply_mamba_full(dp, distribute(x, rows, mesh), spec,
+                                               return_state=True, rt=rt)]
+                ssd = dict(dispatch.ROUTE_LAUNCHES["ssd_scan"])
+                _sync(dev)
+                t2 = time.perf_counter()
+                for xt in xs:
+                    got.append(mamba2.apply_mamba_decode(dp, distribute(xt, rows, mesh),
+                                                         got[-1][1], spec, rt=rt))
+            _sync(dev)
+            t3 = time.perf_counter()
+        # the data axis is 1: a rank's y is the whole; its state its shard
+        rel = [max(_rel(gy.to_local(), wy),
+                   *(_rel(g.to_local(), _shard_of(w, g)) for g, w in zip(gs, ws)))
+               for (gy, gs), (wy, ws) in zip(got, want)]
+        out[str(dtype).replace("torch.", "")] = {
+            "rel_prefill": rel[0], "rel_decode_worst": max(rel[1:]), "tol": tol,
+            "ssd_scan_routes": ssd, "prefill_s": t2 - t1,
+            "decode_step_ms": 1e3 * (t3 - t2) / EP_MAMBA_DECODE,
+            "heads": [mamba2.head_block(spec.n_heads(d), mesh.shape[-1], r)
+                      for r in range(mesh.shape[-1])],
+            "placements": {k: str(tuple(v.placements)) for k, v in dp.items()},
+            "state_placements": [str(tuple(t.placements)) for t in got[-1][1]]}
+        del p, dp, x, xs, want, got
+    return out
+
+
 def _ep_worker(rank: int, world: int, port: int, out_dir: str, arch: str,
-               device: str) -> None:
+               device: str, mamba_arch: str = EP_MAMBA_ARCH) -> None:
     """One rank of phase 21; rank 0 writes ``out_dir/ep.json``."""
     import torch.distributed as dist
 
@@ -3171,6 +3256,11 @@ def _ep_worker(rank: int, world: int, port: int, out_dir: str, arch: str,
             del p, x, dp, dx, y, y_loc
         rep["moe"] = moe
 
+        # ---- (d) the head-parallel Mamba2 mixer on the card, zamba2-7b's width
+        t1 = time.perf_counter()
+        rep["mamba"] = _ep_mamba(mesh, dev, mamba_arch)
+        rep["mamba_s"] = time.perf_counter() - t1
+
         # ---- (b) the sharded model path on the host mesh, fp32, first layers
         cut = get_config(_cut_arch(arch, EP_FP32_LAYERS))
         fp32 = init_params(cut, generator=torch.Generator(device=dev).manual_seed(0),
@@ -3220,10 +3310,12 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def ep_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
+def ep_phase(arch: str = "olmoe", device: str = "cuda",
+             mamba_arch: str = EP_MAMBA_ARCH) -> dict:
     """Phase 21 (see EP_RANKS): spawns the two ranks, waits for them within
-    EP_LIMIT_S, stops both, and gates their report. ``arch``/``device``: a
-    smaller model or the CPU, to rehearse the phase's logic."""
+    EP_LIMIT_S, stops both, and gates their report. ``arch``/``device``/
+    ``mamba_arch``: smaller models or the CPU, to rehearse the phase's
+    logic."""
     import socket
 
     t_phase = time.perf_counter()
@@ -3232,7 +3324,8 @@ def ep_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
         port = s.getsockname()[1]
     with tempfile.TemporaryDirectory() as d:
         ctx = torch.multiprocessing.start_processes(
-            _ep_worker, args=(EP_RANKS, port, d, arch, device), nprocs=EP_RANKS,
+            _ep_worker, args=(EP_RANKS, port, d, arch, device, mamba_arch),
+            nprocs=EP_RANKS,
             join=False, start_method="spawn")
         try:
             while not ctx.join(timeout=1.0):
@@ -3254,6 +3347,12 @@ def ep_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
                 bad.append((r["rank"], "moe", name, m))
         if device == "cuda" and set(r["moe"]["bfloat16"]["moe_gmm_routes"]) != {"tc"}:
             bad.append((r["rank"], "moe bf16 routes", r["moe"]["bfloat16"]["moe_gmm_routes"]))
+        for name, m in r["mamba"].items():
+            if not (m["rel_prefill"] <= m["tol"] and m["rel_decode_worst"] <= m["tol"]):
+                bad.append((r["rank"], "mamba", name, m))
+            want = {"tc": 1} if name == "bfloat16" else {"fma": 1}
+            if device == "cuda" and m["ssd_scan_routes"] != want:
+                bad.append((r["rank"], "mamba ssd_scan routes", name, m["ssd_scan_routes"]))
         t, s32 = r["train"], r["serve_fp32"]
         if not (t["leaves_equal"] and t["loss_rel"] <= EP_LOSS_REL
                 and t["grad_rel_worst_leaf"] <= GRAD_REL_TOL
@@ -3271,6 +3370,14 @@ def ep_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
           f"{r0['train']['loss_rel']:.3g}, gradients worst leaf rel "
           f"{r0['train']['grad_rel_worst_leaf']:.3g} (tol {GRAD_REL_TOL}), grad_norm rel "
           f"{r0['train']['grad_norm_rel']:.3g}")
+    for r in reps:
+        print(f"head-parallel Mamba2 mixer ({mamba_arch} width) on the card, rank "
+              f"{r['rank']}: " + "; ".join(
+                  f"{k} prefill rel {m['rel_prefill']:.3g}, decode worst rel "
+                  f"{m['rel_decode_worst']:.3g} (tol {m['tol']}), ssd_scan "
+                  f"{m['ssd_scan_routes']}, prefill {m['prefill_s']:.4f} s, decode "
+                  f"{m['decode_step_ms']:.3f} ms a step" for k, m in r["mamba"].items())
+              + f"; part (d) {r['mamba_s']:.1f} s")
     if bad:
         raise AssertionError(f"phase 21: {bad}")
     rep = {"ranks": reps, "phase_s": time.perf_counter() - t_phase}
@@ -3681,6 +3788,10 @@ def main() -> int:
         ep_paths[f"ep-moe-bf16-rank{r['rank']}"] = (
             {"moe_gmm": sum(gmm.values()), "flash_attn": 0, "int4_matmul": 0, "ssd_scan": 0},
             {"moe_gmm": gmm, "flash_attn": {}, "int4_matmul": {}, "ssd_scan": {}})
+        ssd = r["mamba"]["bfloat16"]["ssd_scan_routes"]
+        ep_paths[f"ep-mamba-bf16-rank{r['rank']}"] = (
+            {"moe_gmm": 0, "flash_attn": 0, "int4_matmul": 0, "ssd_scan": sum(ssd.values())},
+            {"moe_gmm": {}, "flash_attn": {}, "int4_matmul": {}, "ssd_scan": ssd})
 
     kernels = [
         kernel_entry("moe_gmm", "src/repro_torch/kernels/moe_gmm/csrc/gmm_tc.cu",

@@ -238,6 +238,42 @@ def _dtensor_metadata_hidden(ledger: Ledger):
             strided.local_shard_size_and_offset = raw
 
 
+@contextlib.contextmanager
+def tally(module, names, into: dict):
+    """Inside the block, every call of ``module.<name>`` (``name`` in
+    ``names``, looked up in ``module`` at call time) adds to ``into`` what
+    the :class:`Ledger` on the dispatch stack counts during it: ``calls``,
+    ``flops`` and ``coll_bytes`` (a dict by kind). The originals come back
+    on exit."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    into.setdefault("calls", 0)
+    into.setdefault("flops", 0.0)
+    into.setdefault("coll_bytes", defaultdict(float))
+
+    def counted(fn):
+        def run(*a, **k):
+            led = next(m for m in _get_current_dispatch_mode_stack() if isinstance(m, Ledger))
+            f0, c0 = led.flops, dict(led.coll_bytes)
+            try:
+                return fn(*a, **k)
+            finally:
+                into["calls"] += 1
+                into["flops"] += led.flops - f0
+                for kind, n in led.coll_bytes.items():
+                    into["coll_bytes"][kind] += n - c0.get(kind, 0.0)
+        return run
+
+    raw = {n: getattr(module, n) for n in names}
+    for n, fn in raw.items():
+        setattr(module, n, counted(fn))
+    try:
+        yield into
+    finally:
+        for n, fn in raw.items():
+            setattr(module, n, fn)
+
+
 def _placed(meta_tree, pl_tree, rt: Runtime):
     """Fake tensors on the card of ``meta_tree``'s shapes and dtypes: on a
     mesh rank 0's shard of each as a DTensor of its placements, whole

@@ -114,7 +114,7 @@ def apply_block_decode(params, cfg: ModelConfig, b: BlockSpec, x, cache, pos,
     aux = {}
     h = rms_norm(params["ln1"], x, cfg.norm_eps)
     if b.kind == "mamba":
-        y, new_state = apply_mamba_decode(params["mixer"], h, cache, b.ssm)
+        y, new_state = apply_mamba_decode(params["mixer"], h, cache, b.ssm, rt=rt)
         return x + y, new_state, aux
 
     w = effective_window(b, window_override)

@@ -11,6 +11,7 @@ state (B, H, P, N) fp32.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -96,17 +97,11 @@ def apply_mamba_full(params, x_in, spec: SSMSpec, *,
     goes through ``ssd_scan.ops.ssd`` under ``rt.backend``: the
     Hopper kernel for a CUDA tensor, ``ssd_chunked`` otherwise, both with
     the D skip added in fp32 so that y is rounded to the model dtype once.
-    On a DTensor rank by rank (:func:`on_rows`), the scan under
-    ``rt.local()``'s backend."""
+    On a DTensor head-parallel over the mesh's "model" axis
+    (:func:`apply_mamba_sharded`), the scan under ``rt.local()``'s backend."""
     if is_distributed(x_in):
-        rl = rt.local() if rt is not None else None
-
-        def local(p, x, st):
-            out = apply_mamba_full(p, x, spec, init_state=st, return_state=return_state,
-                                   rt=rl)
-            return out if return_state else (out, None)
-
-        y, st = on_rows(local, params, x_in, init_state)
+        y, st = apply_mamba_sharded(params, x_in, spec, rt, state=init_state,
+                                    want_state=return_state)
         return (y, st) if return_state else y
     B, T, d_model = x_in.shape
     di = spec.d_inner(d_model)
@@ -135,45 +130,12 @@ def apply_mamba_full(params, x_in, spec: SSMSpec, *,
     return out
 
 
-def on_rows(fn, params, x, state: Optional[MambaState] = None):
-    """``fn(params, x, state)`` -> (y, new state or None) of a mixer whose
-    input ``x`` is a DTensor, rank by rank: each rank takes its own batch
-    rows of ``x`` and ``state`` (sharded as ``x``'s dim 0, replicated on
-    every other mesh dim) and the mixer's weights whole, and runs ``fn`` on
-    local tensors; y and the new state come back as DTensors of those rows
-    (the state in ``state``'s own placements where one is given). The
-    weights' gradients are partial sums over the mesh dims that split the
-    rows. DTensor's strategies for the mixer's slices and reshapes of its
-    model-sharded conv dim send torch's redistribution planner into a loop
-    without end (torch 2.13), so the mixer does not run on DTensors."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-
-    mesh = x.device_mesh
-    rows = tuple(p if p == Shard(0) else Replicate() for p in x.placements)
-    whole = (Replicate(),) * mesh.ndim
-    partial = tuple(Partial() if p == Shard(0) else Replicate() for p in rows)
-
-    def local(t, pl, grad_pl):
-        return t.redistribute(mesh, pl).to_local(grad_placements=grad_pl)
-
-    w = {k: local(v, whole, partial) for k, v in params.items()}
-    st = None if state is None else MambaState(*(local(t, rows, rows) for t in state))
-    y, new = fn(w, local(x, rows, rows), st)
-    y = DTensor.from_local(y, mesh, rows, run_check=False)
-    if new is not None:
-        new = MambaState(*(DTensor.from_local(t, mesh, rows, run_check=False)
-                           for t in new))
-        if state is not None:
-            new = MambaState(*(t.redistribute(mesh, s.placements)
-                               for t, s in zip(new, state)))
-    return y, new
-
-
-def apply_mamba_decode(params, x_in, state: MambaState, spec: SSMSpec):
+def apply_mamba_decode(params, x_in, state: MambaState, spec: SSMSpec, rt=None):
     """Single-token step. x_in (B, 1, d) -> (out (B,1,d), new state); on a
-    DTensor rank by rank (:func:`on_rows`)."""
+    DTensor head-parallel over ``rt``'s "model" axis
+    (:func:`apply_mamba_sharded`)."""
     if is_distributed(x_in):
-        return on_rows(lambda p, x, s: apply_mamba_decode(p, x, s, spec), params, x_in, state)
+        return apply_mamba_sharded(params, x_in, spec, rt, state=state, decode=True)
     B, _, d_model = x_in.shape
     di = spec.d_inner(d_model)
     nh = spec.n_heads(d_model)
@@ -200,3 +162,382 @@ def apply_mamba_decode(params, x_in, state: MambaState, spec: SSMSpec):
     y = y.reshape(B, 1, di).to(x_in.dtype)
     y = rms_norm(params["norm_w"], y * silu(z))
     return y @ params["out_proj"], MambaState(conv=new_conv, ssm=s_new)
+
+
+# ---------------------------------------------------------------------------
+# On a mesh: heads over the "model" axis
+# ---------------------------------------------------------------------------
+#
+# Model rank m of ms owns a contiguous block of heads (the first nh % ms ranks
+# one head more) and computes z, x, dt, the conv of its x channels, the scan,
+# the D skip, the gate and its rows of out_proj for them; B and C, which every
+# head reads, every rank computes whole. The weights and the state stay in
+# ``distributed/sharding.py``'s placements: an even column or channel split
+# over "model" where the size divides, whole otherwise. Those splits do not
+# follow the heads, so the body re-lays what it reads (:func:`_relay`, one
+# all_to_all over the "model" group where a rank needs another's part). The
+# gated norm sums its squares over "model" and the output is a partial sum
+# over "model", each one all_reduce. Every collective is a c10d call on local
+# tensors inside an autograd Function that carries its transpose.
+
+
+class _AllToAllV(torch.autograd.Function):
+    """``all_to_all_single`` of dim-0 blocks of ``send[j]`` rows to rank j
+    (``recv[i]`` rows from rank i, in rank order) over ``group``; its
+    gradient the reverse exchange."""
+
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        import torch.distributed as dist
+
+        ctx.sizes, ctx.group = (send, recv), group
+        out = x.new_empty((sum(recv), *x.shape[1:]))
+        dist.all_to_all_single(out, x.contiguous(), output_split_sizes=list(recv),
+                               input_split_sizes=list(send), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        send, recv = ctx.sizes
+        return _AllToAllV.apply(grad, recv, send, ctx.group), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over ``group``. Its gradient: where every rank then uses the
+    sum alike (the mixer's output, replicated over "model"), each rank's
+    share is the output's gradient as it is; where each rank uses it for its
+    own part (the norm's sum of squares, for its own channels), the
+    gradients of all the parts, summed again."""
+
+    @staticmethod
+    def forward(ctx, x, group, parts: bool):
+        import torch.distributed as dist
+
+        ctx.group, ctx.parts = group, parts
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        if ctx.parts:
+            grad = grad.clone()
+            dist.all_reduce(grad, group=ctx.group)
+        return grad, None, None
+
+
+def head_block(nh: int, ms: int, m: int) -> tuple:
+    """Model rank m's heads [h0, h1) of nh over ms ranks: contiguous blocks,
+    the first nh % ms ranks one head more."""
+    q, r = divmod(nh, ms)
+    h0 = m * q + min(m, r)
+    return h0, h0 + q + (m < r)
+
+
+def _stored(n: int, sharded: bool, ms: int) -> tuple:
+    """Each model rank's ranges of a dim of n kept split evenly over "model"
+    (``sharded``) or whole."""
+    c = n // ms
+    return tuple(((r * c, (r + 1) * c),) if sharded else ((0, n),) for r in range(ms))
+
+
+def _offset(ranges, g: int) -> int:
+    """Where global index g lies in the concatenation of ``ranges``."""
+    off = 0
+    for lo, hi in ranges:
+        if lo <= g < hi:
+            return off + g - lo
+        off += hi - lo
+    raise ValueError(f"index {g} not in {ranges}")
+
+
+@functools.lru_cache(maxsize=None)
+def _pieces(have: tuple, want: tuple) -> tuple:
+    """For every rank j, ``want[j]`` cut into pieces (start, stop, source):
+    j itself where it holds the indices, else the lowest rank that does."""
+    cuts = sorted({b for rs in have + want for r in rs for b in r})
+
+    def source(j, g):
+        for s in (j, *range(len(have))):
+            if any(lo <= g < hi for lo, hi in have[s]):
+                return s
+        raise ValueError(f"no rank holds index {g} (holds {have}; wanted {want})")
+
+    out = []
+    for j, rs in enumerate(want):
+        pieces = []
+        for lo, hi in rs:
+            for a, b in zip(cuts, cuts[1:]):
+                a, b = max(a, lo), min(b, hi)
+                if a >= b:
+                    continue
+                s = source(j, a)
+                if (pieces and pieces[-1][2] == s and pieces[-1][1] == a
+                        and _offset(have[s], a) == _offset(have[s], a - 1) + 1):
+                    pieces[-1] = (pieces[-1][0], b, s)
+                else:
+                    pieces.append((a, b, s))
+        out.append(tuple(pieces))
+    return tuple(out)
+
+
+def _relay(t, dim: int, have: tuple, want: tuple, me: int, group):
+    """This rank's ``t``, which holds along ``dim`` the global indices
+    ``have[me]`` (ranges, in order), re-laid to hold ``want[me]``: each part
+    from this rank where it holds it, else from the lowest rank that does,
+    in one all_to_all over ``group`` when any rank needs another's part.
+    Every rank's result then depends on what it sent and received, even
+    where that is nothing, so that every rank's backward runs the
+    exchange's transpose."""
+    pieces = _pieces(have, want)
+    ms = len(have)
+    t0 = t.movedim(dim, 0)
+
+    def take(src, ranges_of, lo, hi):
+        return src.narrow(0, _offset(ranges_of, lo), hi - lo)
+
+    blocks, out = {}, []
+    if any(s != j for j in range(ms) for _, _, s in pieces[j]):
+        send = [[(a, b) for a, b, s in pieces[j] if s == me] if j != me else []
+                for j in range(ms)]
+        recv = [sum(b - a for a, b, s in pieces[me] if s == i) if i != me else 0
+                for i in range(ms)]
+        buf = torch.cat([t0.narrow(0, 0, 0)] + [take(t0, have[me], a, b)
+                                                for ps in send for a, b in ps])
+        got = _AllToAllV.apply(buf, tuple(sum(b - a for a, b in ps) for ps in send),
+                               tuple(recv), group)
+        start = 0
+        for i in range(ms):
+            blocks[i] = (got.narrow(0, start, recv[i]),
+                         tuple((a, b) for a, b, s in pieces[me] if s == i))
+            start += recv[i]
+        out.append(got.narrow(0, 0, 0))
+    out = [take(t0, have[me], a, b) if s == me else take(*blocks[s], a, b)
+           for a, b, s in pieces[me]] + out
+    out = out[0] if len(out) == 1 else torch.cat(out)
+    return out.movedim(0, dim)
+
+
+class _Split(NamedTuple):
+    """How a mesh splits the mixer: ``md`` the mesh dim of "model" whose
+    ranks split the heads (None: no split), ``ms`` its size (1 without),
+    ``me`` this rank's index on it, ``group`` its process group, and
+    ``rows`` the placements of a rank's batch rows (dim 0 kept split where
+    the input splits it, outside ``md``; replicated elsewhere)."""
+    mesh: object
+    md: Optional[int]
+    ms: int
+    me: int
+    group: object
+    rows: tuple
+
+
+def _split_of(x, rt) -> _Split:
+    from torch.distributed.tensor import Replicate, Shard
+
+    if rt is None or not rt.sharded:
+        raise ValueError("the Mamba mixer on a DTensor needs the mesh's Runtime (rt)")
+    mesh = x.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    md = names.index(rt.model_axis) if rt.model_axis is not None else None
+    ms = mesh.shape[md] if md is not None else 1
+    if ms == 1:
+        md = None
+    rows = tuple(Shard(0) if p == Shard(0) and i != md else Replicate()
+                 for i, p in enumerate(x.placements))
+    if md is None:
+        return _Split(mesh, None, 1, 0, None, rows)
+    return _Split(mesh, md, ms, mesh.get_local_rank(md), mesh.get_group(md), rows)
+
+
+def _enter(t, ch: int, sp: _Split):
+    """A weight DTensor -> (this rank's local tensor, the ranges of its
+    dim ``ch`` that each model rank holds). It stays split over "model"
+    where it is split along ``ch``, and is gathered over every other mesh
+    dim (a data-axis split of FSDP: none without it, so no collective).
+    Its gradient: split as kept; a partial sum over the dims whose ranks
+    split the batch rows, and over "model", whose ranks each use their own
+    part of a whole weight."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    ch %= t.ndim
+    pl, grad = [], []
+    for i, p in enumerate(t.placements):
+        if i == sp.md and p.is_shard():
+            if p != Shard(ch):
+                raise NotImplementedError(
+                    f"the Mamba mixer on a mesh: a weight split over 'model' along dim "
+                    f"{p.dim}, not its channel dim {ch} (distributed/sharding.py's rules)")
+            pl.append(p)
+            grad.append(p)
+            continue
+        pl.append(Replicate())
+        grad.append(Partial() if i == sp.md or sp.rows[i] == Shard(0) else Replicate())
+    loc = t.redistribute(sp.mesh, tuple(pl)).to_local(grad_placements=tuple(grad))
+    n = t.shape[ch]
+    return loc, _stored(n, sp.md is not None and pl[sp.md] == Shard(ch), sp.ms)
+
+
+def _state_placements(shape, ch: int, sp: _Split, given=None) -> tuple:
+    """The placements a state tensor takes in the body: its batch rows as
+    the input's, and on "model" ``given``'s split along its channel dim
+    ``ch`` (where it has one) or, without ``given``, the cache's rule
+    (``distributed/sharding.py::cache_pspecs``: split along ``ch`` where
+    ``ms`` divides it, else whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = list(sp.rows)
+    if sp.md is not None:
+        if given is not None:
+            keep = given[sp.md] == Shard(ch)
+        else:
+            keep = shape[ch] % sp.ms == 0
+        pl[sp.md] = Shard(ch) if keep else Replicate()
+    return tuple(pl)
+
+
+def _state_in(t, ch: int, sp: _Split):
+    """A state DTensor -> (this rank's local tensor, its ranges along ``ch``
+    a model rank)."""
+    pl = _state_placements(t.shape, ch, sp, t.placements)
+    split = sp.md is not None and pl[sp.md].is_shard()
+    return t.redistribute(sp.mesh, pl).to_local(), _stored(t.shape[ch], split, sp.ms)
+
+
+def _state_out(loc, ch: int, n: int, mine: tuple, sp: _Split, given=None):
+    """This rank's part of a new state (dim ``ch`` holding ranges ``mine``, a
+    model rank) -> a DTensor in ``given``'s placements (a state passed in)
+    or the cache's rule."""
+    from torch.distributed.tensor import DTensor
+
+    shape = (*loc.shape[:ch], n, *loc.shape[ch + 1:])
+    pl = _state_placements(shape, ch, sp, None if given is None else given.placements)
+    split = sp.md is not None and pl[sp.md].is_shard()
+    loc = _relay(loc, ch, mine, _stored(n, split, sp.ms), sp.me, sp.group)
+    out = DTensor.from_local(loc.contiguous(), sp.mesh, pl, run_check=False)
+    if given is not None and pl != tuple(given.placements):
+        out = out.redistribute(sp.mesh, given.placements)
+    return out
+
+
+def _norm_sharded(w, g, di: int, sp: _Split, eps: float = 1e-6):
+    """:func:`rms_norm` of g over all ``di`` channels, this rank holding its
+    own channels of g and w: the squares summed over "model"."""
+    dt = g.dtype
+    g = g.float()
+    ss = g.square().sum(dim=-1, keepdim=True)
+    if sp.group is not None:
+        ss = _AllReduce.apply(ss, sp.group, True)
+    g = g * torch.rsqrt(ss / di + eps)
+    return (g * (1.0 + w.float())).to(dt)
+
+
+def _per_head(t, dim: int, h0: int, h1: int, hpg: int):
+    """Groups (dim ``dim`` of ``t``) -> one a head, heads [h0, h1)."""
+    g0, g1 = h0 // hpg, (h1 - 1) // hpg + 1
+    return t.narrow(dim, g0, g1 - g0).repeat_interleave(hpg, dim).narrow(
+        dim, h0 - g0 * hpg, h1 - h0)
+
+
+def apply_mamba_sharded(params, x_in, spec: SSMSpec, rt, *,
+                        state: Optional[MambaState] = None, want_state: bool = False,
+                        decode: bool = False):
+    """The mixer on a DTensor x_in (B, T, d), head-parallel over ``rt``'s
+    "model" axis (the section's comment): prefill (``state`` the carried
+    state or None; the new one with ``want_state``) or, with ``decode``, one
+    step from ``state``. Returns (y, new state or None), y as x_in's batch
+    rows and replicated over "model", the state in ``state``'s placements
+    or the cache's. ``in_proj`` split over "model" is re-laid as weights in
+    prefill and as the projected activations in decode (T = 1: far fewer
+    bytes). A mesh whose "model" axis outnumbers the heads raises."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    sp = _split_of(x_in, rt)
+    d_model = x_in.shape[-1]
+    di = spec.d_inner(d_model)
+    nh = spec.n_heads(d_model)
+    P = spec.head_dim
+    G, N = spec.n_groups, spec.d_state
+    gn = G * N
+    if nh < sp.ms:
+        raise NotImplementedError(f"the Mamba mixer on a mesh: {nh} heads over {sp.ms} "
+                                  "model ranks leaves a rank without a head")
+    blocks = [head_block(nh, sp.ms, m) for m in range(sp.ms)]
+    h0, h1 = blocks[sp.me]
+    Hl, Dl = h1 - h0, (h1 - h0) * P
+    want = {  # each model rank's ranges of each channel dim
+        "in_proj": tuple(((a * P, b * P), (di + a * P, di + b * P), (2 * di, 2 * di + 2 * gn),
+                          (2 * di + 2 * gn + a, 2 * di + 2 * gn + b)) for a, b in blocks),
+        "conv": tuple(((a * P, b * P), (di, di + 2 * gn)) for a, b in blocks),
+        "inner": tuple(((a * P, b * P),) for a, b in blocks),
+        "heads": tuple(((a, b),) for a, b in blocks)}
+
+    def relay(t, dim, have, key):
+        return _relay(t, dim, have, want[key], sp.me, sp.group)
+
+    x_pl = tuple(Partial() if i == sp.md else p for i, p in enumerate(sp.rows))
+    x = x_in.redistribute(sp.mesh, sp.rows).to_local(grad_placements=x_pl)
+    w_in, have_in = _enter(params["in_proj"], -1, sp)
+    if decode and have_in[0] != have_in[-1]:  # split: the activations re-laid
+        zx = relay(x @ w_in, -1, have_in, "in_proj")
+    else:
+        zx = x @ relay(w_in, -1, have_in, "in_proj")
+    z, xbc, dt_raw = zx[..., :Dl], zx[..., Dl: 2 * Dl + 2 * gn], zx[..., 2 * Dl + 2 * gn:]
+    conv_w, have_c = _enter(params["conv_w"], -1, sp)
+    conv_b, _ = _enter(params["conv_b"], -1, sp)
+    conv_w, conv_b = relay(conv_w, -1, have_c, "conv"), relay(conv_b, -1, have_c, "conv")
+    heads = {k: _enter(params[k], -1, sp)[0].narrow(-1, h0, Hl)
+             for k in ("A_log", "D", "dt_bias")}
+    norm_w, have_n = _enter(params["norm_w"], -1, sp)
+    out_proj, have_o = _enter(params["out_proj"], 0, sp)
+    norm_w, out_proj = relay(norm_w, -1, have_n, "inner"), relay(out_proj, 0, have_o, "inner")
+    cd = di + 2 * gn
+    conv_st = ssm_st = None
+    if state is not None:
+        conv_st, have_cs = _state_in(state.conv, 2, sp)
+        ssm_st, have_ss = _state_in(state.ssm, 1, sp)
+        conv_st = relay(conv_st, 2, have_cs, "conv")
+        ssm_st = relay(ssm_st, 1, have_ss, "heads").contiguous()
+    A = -torch.exp(heads["A_log"])
+    B = x.shape[0]
+    if decode:
+        xp = torch.cat([conv_st, xbc], dim=1)  # (B, dc, conv channels)
+        out = torch.einsum("btc,tc->bc", xp.float(), conv_w.float())
+        xbc1 = silu(out + conv_b.float())[:, None].to(x.dtype)
+        conv_tail = xp[:, 1:]
+        xs = xbc1[..., :Dl].reshape(B, Hl, P).float()
+        Bh = _per_head(xbc1[..., Dl: Dl + gn].reshape(B, G, N).float(), 1, h0, h1, nh // G)
+        Ch = _per_head(xbc1[..., Dl + gn:].reshape(B, G, N).float(), 1, h0, h1, nh // G)
+        dt = F.softplus(dt_raw[:, 0].float() + heads["dt_bias"][None])  # (B, Hl)
+        dec = torch.exp(dt * A[None])
+        final = ssm_st * dec[:, :, None, None] + \
+            (xs * dt[..., None])[..., :, None] * Bh[..., None, :]
+        y = torch.einsum("bhpn,bhn->bhp", final, Ch) + heads["D"][None, :, None] * xs
+        y = y.reshape(B, 1, Dl).to(x.dtype)
+    else:
+        T = x.shape[1]
+        xbc, conv_tail = _causal_conv(xbc, conv_w, conv_b, conv_st)
+        xs = xbc[..., :Dl].reshape(B, T, Hl, P)
+        Bm = xbc[..., Dl: Dl + gn].reshape(B, T, G, N)
+        Cm = xbc[..., Dl + gn:].reshape(B, T, G, N)
+        if G > 1:  # the kernel's heads share groups evenly: one group a head here
+            Bm, Cm = (_per_head(t, 2, h0, h1, nh // G) for t in (Bm, Cm))
+        dt = F.softplus(dt_raw.float() + heads["dt_bias"][None, None])
+        # the head slices are strided views; the kernel takes contiguous ones
+        y, final = ssd_ops.ssd(
+            xs.contiguous(), dt.contiguous(), A.contiguous(), Bm.contiguous(),
+            Cm.contiguous(), init=ssm_st, D=heads["D"].contiguous(), chunk=spec.chunk,
+            backend=rt.local().backend)
+        y = y.reshape(B, T, Dl)
+    y = _norm_sharded(norm_w, y * silu(z), di, sp) @ out_proj
+    if sp.group is not None:
+        y = _AllReduce.apply(y, sp.group, False)
+    y = DTensor.from_local(y, sp.mesh, sp.rows, run_check=False)
+    if not (decode or want_state):
+        return y, None
+    return y, MambaState(
+        conv=_state_out(conv_tail, 2, cd, want["conv"], sp,
+                        None if state is None else state.conv),
+        ssm=_state_out(final, 1, nh, want["heads"], sp, None if state is None else state.ssm))

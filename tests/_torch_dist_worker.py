@@ -78,7 +78,8 @@ def _moe(inp, rt, lora=None):
 
 def run_model(rank, world, port, root):
     """The model cases alone (train and serve under the "tp" profile), for
-    the config in ``root/inputs.pt``."""
+    the config in ``root/inputs.pt``, on its ("data", "model") ``mesh``
+    (default (2, 2))."""
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                             world_size=world)
@@ -88,7 +89,7 @@ def run_model(rank, world, port, root):
 
         inp = torch.load(f"{root}/inputs.pt", weights_only=False)
         tp = Runtime(kernel_backend="ref", device=torch.device("cpu"),
-                     mesh=make_debug_mesh(2, 2, device_type="cpu"))
+                     mesh=make_debug_mesh(*inp.get("mesh", (2, 2)), device_type="cpu"))
         res = {"train_tp": _train(inp, tp), "serve_tp": _serve(inp, tp)}
         if rank == 0:
             torch.save(res, f"{root}/results.pt")

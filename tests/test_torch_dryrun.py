@@ -15,7 +15,11 @@ functions, on the CPU.
   which its sharded path needs on jax 0.9): per-device argument bytes
   equal, apart from the reference's int32 scalars (the optimizer's
   ``step``, the cache's ``pos``; the port's are Python ints) and its
-  int32 tokens (the port's are int64).
+  int32 tokens (the port's are int64). zamba2-7b-smoke's Mamba mixer,
+  head-parallel over "model": its dot FLOPs a device (counted under the
+  ``Ledger`` from the block's call to its return, as
+  ``tools/mixer_cost.py`` counts them) times the mesh's 8 devices within
+  1.15 x one device's, in prefill and decode.
 * OLMoE's ``decode_32k`` and ``prefill_32k`` through the command line on
   both production meshes: argument bytes equal the local shapes of the
   JAX package's specs, 873,148,416 B of parameters a device.
@@ -54,6 +58,7 @@ from repro_torch.kernels.ssd_scan import ssd_hopper  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh  # noqa: E402
+from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models.runtime import Runtime  # noqa: E402
 from _torch_threads import one_thread  # noqa: E402,F401
 
@@ -269,6 +274,7 @@ print(json.dumps(out))
 """
 
 SMOKE = ("granite-moe-1b-a400m-smoke", "zamba2-7b-smoke")
+MIXER = ("apply_mamba_full", "apply_mamba_decode")  # the blocks' calls of the Mamba mixer
 
 
 @pytest.mark.fleet
@@ -278,15 +284,19 @@ def test_smoke_dry_runs_match_the_jax_lowering():
     proc = subprocess.Popen([sys.executable, "-c", _JAX_LOWER, str(ROOT), *SMOKE],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
     try:
-        ours, one = {}, {}
+        ours, one, mixer = {}, {}, {}
         for arch in SMOKE:
             cfg = get_config(arch)
             for mode in ("train", "prefill", "decode"):
                 shape = ShapeSpec(mode, 64, 8, mode)
+                tally = {"mesh": {}, "one": {}}
                 with dryrun.fake_group(8):
                     mesh = make_debug_mesh(2, 2, pod=2, device_type=dryrun.card_device().type)
-                    ours[arch, mode] = dryrun.dry_run(cfg, shape, Runtime(mesh=mesh))
-                one[arch, mode] = dryrun.dry_run(cfg, shape, Runtime())
+                    with dryrun.tally(blocks, MIXER, tally["mesh"]):
+                        ours[arch, mode] = dryrun.dry_run(cfg, shape, Runtime(mesh=mesh))
+                with dryrun.tally(blocks, MIXER, tally["one"]):
+                    one[arch, mode] = dryrun.dry_run(cfg, shape, Runtime())
+                mixer[arch, mode] = tally
         out, err = proc.communicate(timeout=300)
     finally:
         proc.kill()
@@ -305,6 +315,15 @@ def test_smoke_dry_runs_match_the_jax_lowering():
               f"dot FLOPs a device {rec['flops_per_device']:.4g} (JAX {j['flops']:.4g}), "
               f"collective bytes {rec['collectives']['total_bytes']:.4g} "
               f"(JAX {j['collective_bytes']:.4g})")
+    # the Mamba mixer splits its work 8 ways: rows over ("pod", "data"), heads
+    # over "model"; the slack is the B/C columns both model ranks compute
+    # (32 of 552 in_proj columns), and the rank-by-rank form read 2x
+    for mode in ("prefill", "decode"):
+        t = mixer["zamba2-7b-smoke", mode]
+        assert t["mesh"]["calls"] == t["one"]["calls"] > 0, mode
+        assert t["mesh"]["flops"] * 8 <= 1.15 * t["one"]["flops"], (mode, t)
+        print(f"zamba2-7b-smoke {mode}: mixer dot FLOPs a device x 8 "
+              f"{t['mesh']['flops'] * 8:.4g} against one device's {t['one']['flops']:.4g}")
     granite = ours["granite-moe-1b-a400m-smoke", "train"]["memory_analysis"]
     assert granite["argument_size_in_bytes"] == 2_149_636 - 4 + 4 * 256
 

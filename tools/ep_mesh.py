@@ -4,14 +4,20 @@ result held against the single-device path on the rank's own card.
 
     PYTHONPATH=src python tools/ep_mesh.py                 # 4 cards, (2, 2), OLMoE
     PYTHONPATH=src python tools/ep_mesh.py --device cpu --arch olmoe-mini   # 4 gloo processes
+    PYTHONPATH=src python tools/ep_mesh.py --arch zamba2-7b --fp32-layers 6 --layers 12
 
 Needs one card per rank (MESH: 2 x 2). Every rank runs:
 
 (a) the expert-parallel MoE layer at the arch's MoE width, 4 x 128 tokens
     (rows over "data"), zero_drop: ``apply_moe_sharded`` against
     ``apply_moe_local`` on the rank's card, fp32 (MOE_FP32_REL) and bf16
-    (BF16_REL); ``moe_gmm`` launches by route;
-(b) fp32, the arch at full width cut to FP32_LAYERS layers (weights from
+    (BF16_REL); ``moe_gmm`` launches by route. For an arch with Mamba2
+    blocks, also its mixer head-parallel over "model"
+    (``mamba2.apply_mamba_sharded``) against the local mixer: a prefill of
+    4 x 128 tokens and DECODE steps from the state it returns, y and the
+    state of every step, fp32 within MOE_FP32_REL, bf16 within BF16_REL;
+    ``ssd_scan`` launches by route;
+(b) fp32, the arch at full width cut to ``--fp32-layers`` layers (weights from
     seed 0, the same on every rank): a sharded prefill of 4 x 128 tokens
     and DECODE greedy decode steps against the single-device run (equal
     tokens, prefill logits within FP32_REL), and the MELINOE train step's
@@ -21,10 +27,12 @@ Needs one card per rank (MESH: 2 x 2). Every rank runs:
     Both zero_drop: the sharded MoE sizes its capacity from each rank's
     own tokens (the reference's rule), so where the capacity drops tokens
     the two paths drop different ones by design;
-(c) bf16 at full depth: the sharded prefill and DECODE greedy decode
-    steps, timed, with the kernel launches by op and route counted from 0
-    just before it (``moe_gmm`` in the expert-parallel body and
-    ``flash_attn`` shard by shard in the prefill must launch on a card).
+(c) bf16 at full depth (or cut to ``--layers``): the sharded prefill and
+    DECODE greedy decode steps, timed, with the kernel launches by op and
+    route counted from 0 just before it (``moe_gmm`` in the expert-parallel
+    body, ``flash_attn`` shard by shard in the prefill and ``ssd_scan`` on
+    each rank's heads must launch on a card where the arch has such
+    layers).
 
 Prints each rank's report as JSON, then a summary line; exits non-zero
 when any gate fails. ``--out PATH`` also writes the reports there.
@@ -69,15 +77,73 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
-def _cut(arch: str, layers: int):
-    """``arch``'s config cut to ``layers`` layers (its one layout group's
-    repeats replaced)."""
+def _cut(arch: str, layers):
+    """``arch``'s config cut to its first ``layers`` layers (None: whole),
+    whole repeats of its layout groups in order."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
-    (g,) = cfg.layout
-    return dataclasses.replace(cfg, name=f"{arch}-{layers}l", layout=(dataclasses.replace(
-        g, repeats=layers // len(g.pattern)),))
+    if layers is None:
+        return cfg
+    groups, left = [], layers
+    for g in cfg.layout:
+        r = min(g.repeats, left // len(g.pattern))
+        if r:
+            groups.append(dataclasses.replace(g, repeats=r))
+            left -= r * len(g.pattern)
+    if left:
+        raise ValueError(f"{arch}: {layers} layers is not whole repeats of "
+                         f"{[(g.pattern, g.repeats) for g in cfg.layout]}")
+    return dataclasses.replace(cfg, name=f"{arch}-{layers}l", layout=tuple(groups))
+
+
+def _kinds(cfg) -> set:
+    return {cfg.block_defs[b].kind for g in cfg.layout for b in g.pattern}
+
+
+def _mamba_layer(cfg, mesh, dev) -> dict:
+    """(a) for a Mamba2 arch: its mixer head-parallel against the local one."""
+    from repro_torch.distributed.sharding import distribute, leaf_spec
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import mamba2
+    from repro_torch.models.runtime import Runtime
+
+    spec = next(b.ssm for b in cfg.block_defs.values() if b.kind == "mamba")
+    d, rows = cfg.d_model, ("data", None, None)
+    rt, one = Runtime(device=dev, mesh=mesh), Runtime(device=dev)
+    out = {}
+    for dtype, tol in ((torch.float32, MOE_FP32_REL), (torch.bfloat16, BF16_REL)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = mamba2.init_mamba(d, spec, dtype, generator=gen, device=dev)
+        for k in ("norm_w", "conv_b"):  # zeros at init: a wrong slice would not show
+            p[k] = (0.1 * torch.randn(p[k].shape, generator=gen, device=dev)).to(dtype)
+        x = torch.randn((BATCH, PROMPT, d), generator=gen, device=dev).to(dtype)
+        xs = [torch.randn((BATCH, 1, d), generator=gen, device=dev).to(dtype)
+              for _ in range(DECODE)]
+        with torch.no_grad():
+            want = [mamba2.apply_mamba_full(p, x, spec, return_state=True, rt=one)]
+            for xt in xs:
+                want.append(mamba2.apply_mamba_decode(p, xt, want[-1][1], spec))
+            dp = {k: distribute(v, rt.prune_spec(v.shape, leaf_spec(
+                f"mixer/{k}", v, fsdp=False, data_axes=rt.data_axes)), mesh)
+                for k, v in p.items()}
+            _sync(dev)
+            dispatch.reset_launches()
+            t0 = time.perf_counter()
+            with rt.dist():
+                got = [mamba2.apply_mamba_full(dp, distribute(x, rows, mesh), spec,
+                                               return_state=True, rt=rt)]
+                routes = dict(dispatch.ROUTE_LAUNCHES["ssd_scan"])
+                for xt in xs:
+                    got.append(mamba2.apply_mamba_decode(dp, distribute(xt, rows, mesh),
+                                                         got[-1][1], spec, rt=rt))
+                rel = [max(_rel(_full(gy), wy), *(_rel(_full(g), w) for g, w in zip(gs, ws)))
+                       for (gy, gs), (wy, ws) in zip(got, want)]
+            _sync(dev)
+        out[str(dtype).replace("torch.", "")] = {
+            "rel_prefill": rel[0], "rel_decode_worst": max(rel[1:]), "tol": tol,
+            "s": time.perf_counter() - t0, "ssd_scan_routes": routes}
+    return out
 
 
 def _grads(tree, path=""):
@@ -144,11 +210,15 @@ def _worker(rank: int, args, port: int, out_dir: str) -> None:
         rep = {"rank": rank, "device": str(dev)}
         t_worker = time.perf_counter()
 
-        # ---- (a) the expert-parallel MoE layer
+        # ---- (a) the expert-parallel MoE layer; the head-parallel Mamba2 mixer
         spec, d = cfg.moe_spec, cfg.d_model
         zrt = Runtime(device=dev, mesh=mesh, zero_drop=True)
         rep["moe"] = {}
+        if "mamba" in _kinds(cfg):
+            rep["mamba"] = _mamba_layer(cfg, mesh, dev)
         for dtype, tol in ((torch.float32, MOE_FP32_REL), (torch.bfloat16, BF16_REL)):
+            if spec is None:
+                break
             gen = torch.Generator(device=dev).manual_seed(0)
             p = init_moe(d, spec, dtype, generator=gen, device=dev)
             x = torch.randn((BATCH * PROMPT, d), generator=gen, device=dev).to(dtype)
@@ -171,7 +241,7 @@ def _worker(rank: int, args, port: int, out_dir: str) -> None:
                     "moe_gmm_routes": routes}
 
         # ---- (b) fp32, the first layers: serve and the train step's gradients
-        cut = _cut(args.arch, FP32_LAYERS)
+        cut = _cut(args.arch, args.fp32_layers)
         toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (BATCH, PROMPT)),
                                device=dev)
         params = init_params(cut, generator=torch.Generator(device=dev).manual_seed(0),
@@ -212,6 +282,7 @@ def _worker(rank: int, args, port: int, out_dir: str) -> None:
             torch.cuda.empty_cache()
 
         # ---- (c) bf16 at full depth, the kernels counted from 0
+        cfg = _cut(args.arch, args.layers)
         params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                              dtype=torch.bfloat16, device=dev)
         rt = Runtime(device=dev, mesh=mesh)
@@ -222,6 +293,8 @@ def _worker(rank: int, args, port: int, out_dir: str) -> None:
         dispatch.reset_launches()
         bf = _serve(cfg, dparams, rt, toks, DECODE)
         rep["serve_bf16"] = {
+            "layers": sum(len(g.pattern) * g.repeats for g in cfg.layout),
+            "kinds": sorted(_kinds(cfg)),
             "prefill_s": bf["prefill_s"], "decode_tok_s": bf["decode_tok_s"],
             "finite": bool(torch.isfinite(bf["prefill_logits"]).all()),
             "tokens_shape": list(bf["tokens"].shape),
@@ -239,19 +312,28 @@ def _worker(rank: int, args, port: int, out_dir: str) -> None:
 
 def _failures(r: dict, cuda: bool) -> list:
     bad = []
+    for name, m in r.get("mamba", {}).items():
+        want = {"tc": 1} if name == "bfloat16" else {"fma": 1}
+        if not (m["rel_prefill"] <= m["tol"] and m["rel_decode_worst"] <= m["tol"]) or (
+                cuda and m["ssd_scan_routes"] != want):
+            bad.append(("mamba", name, m))
     for name, m in r["moe"].items():
         if not m["rel"] <= m["tol"] or (cuda and sum(m["moe_gmm_routes"].values()) <= 0):
             bad.append(("moe", name, m))
-    if cuda and set(r["moe"]["bfloat16"]["moe_gmm_routes"]) != {"tc"}:
+    if cuda and r["moe"] and set(r["moe"]["bfloat16"]["moe_gmm_routes"]) != {"tc"}:
         bad.append(("moe bf16 routes", r["moe"]["bfloat16"]["moe_gmm_routes"]))
     s, t, b = r["serve_fp32"], r["train_fp32"], r["serve_bf16"]
+    # the kernels each kind of layer launches in the bf16 serve
+    need = {"attn_moe": "moe_gmm", "mamba": "ssd_scan"}
+    ops = {need[k] for k in b["kinds"] if k in need} | (
+        {"flash_attn"} if set(b["kinds"]) - {"mamba"} else set())
     if not (s["tokens_equal"] and s["logits_rel"] <= FP32_REL):
         bad.append(("serve fp32", s))
     if not (t["leaves_equal"] and t["loss_rel"] <= LOSS_REL
             and t["grad_rel_worst_leaf"] <= GRAD_REL and t["grad_norm_rel"] <= GRAD_REL):
         bad.append(("train fp32", t))
-    if not (b["finite"] and b["tokens_shape"] == [BATCH, DECODE + 1]) or (cuda and not (
-            b["launches"].get("moe_gmm") and b["launches"].get("flash_attn"))):
+    if not (b["finite"] and b["tokens_shape"] == [BATCH, DECODE + 1]) or (cuda and not all(
+            b["launches"].get(op) for op in ops)):
         bad.append(("serve bf16", b))
     return bad
 
@@ -261,6 +343,10 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="olmoe")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--out", default=None, help="also write the reports here (JSON)")
+    ap.add_argument("--fp32-layers", type=int, default=FP32_LAYERS,
+                    help="depth of (b), whole repeats of the layout")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="depth of (c) (default: the arch's whole depth)")
     args = ap.parse_args(argv)
     world = MESH[0] * MESH[1]
     cuda = args.device == "cuda"
@@ -300,6 +386,7 @@ def main(argv=None) -> int:
     r0 = reps[0]
     summary = {"arch": args.arch, "mesh": list(MESH), "device": args.device,
                "moe_rel": {k: v["rel"] for k, v in r0["moe"].items()},
+               "mamba": r0.get("mamba"),
                "moe_gmm_routes": {k: v["moe_gmm_routes"] for k, v in r0["moe"].items()},
                "serve_fp32": r0["serve_fp32"], "train_fp32": r0["train_fp32"],
                "serve_bf16": r0["serve_bf16"], "wall_s": time.perf_counter() - t0,
