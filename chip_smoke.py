@@ -15,7 +15,10 @@ From the root of a checkout, with CUDA available:
    split-K stream), the kept CUDA-core kernel's time at the same case
    (``fma_ms``); a repeated run must give equal bits. ``int4_matmul`` is
    also timed against ``torch._weight_int4pack_mm`` where the card's torch
-   has it (``library_int4pack_ms``, a time only);
+   has it (``library_int4pack_ms``, a time only); and holds the plain
+   blockwise attention (``models/attention.py::blockwise_attention``, every
+   train step's) against ``attention_ref`` in fp32, output and gradients,
+   with its time and peak beside the oracle's (``BLOCKWISE_CASES``);
 4. serves 4 x (128 + 32) tokens of full-width OLMoE-1B-7B (random
    weights from a seed) through ``repro_torch.launch.serve.run`` with the
    launch counters set to 0 just before, asserts the path's launch totals
@@ -144,8 +147,9 @@ From the root of a checkout, with CUDA available:
    to its end inside its budget); each run's prefill-logits distance
    from the exact run and decode tok/s are printed, not gated; then
    ``launch.bench_serve
-   --offloaded --little --quality 0.5`` at full width (4 requests), whose
-   summary must count degraded requests;
+   --offloaded --little --quality 0.5`` at full width on the first
+   ``LAUNCHER_LAYERS`` layers (4 requests), whose summary must count
+   degraded requests;
 17. the dense and prefix-conditioned configs at full width, bf16, random
    weights from seed 0, each through ``repro_torch.launch.serve.run_full``
    at 4 x (512 + 32) tokens (``DENSE_PATHS``): qwen3-4b (36 layers),
@@ -191,7 +195,8 @@ From the root of a checkout, with CUDA available:
    demand transfers after the checkpoint (cold's are printed beside);
    on the checkpoint's own traffic (wave 1's last prompt re-prefilled on
    engines revived from the snapshot) warm pays fewer than cold;
-   (d) ``launch.bench_serve --offloaded --trace DIR`` at full width (the
+   (d) ``launch.bench_serve --offloaded --trace DIR`` at full width on
+   ``LAUNCHER_LAYERS`` layers (the
    trace, metrics and ``reconcile.json`` written, the trace valid), and
    ``--journal DIR --faults crash_at=10`` (the injected-crash exit) then
    ``--resume`` on the continuous path in fp32, whose tokens must equal
@@ -228,7 +233,8 @@ From the root of a checkout, with CUDA available:
    engines: the dict engine's ``int4_matmul`` on ``tc`` in prefill and
    ``stream`` in decode, its logits against the INT4 slab engine's; (d)
    ``launch.bench_serve --offloaded --engine-impl dict`` at full width on
-   phase 4's shape (4 requests of 128 + 32 tokens, one wave);
+   ``LAUNCHER_LAYERS`` layers, phase 4's shape (4 requests of 128 + 32
+   tokens, one wave);
    each engine's prefill s, decode tok/s, transfers, hit rate, clocks and
    launches by phase and route printed side by side;
 21. expert parallelism: two processes over gloo (NCCL takes one rank per
@@ -244,7 +250,10 @@ From the root of a checkout, with CUDA available:
    within 1e-4), (c) the MELINOE train step's loss and gradients (the
    card's loss, grad_norm and every leaf's gradient) (gloo stages CUDA
    tensors through the host: (a)'s time is gloo's transport, not the
-   card's). ``tools/ep_mesh.py`` runs the DTensor path on four cards over
+   card's); (d) the head-parallel Mamba2 mixer and (e) the shared block's
+   MLP split over "model", each at zamba2-7b's width on the card against
+   its local version (fp32 1e-5, bf16 2e-2; (e) its weights' gradients
+   too). ``tools/ep_mesh.py`` runs the DTensor path on four cards over
    NCCL;
 22. the dry run (``repro_torch.launch.dryrun``): (a) its one-card
    prediction held against the card, full-width OLMoE-1B-7B in bf16 on a
@@ -389,9 +398,14 @@ LORA_MOVES = 5
 # differs; a wrong kernel or LoRA term moves these logits by O(1).
 WAVE_BF16_LOGITS_REL_TOL = 3e-2
 # deepseek's 28 random bf16 layers: the kernel run read 0.0288 from the
-# plain run (H100 80GB HBM3, 700 W), as zamba2's 81 layers read 0.0418 (its limit
-# 4.5e-2); held first in fp32 at full width and depth to
-# FP32_LOGITS_REL_TOL, where only the order of sums differs.
+# plain run (H100 80GB HBM3, 700 W; 0.0322 with the plain path's attention
+# blockwise), as zamba2's 81 layers read 0.0418 (its limit 4.5e-2); held
+# first in fp32 at full width and depth to FP32_LOGITS_REL_TOL, where only
+# the order of sums differs, and with it a router's top-k choice at a near
+# tie: with the blockwise plain attention two tokens' top-6 experts differ
+# (the first where two router probabilities lie 7.1e-08 apart) and it reads
+# 8.54e-05, with the kernel run's routes replayed 1.73e-06
+# (tools/route_flips.py).
 DEEPSEEK_BF16_LOGITS_REL_TOL = 4e-2
 # The MELINOE fine-tune (phases 12-13): batch 8 x 128 tokens, 4 steps.
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 128, 4
@@ -427,6 +441,15 @@ PATH_LAUNCHES["little-q1.0"] = PATH_LAUNCHES["bf16"]
 # rank-8 fp32 factors of OLMoE's 16 layers: 3 projections x
 # (64 x 2048 x 8 + 64 x 8 x 1024) x 4 B a layer
 LITTLE_RANK = 8
+# The launchers' own runs at OLMoE's full width (``bench_serve --little``,
+# ``--trace``, the journaled fp32 serve and its resume, ``--engine-impl
+# dict``) take its first LAUNCHER_LAYERS layers: their gates read the
+# launcher's plumbing (requests finished, degraded requests, a valid trace,
+# tokens equal after a resume), which depth does not change, and the
+# engines' full-depth runs are their phases' own. Cut so that the whole run
+# stays inside its time limit (1227.8 s with them at full depth on an H100
+# 80GB HBM3 at 700 W, whose host ran the host-bound phases slowly).
+LAUNCHER_LAYERS = 4
 LITTLE_BANK_BYTES = 16 * 3 * (64 * 2048 * 8 + 64 * 8 * 1024) * 4
 
 
@@ -635,6 +658,60 @@ def flash_cases(gen):
                                                           window=win), graph=False),
                 "library_ms": lib, "bound_ms": t_bound, "bound_by": by})
     return cases
+
+
+# The reference's blockwise plain attention (models/attention.py::
+# blockwise_attention), attend_full's path wherever the flash kernel does not
+# run (every train step, whose attention needs a backward): at the flash
+# cases' olmoe and zamba2 shapes (B, T, Hkv, G, hd), fp32, its output and the
+# gradients of q, k and v for one random output gradient against
+# attention_ref and attention_ref's autograd, each within BLOCKWISE_REL of
+# the reference's largest element (both fp32: only the order of sums
+# differs); its eager forward + backward time and the peak it adds to the
+# card beside attention_ref's. It is plain torch, not a kernel: it launches
+# none and is not in the kernels line.
+BLOCKWISE_CASES = ((4, 128, 16, 1, 128), (4, 512, 32, 1, 112))
+BLOCKWISE_REL = 1e-5
+
+
+def blockwise_cases(gen) -> list:
+    from repro_torch.kernels.flash_attn import attention_ref
+    from repro_torch.models.attention import blockwise_attention
+
+    rows = []
+    for B, T, Hkv, G, hd in BLOCKWISE_CASES:
+        q = torch.randn(B, T, Hkv, G, hd, generator=gen, device="cuda").requires_grad_()
+        k, v = (torch.randn(B, T, Hkv, hd, generator=gen, device="cuda").requires_grad_()
+                for _ in range(2))
+        do = torch.randn(B, T, Hkv, G, hd, generator=gen, device="cuda")
+
+        def fwd_bwd(fn):
+            out = fn(q, k, v)
+            return (out.detach(), *torch.autograd.grad(out, (q, k, v), do))
+
+        row = {"case": f"blockwise float32 B{B} T{T} Hkv{Hkv} G{G} hd{hd}"}
+        got = {}
+        for name, fn in (("blockwise", blockwise_attention), ("attention_ref", attention_ref)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got[name] = fwd_bwd(fn)
+            torch.cuda.synchronize()
+            row[f"{name}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            row[f"{name}_ms"] = time_ms(lambda: fwd_bwd(fn), graph=False)
+        rel = [((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(got["blockwise"], got["attention_ref"])]
+        row.update(out_rel=rel[0], grad_rel_worst=max(rel[1:]), tol=BLOCKWISE_REL)
+        if not (max(rel) <= BLOCKWISE_REL and all(torch.isfinite(t).all()
+                                                  for t in got["blockwise"])):
+            raise AssertionError(f"{row['case']}: against attention_ref {row}")
+        print(f"  {row['case']}: out rel {rel[0]:.3g}, dq/dk/dv worst rel {max(rel[1:]):.3g} "
+              f"(tol {BLOCKWISE_REL}); forward + backward {row['blockwise_ms']:.4f} ms, "
+              f"peak +{row['blockwise_peak_bytes']} B; attention_ref "
+              f"{row['attention_ref_ms']:.4f} ms, peak +{row['attention_ref_peak_bytes']} B")
+        rows.append(row)
+        del q, k, v, do, got
+    return rows
 
 
 def int4_cases(gen):
@@ -1868,7 +1945,8 @@ def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmo
     16, gamma: a rank-8 bank built on the card, then serves at quality 1.0,
     0.5 and 0.0 and under a deadline of half the quality-1.0 run's serial
     modeled seconds (each on a fresh engine serving the same bank), then
-    ``bench_serve --offloaded --little --quality 0.5`` at full width."""
+    ``bench_serve --offloaded --little --quality 0.5`` at full width on
+    LAUNCHER_LAYERS layers."""
     from repro_torch.configs import get_config
     from repro_torch.core.offload_engine import OffloadedMoEEngine
     from repro_torch.launch import bench_serve
@@ -1946,10 +2024,11 @@ def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmo
     gc.collect()
     torch.cuda.empty_cache()
 
-    # the launcher at full width: 4 requests in one wave, quality 0.5
+    # the launcher at full width, LAUNCHER_LAYERS layers: 4 requests in one
+    # wave, quality 0.5
     t0 = time.perf_counter()
     results, mt = bench_serve.main([
-        "--arch", arch, "--device", device, "--offloaded", "--capacity", "16",
+        "--arch", _launcher_arch(arch), "--device", device, "--offloaded", "--capacity", "16",
         "--slots", "4", "--n-requests", "4", "--prompt-len", "128", "--max-new", "32",
         "--arrival", "all_at_once", "--little", "--quality", "0.5"])
     summ = mt.summary()
@@ -2018,6 +2097,13 @@ def _cut_arch(arch: str, layers) -> str:
         g, repeats=layers // len(g.pattern)),))
     register(name)(lambda: cut)
     return name
+
+
+def _launcher_arch(arch: str) -> str:
+    """``arch`` cut to LAUNCHER_LAYERS layers (or as it is, if not deeper)."""
+    from repro_torch.configs import get_config
+
+    return _cut_arch(arch, min(LAUNCHER_LAYERS, get_config(arch).n_layers))
 
 
 def _first_layers(params, cfg, layers: int):
@@ -2549,8 +2635,8 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- (d) bench_serve on the card
-    base = ["--arch", arch, "--device", device]
+    # ---- (d) bench_serve on the card, LAUNCHER_LAYERS layers
+    base = ["--arch", _launcher_arch(arch), "--device", device]
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         bench_serve.main(base + OPS_BENCH + ["--offloaded", "--capacity", str(capacity),
@@ -2882,6 +2968,8 @@ def dict_bench(device: str = "cuda", capacity: int = 16, bench=DICT_BENCH) -> di
     from repro_torch.launch import bench_serve
 
     t0 = time.perf_counter()
+    bench = list(bench)
+    bench[bench.index("--arch") + 1] = _launcher_arch(bench[bench.index("--arch") + 1])
     results, mt = bench_serve.main(["--device", device, "--capacity", str(capacity)] + bench)
     n = int(bench[bench.index("--n-requests") + 1])
     row = {"requests": len(results), "transfers": mt.transfers,
@@ -3068,6 +3156,17 @@ def dict_phase(slab: dict, arch: str = "olmoe", device: str = "cuda",
 # LOGITS_REL_TOL; ssd_scan launches per rank by route ("tc" in bf16, one a
 # prefill: each rank's heads). Its collectives are c10d ones (all_to_all,
 # all_reduce) on the card's tensors.
+# (e) the shared block's MLP split over "model" (models/mlp.py::
+# apply_mlp_sharded) on the card: EP_MAMBA_ARCH's shared MLP (d 3584 ->
+# d_ff 14,336), its weights placed by distributed/sharding.py's rules (wg
+# and wu split along d_model, re-laid to d_ff blocks by one all_to_all
+# each; wd along d_ff), EP_MAMBA_B x EP_MAMBA_T rows, against the local
+# apply_mlp on the card: y, and the gradient of each weight for one random
+# output gradient (each rank's shard), fp32 within EP_FP32_REL (norm
+# relative, each leaf), bf16 within LOGITS_REL_TOL. x is replicated and
+# takes no gradient: its gradient, partial over "model", would meet
+# DTensor's functional all_reduce, which gloo cannot run on the card; the
+# body's own collectives are c10d ones.
 EP_MAMBA_ARCH = "zamba2-7b"
 EP_MAMBA_B, EP_MAMBA_T, EP_MAMBA_DECODE = 4, 512, 8
 EP_RANKS = 2
@@ -3139,7 +3238,7 @@ def _ep_mamba(mesh, dev, arch: str = EP_MAMBA_ARCH) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import distribute, leaf_spec
     from repro_torch.kernels import dispatch
-    from repro_torch.models import mamba2
+    from repro_torch.models import mamba2, tensor_parallel
     from repro_torch.models.runtime import Runtime
 
     cfg = get_config(arch)
@@ -3187,11 +3286,51 @@ def _ep_mamba(mesh, dev, arch: str = EP_MAMBA_ARCH) -> dict:
             "rel_prefill": rel[0], "rel_decode_worst": max(rel[1:]), "tol": tol,
             "ssd_scan_routes": ssd, "prefill_s": t2 - t1,
             "decode_step_ms": 1e3 * (t3 - t2) / EP_MAMBA_DECODE,
-            "heads": [mamba2.head_block(spec.n_heads(d), mesh.shape[-1], r)
+            "heads": [tensor_parallel.block_of(spec.n_heads(d), mesh.shape[-1], r)
                       for r in range(mesh.shape[-1])],
             "placements": {k: str(tuple(v.placements)) for k, v in dp.items()},
             "state_placements": [str(tuple(t.placements)) for t in got[-1][1]]}
         del p, dp, x, xs, want, got
+    return out
+
+
+def _ep_mlp(mesh, dev, arch: str = EP_MAMBA_ARCH) -> dict:
+    """Phase 21(e) on this rank (see EP_MAMBA_ARCH)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import distribute, leaf_spec
+    from repro_torch.models.mlp import apply_mlp, apply_mlp_sharded, init_mlp
+    from repro_torch.models.runtime import Runtime
+
+    cfg = get_config(arch)
+    d_ff = next(b.d_ff for b in cfg.block_defs.values() if b.kind == "shared_attn")
+    rt = Runtime(device=dev, mesh=mesh)
+    out = {}
+    for dtype, tol in ((torch.float32, EP_FP32_REL), (torch.bfloat16, LOGITS_REL_TOL)):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p = init_mlp(cfg.d_model, d_ff, dtype, generator=gen, device=dev)
+        x = torch.randn((EP_MAMBA_B, EP_MAMBA_T, cfg.d_model), generator=gen,
+                        device=dev).to(dtype)
+        dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+        w = {k: t.clone().requires_grad_() for k, t in p.items()}
+        want_y = apply_mlp(w, x)
+        want = torch.autograd.grad(want_y, list(w.values()), dy)
+        dp = {k: distribute(t, rt.prune_spec(t.shape, leaf_spec(
+            f"shared/ffn/{k}", t, fsdp=False, data_axes=rt.data_axes)), mesh).requires_grad_()
+            for k, t in p.items()}
+        rep = (None, None, None)
+        _sync(dev)
+        t1 = time.perf_counter()
+        with rt.dist():
+            y = apply_mlp_sharded(dp, distribute(x, rep, mesh), rt)
+            got = torch.autograd.grad(y, list(dp.values()), distribute(dy, rep, mesh))
+        _sync(dev)
+        out[str(dtype).replace("torch.", "")] = {
+            "rel_y": _rel(y.to_local(), want_y.detach()),
+            "rel_grad": {k: _rel(g.to_local(), _shard_of(wg, g))
+                         for k, g, wg in zip(dp, got, want)},
+            "tol": tol, "s": time.perf_counter() - t1,
+            "placements": {k: str(tuple(t.placements)) for k, t in dp.items()}}
+        del p, x, dy, w, want_y, want, dp, y, got
     return out
 
 
@@ -3260,6 +3399,11 @@ def _ep_worker(rank: int, world: int, port: int, out_dir: str, arch: str,
         t1 = time.perf_counter()
         rep["mamba"] = _ep_mamba(mesh, dev, mamba_arch)
         rep["mamba_s"] = time.perf_counter() - t1
+
+        # ---- (e) the shared MLP split over "model" on the card, its width
+        t1 = time.perf_counter()
+        rep["mlp"] = _ep_mlp(mesh, dev, mamba_arch)
+        rep["mlp_s"] = time.perf_counter() - t1
 
         # ---- (b) the sharded model path on the host mesh, fp32, first layers
         cut = get_config(_cut_arch(arch, EP_FP32_LAYERS))
@@ -3353,6 +3497,9 @@ def ep_phase(arch: str = "olmoe", device: str = "cuda",
             want = {"tc": 1} if name == "bfloat16" else {"fma": 1}
             if device == "cuda" and m["ssd_scan_routes"] != want:
                 bad.append((r["rank"], "mamba ssd_scan routes", name, m["ssd_scan_routes"]))
+        for name, m in r["mlp"].items():
+            if not (m["rel_y"] <= m["tol"] and max(m["rel_grad"].values()) <= m["tol"]):
+                bad.append((r["rank"], "shared mlp", name, m))
         t, s32 = r["train"], r["serve_fp32"]
         if not (t["leaves_equal"] and t["loss_rel"] <= EP_LOSS_REL
                 and t["grad_rel_worst_leaf"] <= GRAD_REL_TOL
@@ -3378,6 +3525,11 @@ def ep_phase(arch: str = "olmoe", device: str = "cuda",
                   f"{m['ssd_scan_routes']}, prefill {m['prefill_s']:.4f} s, decode "
                   f"{m['decode_step_ms']:.3f} ms a step" for k, m in r["mamba"].items())
               + f"; part (d) {r['mamba_s']:.1f} s")
+        print(f"shared MLP split over 'model' ({mamba_arch} width) on the card, rank "
+              f"{r['rank']}: " + "; ".join(
+                  f"{k} y rel {m['rel_y']:.3g}, gradients worst leaf rel "
+                  f"{max(m['rel_grad'].values()):.3g} (tol {m['tol']}), {m['s']:.3f} s"
+                  for k, m in r["mlp"].items()) + f"; part (e) {r['mlp_s']:.1f} s")
     if bad:
         raise AssertionError(f"phase 21: {bad}")
     rep = {"ranks": reps, "phase_s": time.perf_counter() - t_phase}
@@ -3649,6 +3801,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     g_cases = gmm_cases(gen)
     f_cases = flash_cases(gen)
+    # its own generator: the kernels' cases draw what they drew before it
+    blockwise_cases(torch.Generator(device="cuda").manual_seed(1))
     i_cases = int4_cases(gen)
     s_cases = ssd_cases(gen)
     for c in g_cases + f_cases + i_cases + s_cases:

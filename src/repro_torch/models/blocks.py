@@ -22,9 +22,9 @@ from .attention import (attend_full, cache_from_prefill, decode_attend, init_att
 from .common import rms_norm, rms_norm_init
 from .mamba2 import (MambaState, apply_mamba_decode, apply_mamba_full, conv_dim,
                      init_mamba)
-from .mlp import apply_mlp, init_mlp
+from .mlp import apply_mlp, apply_mlp_sharded, init_mlp
 from .moe import apply_moe, init_moe, router_probs
-from .runtime import Runtime
+from .runtime import Runtime, is_distributed
 
 
 def init_block(cfg: ModelConfig, b: BlockSpec, dtype, *, generator, device,
@@ -59,7 +59,12 @@ def _ffn(params, b: BlockSpec, h2, rt: Runtime, aux: dict, want_probs: bool,
          lora, lora_scale: float):
     """The block's FFN on h2 (B, T, d): the MoE layer for ``attn_moe`` (its
     router distribution into ``aux["probs"]`` and the router's input into
-    ``aux["moe_h"]`` when ``want_probs``), else the dense MLP."""
+    ``aux["moe_h"]`` when ``want_probs``), else the dense MLP; a
+    ``shared_attn`` block's on a mesh with a "model" axis d_ff-parallel
+    (``mlp.apply_mlp_sharded``: its weights' placements split ``wg`` and
+    ``wu`` along d_model)."""
+    if b.kind == "shared_attn" and is_distributed(h2) and rt.model_axis is not None:
+        return apply_mlp_sharded(params["ffn"], h2, rt)
     if b.kind != "attn_moe":
         return apply_mlp(params["ffn"], h2)
     B, T, dm = h2.shape

@@ -11,7 +11,6 @@ state (B, H, P, N) fp32.
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -21,6 +20,7 @@ from ..configs.base import SSMSpec
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan import ref as ssd_ref
 from .common import dense_init, rms_norm, rms_norm_init, silu
+from . import tensor_parallel as tp
 from .runtime import is_distributed
 
 
@@ -174,213 +174,17 @@ def apply_mamba_decode(params, x_in, state: MambaState, spec: SSMSpec, rt=None):
 # head reads, every rank computes whole. The weights and the state stay in
 # ``distributed/sharding.py``'s placements: an even column or channel split
 # over "model" where the size divides, whole otherwise. Those splits do not
-# follow the heads, so the body re-lays what it reads (:func:`_relay`, one
+# follow the heads, so the body re-lays what it reads (``tp.relay``, one
 # all_to_all over the "model" group where a rank needs another's part). The
 # gated norm sums its squares over "model" and the output is a partial sum
 # over "model", each one all_reduce. Every collective is a c10d call on local
-# tensors inside an autograd Function that carries its transpose.
+# tensors inside an autograd Function that carries its transpose
+# (``models/tensor_parallel.py``).
+
+MIXER = "the Mamba mixer"  # its name in the errors of tp
 
 
-class _AllToAllV(torch.autograd.Function):
-    """``all_to_all_single`` of dim-0 blocks of ``send[j]`` rows to rank j
-    (``recv[i]`` rows from rank i, in rank order) over ``group``; its
-    gradient the reverse exchange."""
-
-    @staticmethod
-    def forward(ctx, x, send, recv, group):
-        import torch.distributed as dist
-
-        ctx.sizes, ctx.group = (send, recv), group
-        out = x.new_empty((sum(recv), *x.shape[1:]))
-        dist.all_to_all_single(out, x.contiguous(), output_split_sizes=list(recv),
-                               input_split_sizes=list(send), group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        send, recv = ctx.sizes
-        return _AllToAllV.apply(grad, recv, send, ctx.group), None, None, None
-
-
-class _AllReduce(torch.autograd.Function):
-    """The sum over ``group``. Its gradient: where every rank then uses the
-    sum alike (the mixer's output, replicated over "model"), each rank's
-    share is the output's gradient as it is; where each rank uses it for its
-    own part (the norm's sum of squares, for its own channels), the
-    gradients of all the parts, summed again."""
-
-    @staticmethod
-    def forward(ctx, x, group, parts: bool):
-        import torch.distributed as dist
-
-        ctx.group, ctx.parts = group, parts
-        out = x.clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        import torch.distributed as dist
-
-        if ctx.parts:
-            grad = grad.clone()
-            dist.all_reduce(grad, group=ctx.group)
-        return grad, None, None
-
-
-def head_block(nh: int, ms: int, m: int) -> tuple:
-    """Model rank m's heads [h0, h1) of nh over ms ranks: contiguous blocks,
-    the first nh % ms ranks one head more."""
-    q, r = divmod(nh, ms)
-    h0 = m * q + min(m, r)
-    return h0, h0 + q + (m < r)
-
-
-def _stored(n: int, sharded: bool, ms: int) -> tuple:
-    """Each model rank's ranges of a dim of n kept split evenly over "model"
-    (``sharded``) or whole."""
-    c = n // ms
-    return tuple(((r * c, (r + 1) * c),) if sharded else ((0, n),) for r in range(ms))
-
-
-def _offset(ranges, g: int) -> int:
-    """Where global index g lies in the concatenation of ``ranges``."""
-    off = 0
-    for lo, hi in ranges:
-        if lo <= g < hi:
-            return off + g - lo
-        off += hi - lo
-    raise ValueError(f"index {g} not in {ranges}")
-
-
-@functools.lru_cache(maxsize=None)
-def _pieces(have: tuple, want: tuple) -> tuple:
-    """For every rank j, ``want[j]`` cut into pieces (start, stop, source):
-    j itself where it holds the indices, else the lowest rank that does."""
-    cuts = sorted({b for rs in have + want for r in rs for b in r})
-
-    def source(j, g):
-        for s in (j, *range(len(have))):
-            if any(lo <= g < hi for lo, hi in have[s]):
-                return s
-        raise ValueError(f"no rank holds index {g} (holds {have}; wanted {want})")
-
-    out = []
-    for j, rs in enumerate(want):
-        pieces = []
-        for lo, hi in rs:
-            for a, b in zip(cuts, cuts[1:]):
-                a, b = max(a, lo), min(b, hi)
-                if a >= b:
-                    continue
-                s = source(j, a)
-                if (pieces and pieces[-1][2] == s and pieces[-1][1] == a
-                        and _offset(have[s], a) == _offset(have[s], a - 1) + 1):
-                    pieces[-1] = (pieces[-1][0], b, s)
-                else:
-                    pieces.append((a, b, s))
-        out.append(tuple(pieces))
-    return tuple(out)
-
-
-def _relay(t, dim: int, have: tuple, want: tuple, me: int, group):
-    """This rank's ``t``, which holds along ``dim`` the global indices
-    ``have[me]`` (ranges, in order), re-laid to hold ``want[me]``: each part
-    from this rank where it holds it, else from the lowest rank that does,
-    in one all_to_all over ``group`` when any rank needs another's part.
-    Every rank's result then depends on what it sent and received, even
-    where that is nothing, so that every rank's backward runs the
-    exchange's transpose."""
-    pieces = _pieces(have, want)
-    ms = len(have)
-    t0 = t.movedim(dim, 0)
-
-    def take(src, ranges_of, lo, hi):
-        return src.narrow(0, _offset(ranges_of, lo), hi - lo)
-
-    blocks, out = {}, []
-    if any(s != j for j in range(ms) for _, _, s in pieces[j]):
-        send = [[(a, b) for a, b, s in pieces[j] if s == me] if j != me else []
-                for j in range(ms)]
-        recv = [sum(b - a for a, b, s in pieces[me] if s == i) if i != me else 0
-                for i in range(ms)]
-        buf = torch.cat([t0.narrow(0, 0, 0)] + [take(t0, have[me], a, b)
-                                                for ps in send for a, b in ps])
-        got = _AllToAllV.apply(buf, tuple(sum(b - a for a, b in ps) for ps in send),
-                               tuple(recv), group)
-        start = 0
-        for i in range(ms):
-            blocks[i] = (got.narrow(0, start, recv[i]),
-                         tuple((a, b) for a, b, s in pieces[me] if s == i))
-            start += recv[i]
-        out.append(got.narrow(0, 0, 0))
-    out = [take(t0, have[me], a, b) if s == me else take(*blocks[s], a, b)
-           for a, b, s in pieces[me]] + out
-    out = out[0] if len(out) == 1 else torch.cat(out)
-    return out.movedim(0, dim)
-
-
-class _Split(NamedTuple):
-    """How a mesh splits the mixer: ``md`` the mesh dim of "model" whose
-    ranks split the heads (None: no split), ``ms`` its size (1 without),
-    ``me`` this rank's index on it, ``group`` its process group, and
-    ``rows`` the placements of a rank's batch rows (dim 0 kept split where
-    the input splits it, outside ``md``; replicated elsewhere)."""
-    mesh: object
-    md: Optional[int]
-    ms: int
-    me: int
-    group: object
-    rows: tuple
-
-
-def _split_of(x, rt) -> _Split:
-    from torch.distributed.tensor import Replicate, Shard
-
-    if rt is None or not rt.sharded:
-        raise ValueError("the Mamba mixer on a DTensor needs the mesh's Runtime (rt)")
-    mesh = x.device_mesh
-    names = tuple(mesh.mesh_dim_names)
-    md = names.index(rt.model_axis) if rt.model_axis is not None else None
-    ms = mesh.shape[md] if md is not None else 1
-    if ms == 1:
-        md = None
-    rows = tuple(Shard(0) if p == Shard(0) and i != md else Replicate()
-                 for i, p in enumerate(x.placements))
-    if md is None:
-        return _Split(mesh, None, 1, 0, None, rows)
-    return _Split(mesh, md, ms, mesh.get_local_rank(md), mesh.get_group(md), rows)
-
-
-def _enter(t, ch: int, sp: _Split):
-    """A weight DTensor -> (this rank's local tensor, the ranges of its
-    dim ``ch`` that each model rank holds). It stays split over "model"
-    where it is split along ``ch``, and is gathered over every other mesh
-    dim (a data-axis split of FSDP: none without it, so no collective).
-    Its gradient: split as kept; a partial sum over the dims whose ranks
-    split the batch rows, and over "model", whose ranks each use their own
-    part of a whole weight."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
-
-    ch %= t.ndim
-    pl, grad = [], []
-    for i, p in enumerate(t.placements):
-        if i == sp.md and p.is_shard():
-            if p != Shard(ch):
-                raise NotImplementedError(
-                    f"the Mamba mixer on a mesh: a weight split over 'model' along dim "
-                    f"{p.dim}, not its channel dim {ch} (distributed/sharding.py's rules)")
-            pl.append(p)
-            grad.append(p)
-            continue
-        pl.append(Replicate())
-        grad.append(Partial() if i == sp.md or sp.rows[i] == Shard(0) else Replicate())
-    loc = t.redistribute(sp.mesh, tuple(pl)).to_local(grad_placements=tuple(grad))
-    n = t.shape[ch]
-    return loc, _stored(n, sp.md is not None and pl[sp.md] == Shard(ch), sp.ms)
-
-
-def _state_placements(shape, ch: int, sp: _Split, given=None) -> tuple:
+def _state_placements(shape, ch: int, sp: tp.Split, given=None) -> tuple:
     """The placements a state tensor takes in the body: its batch rows as
     the input's, and on "model" ``given``'s split along its channel dim
     ``ch`` (where it has one) or, without ``given``, the cache's rule
@@ -398,15 +202,15 @@ def _state_placements(shape, ch: int, sp: _Split, given=None) -> tuple:
     return tuple(pl)
 
 
-def _state_in(t, ch: int, sp: _Split):
+def _state_in(t, ch: int, sp: tp.Split):
     """A state DTensor -> (this rank's local tensor, its ranges along ``ch``
     a model rank)."""
     pl = _state_placements(t.shape, ch, sp, t.placements)
     split = sp.md is not None and pl[sp.md].is_shard()
-    return t.redistribute(sp.mesh, pl).to_local(), _stored(t.shape[ch], split, sp.ms)
+    return t.redistribute(sp.mesh, pl).to_local(), tp.stored(t.shape[ch], split, sp.ms)
 
 
-def _state_out(loc, ch: int, n: int, mine: tuple, sp: _Split, given=None):
+def _state_out(loc, ch: int, n: int, mine: tuple, sp: tp.Split, given=None):
     """This rank's part of a new state (dim ``ch`` holding ranges ``mine``, a
     model rank) -> a DTensor in ``given``'s placements (a state passed in)
     or the cache's rule."""
@@ -415,21 +219,21 @@ def _state_out(loc, ch: int, n: int, mine: tuple, sp: _Split, given=None):
     shape = (*loc.shape[:ch], n, *loc.shape[ch + 1:])
     pl = _state_placements(shape, ch, sp, None if given is None else given.placements)
     split = sp.md is not None and pl[sp.md].is_shard()
-    loc = _relay(loc, ch, mine, _stored(n, split, sp.ms), sp.me, sp.group)
+    loc = tp.relay(loc, ch, mine, tp.stored(n, split, sp.ms), sp.me, sp.group)
     out = DTensor.from_local(loc.contiguous(), sp.mesh, pl, run_check=False)
     if given is not None and pl != tuple(given.placements):
         out = out.redistribute(sp.mesh, given.placements)
     return out
 
 
-def _norm_sharded(w, g, di: int, sp: _Split, eps: float = 1e-6):
+def _norm_sharded(w, g, di: int, sp: tp.Split, eps: float = 1e-6):
     """:func:`rms_norm` of g over all ``di`` channels, this rank holding its
     own channels of g and w: the squares summed over "model"."""
     dt = g.dtype
     g = g.float()
     ss = g.square().sum(dim=-1, keepdim=True)
     if sp.group is not None:
-        ss = _AllReduce.apply(ss, sp.group, True)
+        ss = tp.AllReduce.apply(ss, sp.group, True)
     g = g * torch.rsqrt(ss / di + eps)
     return (g * (1.0 + w.float())).to(dt)
 
@@ -454,7 +258,7 @@ def apply_mamba_sharded(params, x_in, spec: SSMSpec, rt, *,
     bytes). A mesh whose "model" axis outnumbers the heads raises."""
     from torch.distributed.tensor import DTensor, Partial
 
-    sp = _split_of(x_in, rt)
+    sp = tp.split_of(x_in, rt, MIXER)
     d_model = x_in.shape[-1]
     di = spec.d_inner(d_model)
     nh = spec.n_heads(d_model)
@@ -464,7 +268,7 @@ def apply_mamba_sharded(params, x_in, spec: SSMSpec, rt, *,
     if nh < sp.ms:
         raise NotImplementedError(f"the Mamba mixer on a mesh: {nh} heads over {sp.ms} "
                                   "model ranks leaves a rank without a head")
-    blocks = [head_block(nh, sp.ms, m) for m in range(sp.ms)]
+    blocks = [tp.block_of(nh, sp.ms, m) for m in range(sp.ms)]
     h0, h1 = blocks[sp.me]
     Hl, Dl = h1 - h0, (h1 - h0) * P
     want = {  # each model rank's ranges of each channel dim
@@ -475,23 +279,23 @@ def apply_mamba_sharded(params, x_in, spec: SSMSpec, rt, *,
         "heads": tuple(((a, b),) for a, b in blocks)}
 
     def relay(t, dim, have, key):
-        return _relay(t, dim, have, want[key], sp.me, sp.group)
+        return tp.relay(t, dim, have, want[key], sp.me, sp.group)
 
     x_pl = tuple(Partial() if i == sp.md else p for i, p in enumerate(sp.rows))
     x = x_in.redistribute(sp.mesh, sp.rows).to_local(grad_placements=x_pl)
-    w_in, have_in = _enter(params["in_proj"], -1, sp)
+    w_in, have_in = tp.enter_weight(params["in_proj"], -1, sp, MIXER)
     if decode and have_in[0] != have_in[-1]:  # split: the activations re-laid
         zx = relay(x @ w_in, -1, have_in, "in_proj")
     else:
         zx = x @ relay(w_in, -1, have_in, "in_proj")
     z, xbc, dt_raw = zx[..., :Dl], zx[..., Dl: 2 * Dl + 2 * gn], zx[..., 2 * Dl + 2 * gn:]
-    conv_w, have_c = _enter(params["conv_w"], -1, sp)
-    conv_b, _ = _enter(params["conv_b"], -1, sp)
+    conv_w, have_c = tp.enter_weight(params["conv_w"], -1, sp, MIXER)
+    conv_b, _ = tp.enter_weight(params["conv_b"], -1, sp, MIXER)
     conv_w, conv_b = relay(conv_w, -1, have_c, "conv"), relay(conv_b, -1, have_c, "conv")
-    heads = {k: _enter(params[k], -1, sp)[0].narrow(-1, h0, Hl)
+    heads = {k: tp.enter_weight(params[k], -1, sp, MIXER)[0].narrow(-1, h0, Hl)
              for k in ("A_log", "D", "dt_bias")}
-    norm_w, have_n = _enter(params["norm_w"], -1, sp)
-    out_proj, have_o = _enter(params["out_proj"], 0, sp)
+    norm_w, have_n = tp.enter_weight(params["norm_w"], -1, sp, MIXER)
+    out_proj, have_o = tp.enter_weight(params["out_proj"], 0, sp, MIXER)
     norm_w, out_proj = relay(norm_w, -1, have_n, "inner"), relay(out_proj, 0, have_o, "inner")
     cd = di + 2 * gn
     conv_st = ssm_st = None
@@ -533,7 +337,7 @@ def apply_mamba_sharded(params, x_in, spec: SSMSpec, rt, *,
         y = y.reshape(B, T, Dl)
     y = _norm_sharded(norm_w, y * silu(z), di, sp) @ out_proj
     if sp.group is not None:
-        y = _AllReduce.apply(y, sp.group, False)
+        y = tp.AllReduce.apply(y, sp.group, False)
     y = DTensor.from_local(y, sp.mesh, sp.rows, run_check=False)
     if not (decode or want_state):
         return y, None

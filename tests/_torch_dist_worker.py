@@ -5,7 +5,9 @@ only (no JAX): the test computes its references in its own process.
 ``run(rank, world, port, root)`` reads ``root/inputs.pt`` (the same on
 every rank), runs every sharded case, and rank 0 writes the gathered
 results to ``root/results.pt``. Every collective (a ``full_tensor``
-included) runs on all ranks.
+included) runs on all ranks. ``run_model`` runs the model cases alone on
+the input's mesh (``tests/test_torch_distributed_mamba.py``), ``run_mlp``
+the shared MLP's body (``tests/test_torch_shared_mlp.py``).
 """
 import copy
 
@@ -74,6 +76,52 @@ def _moe(inp, rt, lora=None):
     with rt.dist():
         y, _ = apply_moe_sharded(dp, x, inp["moe_spec"], rt, lora=dl, lora_scale=0.5)
     return {"y": y.full_tensor(), "placements": tuple(y.placements)}
+
+
+def _mlp(case, rt):
+    """``mlp.apply_mlp_sharded`` on one case of ``root/inputs.pt``'s
+    ``mlp_cases``: its weights placed by the sharding rules of zamba2's
+    shared MLP (``fsdp``: with the data-axis split of FSDP), x and the
+    output's gradient by batch rows. Returns y and the gradients of x and
+    each weight, whole."""
+    from repro_torch.distributed.sharding import distribute, leaf_spec
+    from repro_torch.models.mlp import apply_mlp_sharded
+
+    dp = {}
+    for k, t in case["weights"].items():
+        spec = leaf_spec(f"shared/ffn/{k}", t, fsdp=case["placement"] == "fsdp",
+                         data_axes=rt.data_axes)
+        dp[k] = distribute(t.clone().requires_grad_(), rt.prune_spec(t.shape, spec), rt.mesh)
+    rows = (rt.data_axes, None, None)
+    x = distribute(case["x"].clone().requires_grad_(), rows, rt.mesh)
+    with rt.dist():
+        y = apply_mlp_sharded(dp, x, rt)
+        grads = torch.autograd.grad(y, [x, *dp.values()],
+                                    distribute(case["dy"], rows, rt.mesh))
+    return {"y": y.full_tensor().detach(),
+            "placements": {k: str(v.placements) for k, v in dp.items()},
+            "grads": dict(zip(["x", *dp], (g.full_tensor().detach() for g in grads)))}
+
+
+def run_mlp(rank, world, port, root):
+    """Every case of ``mlp_cases`` on the ("pod",) "data", "model" ``mesh``
+    of ``root/inputs.pt``; rank 0 writes ``root/results.pt``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_debug_mesh
+        from repro_torch.models.runtime import Runtime
+
+        inp = torch.load(f"{root}/inputs.pt", weights_only=False)
+        *pod, data, model = inp["mesh"]
+        rt = Runtime(kernel_backend="ref", device=torch.device("cpu"),
+                     mesh=make_debug_mesh(data, model, *pod, device_type="cpu"))
+        res = {name: _mlp(case, rt) for name, case in inp["mlp_cases"].items()}
+        if rank == 0:
+            torch.save(res, f"{root}/results.pt")
+    finally:
+        dist.destroy_process_group()
 
 
 def run_model(rank, world, port, root):

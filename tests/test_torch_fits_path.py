@@ -239,23 +239,99 @@ def test_run_full_on_cpu_at_smoke_size(capsys):
     np.testing.assert_array_equal(np.stack([c.tokens for c in comps]), rep["tokens"])
 
 
-def test_roundoff_tool_perturbs_and_restores():
-    """tools/roundoff.py on the CPU: no perturbation moves nothing; a
-    rounding of the scan output moves the bf16 logits; the patched
-    functions are put back."""
+def _roundoff_tool():
     import importlib.util
     import pathlib
-
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.models import attention
 
     path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "roundoff.py"
     spec = importlib.util.spec_from_file_location("roundoff", path)
     roundoff = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(roundoff)
-    before = (ssd_ops.ssd, attention.flash_ops.flash)
+    return roundoff
+
+
+def test_roundoff_tool_perturbs_and_restores():
+    """tools/roundoff.py on the CPU: no perturbation moves nothing; a
+    rounding of the scan output moves the bf16 logits; the patched
+    functions are put back."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import attention
+
+    roundoff = _roundoff_tool()
+    before = (ssd_ops.ssd, attention.blockwise_attention)
     assert roundoff.logits_gap("zamba2-7b-smoke", 112, "noise", eps=0.0,
                                device="cpu")[0] == 0.0
     rel, top1 = roundoff.logits_gap("zamba2-7b-smoke", 112, "round_y", device="cpu")
     assert 0.0 < rel < 1.0 and 0.0 <= top1 <= 1.0
-    assert (ssd_ops.ssd, attention.flash_ops.flash) == before
+    assert (ssd_ops.ssd, attention.blockwise_attention) == before
+
+
+def test_route_flips_tool_on_the_cpu():
+    """tools/route_flips.py on the CPU, where the "auto" backend runs the
+    plain versions: the kernel and plain runs agree exactly and route
+    alike, attention_ref moves the logits only by round-off, replaying
+    the kernel run's routes changes nothing, and the patched functions
+    are put back."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import offload_engine
+    from repro_torch.models import attention
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "route_flips.py"
+    spec = importlib.util.spec_from_file_location("route_flips", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    before = (offload_engine.top_k_route, attention.blockwise_attention)
+    out = tool.prefills("deepseek-moe-16b-smoke", prompt_len=16, capacity=4, device="cpu")
+    assert out["moe_layers"] == get_config("deepseek-moe-16b-smoke").n_moe_layers
+    assert out["rel_kernel_vs_plain"] == 0.0 and out["rel_kernel_vs_plain_replay"] == 0.0
+    assert 0.0 <= out["rel_kernel_vs_plain_ref_attn"] < 1e-5
+    assert out["route_flips_plain"] == out["route_flips_plain_replay"] == 0
+    assert (offload_engine.top_k_route, attention.blockwise_attention) == before
+
+
+def test_peak_site_tool_accounts_for_the_peak():
+    """tools/peak_site.py's ledger on a small whole-model train step: the
+    record is the dry run's own, its last look lies within the step
+    fraction of the peak, the bytes by site add up to that look, and the
+    dry run's ledger is put back."""
+    import importlib.util
+    import pathlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.models.runtime import Runtime
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "tools" / "peak_site.py"
+    spec = importlib.util.spec_from_file_location("peak_site", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    cfg, shape = get_config("olmoe-mini-smoke"), ShapeSpec("train_small", 64, 4, "train")
+    kept = dryrun.Ledger
+    plain = dryrun.dry_run(cfg, shape, Runtime(device="cpu"))
+    with tool.sites(0.01) as seen:
+        rec = dryrun.dry_run(cfg, shape, Runtime(device="cpu"))
+    assert dryrun.Ledger is kept
+    out = tool.summary(rec, seen["ledger"], 3)
+    assert out["peak_bytes"] == plain["memory_analysis"]["peak_bytes"]
+    assert rec["flops_per_device"] == plain["flops_per_device"]
+    assert out["peak_bytes"] / 1.01 <= out["looked_at"] <= out["peak_bytes"]
+    assert sum(seen["ledger"].snapshot["by"].values()) == out["looked_at"]
+    assert len(out["live_by_site"]) == 3 and out["peak_set_by"]
+
+
+def test_roundoff_tool_noise_moves_the_attention_output():
+    """The ``noise`` mode perturbs attention on the plain path as well as
+    the scan: on a model with no scan (qwen3) eps > 0 moves the logits and
+    eps = 0 leaves them as they are."""
+    from repro_torch.models import attention
+
+    roundoff = _roundoff_tool()
+    before = attention.blockwise_attention
+    assert roundoff.logits_gap("qwen3-4b-smoke", 112, "noise", eps=0.0, device="cpu")[0] == 0.0
+    rel, _ = roundoff.logits_gap("qwen3-4b-smoke", 112, "noise", eps=1e-2, device="cpu")
+    assert 0.0 < rel < 1.0
+    assert attention.blockwise_attention is before

@@ -13,9 +13,10 @@ weights from seed 0 on ``--device`` (default cuda), and runs the plain
 path's forward over (2, 256) tokens twice, the second time with one
 perturbation of the SSD scan (and, for ``noise``, of attention):
 
-  noise    the scan output and the attention output scaled by
-           (1 + eps N(0, 1)) in fp32 before they are rounded, as a
-           kernel's other summation order would;
+  noise    the scan output and the attention output (the plain path's
+           ``blockwise_attention``) scaled by (1 + eps N(0, 1)) in fp32
+           before they are rounded, as a kernel's other summation order
+           would;
   round_y  the scan output rounded to the model dtype before the D skip
            is added, as a kernel without the fused skip would.
 
@@ -30,7 +31,6 @@ import dataclasses
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.kernels.flash_attn import attention_ref
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ssd_chunked
 from repro_torch.models import attention
@@ -59,7 +59,7 @@ def logits_gap(arch: str, d_model: int, mode: str, eps: float = 3e-7,
                          generator=torch.Generator(device=dev).manual_seed(tokens_seed))
     noise = torch.Generator(device=dev).manual_seed(1)
     rt = Runtime(kernel_backend="ref", device=dev)
-    ssd, flash = ssd_ops.ssd, attention.flash_ops.flash
+    ssd, blockwise = ssd_ops.ssd, attention.blockwise_attention
 
     def ssd_perturbed(x, dt, A, Bm, Cm, *, init=None, D=None, chunk=128, backend=None):
         y, state = ssd_chunked(x, dt, A, Bm, Cm, chunk, init)
@@ -69,20 +69,20 @@ def logits_gap(arch: str, d_model: int, mode: str, eps: float = 3e-7,
             y = y * (1 + eps * torch.randn(y.shape, generator=noise, device=dev))
         return (y + D.float()[None, None, :, None] * x.float()).to(x.dtype), state
 
-    def flash_perturbed(q, k, v, softcap=None, window=None, backend=None):
-        o = attention_ref(q.float(), k.float(), v.float(), softcap=softcap, window=window)
+    def attention_perturbed(q, k, v, *, softcap=None, window=None):
+        o = blockwise(q.float(), k.float(), v.float(), softcap=softcap, window=window)
         return (o * (1 + eps * torch.randn(o.shape, generator=noise, device=dev))
-                ).to(q.dtype)
+                ).to(k.dtype)
 
     with torch.inference_mode():
         plain, _ = apply_model(params, cfg, toks, rt)
         ssd_ops.ssd = ssd_perturbed
         if mode == "noise":
-            attention.flash_ops.flash = flash_perturbed
+            attention.blockwise_attention = attention_perturbed
         try:
             moved, _ = apply_model(params, cfg, toks, rt)
         finally:
-            ssd_ops.ssd, attention.flash_ops.flash = ssd, flash
+            ssd_ops.ssd, attention.blockwise_attention = ssd, blockwise
     a, b = moved[:, -1].float().cpu(), plain[:, -1].float().cpu()
     return ((a - b).norm() / b.norm()).item(), (a.argmax(-1) == b.argmax(-1)).float().mean().item()
 
