@@ -253,8 +253,11 @@ From the root of a checkout, with CUDA available:
    card's); (d) the head-parallel Mamba2 mixer and (e) the shared block's
    MLP split over "model", each at zamba2-7b's width on the card against
    its local version (fp32 1e-5, bf16 2e-2; (e) its weights' gradients
-   too). ``tools/ep_mesh.py`` runs the DTensor path on four cards over
-   NCCL;
+   too); (f) the train step's loss on vocab-split logits
+   (``core.losses.vocab_parallel_nll``) at OLMoE's vocab, 4 x 512 rows,
+   fp32, against one rank's ``nll_loss`` of the whole logits (loss and
+   gradient within 1e-6), its peak beside the gathering form's.
+   ``tools/ep_mesh.py`` runs the DTensor path on four cards over NCCL;
 22. the dry run (``repro_torch.launch.dryrun``): (a) its one-card
    prediction held against the card, full-width OLMoE-1B-7B in bf16 on a
    ``Runtime`` without a mesh: a prefill of 4 x 512 tokens, a decode step
@@ -3167,6 +3170,17 @@ def dict_phase(slab: dict, arch: str = "olmoe", device: str = "cuda",
 # takes no gradient: its gradient, partial over "model", would meet
 # DTensor's functional all_reduce, which gloo cannot run on the card; the
 # body's own collectives are c10d ones.
+# (f) the train step's loss on vocab-split logits (core/losses.py::
+# vocab_parallel_nll, which nll_loss_on_mesh takes where the logits are
+# split along the vocab over "model"): EP_LOSS_B x EP_LOSS_T rows of fp32
+# logits at the MoE arch's vocab (OLMoE: 50,304, 25,152 a rank), the same on
+# both ranks from one seed, each rank its block; the loss and the block's
+# gradient against one rank's plain nll_loss of the whole logits on the
+# card, within EP_LOSS_TOL of the largest element. Its collectives are c10d
+# all_reduces of (B, T - 1) floats on the card's tensors. Its peak
+# (max_memory_allocated above what was allocated before) beside the
+# gathering form's, the loss's path before it (the blocks all_gathered
+# whole on every rank, then nll_loss), which must be higher.
 EP_MAMBA_ARCH = "zamba2-7b"
 EP_MAMBA_B, EP_MAMBA_T, EP_MAMBA_DECODE = 4, 512, 8
 EP_RANKS = 2
@@ -3177,6 +3191,8 @@ EP_HOST_THREADS = 4
 EP_TRAIN_B, EP_TRAIN_T, EP_TRAIN_LR = 4, 128, 1e-3
 EP_LOSS_REL = 1e-5
 EP_LIMIT_S = 600
+EP_LOSS_B, EP_LOSS_T = 4, 512
+EP_LOSS_TOL = 1e-6
 
 
 def _to(tree, dev):
@@ -3334,6 +3350,64 @@ def _ep_mlp(mesh, dev, arch: str = EP_MAMBA_ARCH) -> dict:
     return out
 
 
+def _ep_loss(mesh, dev, arch: str) -> dict:
+    """Phase 21(f) on this rank (see EP_LOSS_B): the split loss, then the
+    gathering form, each forward + backward from a fresh copy of the block."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.losses import next_token_shift, nll_loss, vocab_parallel_nll
+
+    V = get_config(arch).vocab
+    md = mesh.mesh_dim_names.index("model")
+    ms, me, group = mesh.shape[md], mesh.get_local_rank(md), mesh.get_group(md)
+    assert V % ms == 0, (arch, V, ms)
+    lo, c = me * (V // ms), V // ms
+    gen = torch.Generator(device=dev).manual_seed(0)
+    logits = 2.0 * torch.randn((EP_LOSS_B, EP_LOSS_T, V), generator=gen, device=dev)
+    labels = torch.randint(0, V, (EP_LOSS_B, EP_LOSS_T), generator=gen, device=dev)
+    start, tgt = next_token_shift(labels)
+    n = tgt.shape[1]
+    whole = logits.requires_grad_()
+    want = nll_loss(whole[:, start:start + n], tgt)
+    want_g = torch.autograd.grad(want, [whole])[0][..., lo:lo + c].contiguous()
+    block = logits.detach()[..., lo:lo + c].contiguous()
+    del logits, whole
+
+    def split():
+        x = block.clone().requires_grad_()
+        loss = vocab_parallel_nll(x, tgt, lo=lo, group=group, start=start)
+        return loss.detach(), torch.autograd.grad(loss, [x])[0]
+
+    def gathered():
+        x = block.clone().requires_grad_()
+        parts = [torch.empty_like(block) for _ in range(ms)]
+        dist.all_gather(parts, block, group=group)
+        parts[me] = x
+        full = torch.cat(parts, -1)
+        loss = nll_loss(full[:, start:start + n], tgt)
+        return loss.detach(), torch.autograd.grad(loss, [x])[0]
+
+    out = {"vocab": V, "block": [lo, lo + c], "tol": EP_LOSS_TOL}
+    for name, fn in (("split", split), ("gathered", gathered)):
+        _sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+        t1 = time.perf_counter()
+        loss, grad = fn()
+        _sync(dev)
+        out[name] = {
+            "s": time.perf_counter() - t1,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev) - base
+                           if dev.type == "cuda" else None),
+            "rel_loss": abs(loss.item() - want.item()) / abs(want.item()),
+            "rel_grad": ((grad - want_g).abs().max() / want_g.abs().max()).item()}
+        del loss, grad
+    return out
+
+
 def _ep_worker(rank: int, world: int, port: int, out_dir: str, arch: str,
                device: str, mamba_arch: str = EP_MAMBA_ARCH) -> None:
     """One rank of phase 21; rank 0 writes ``out_dir/ep.json``."""
@@ -3404,6 +3478,11 @@ def _ep_worker(rank: int, world: int, port: int, out_dir: str, arch: str,
         t1 = time.perf_counter()
         rep["mlp"] = _ep_mlp(mesh, dev, mamba_arch)
         rep["mlp_s"] = time.perf_counter() - t1
+
+        # ---- (f) the train step's loss on vocab-split logits on the card
+        t1 = time.perf_counter()
+        rep["loss"] = _ep_loss(mesh, dev, arch)
+        rep["loss_s"] = time.perf_counter() - t1
 
         # ---- (b) the sharded model path on the host mesh, fp32, first layers
         cut = get_config(_cut_arch(arch, EP_FP32_LAYERS))
@@ -3500,6 +3579,11 @@ def ep_phase(arch: str = "olmoe", device: str = "cuda",
         for name, m in r["mlp"].items():
             if not (m["rel_y"] <= m["tol"] and max(m["rel_grad"].values()) <= m["tol"]):
                 bad.append((r["rank"], "shared mlp", name, m))
+        lo = r["loss"]
+        if not all(lo[k]["rel_loss"] <= lo["tol"] and lo[k]["rel_grad"] <= lo["tol"]
+                   for k in ("split", "gathered")) or (
+                device == "cuda" and not lo["split"]["peak_bytes"] < lo["gathered"]["peak_bytes"]):
+            bad.append((r["rank"], "vocab-split loss", lo))
         t, s32 = r["train"], r["serve_fp32"]
         if not (t["leaves_equal"] and t["loss_rel"] <= EP_LOSS_REL
                 and t["grad_rel_worst_leaf"] <= GRAD_REL_TOL
@@ -3530,6 +3614,14 @@ def ep_phase(arch: str = "olmoe", device: str = "cuda",
                   f"{k} y rel {m['rel_y']:.3g}, gradients worst leaf rel "
                   f"{max(m['rel_grad'].values()):.3g} (tol {m['tol']}), {m['s']:.3f} s"
                   for k, m in r["mlp"].items()) + f"; part (e) {r['mlp_s']:.1f} s")
+        lo = r["loss"]
+        print(f"loss on vocab-split logits (vocab {lo['vocab']}, block {lo['block']}, "
+              f"{EP_LOSS_B} x {EP_LOSS_T} rows, fp32) on the card, rank {r['rank']}: "
+              + "; ".join(f"{k} loss rel {m['rel_loss']:.3g}, gradient rel "
+                          f"{m['rel_grad']:.3g} (tol {lo['tol']}), peak {m['peak_bytes']} B, "
+                          f"{m['s']:.3f} s" for k, m in ((k, lo[k]) for k in
+                                                        ("split", "gathered")))
+              + f"; part (f) {r['loss_s']:.1f} s")
     if bad:
         raise AssertionError(f"phase 21: {bad}")
     rep = {"ranks": reps, "phase_s": time.perf_counter() - t_phase}

@@ -36,26 +36,22 @@ from typing import Callable, List, Optional
 import torch
 
 from ..configs.base import ModelConfig
-from ..core.losses import combine, nll_loss
+from ..core.losses import combine, next_token_shift, nll_loss, nll_loss_on_mesh
 from ..distributed.sharding import (batch_pspecs, cache_pspecs, distribute, param_pspecs,
                                     placements)
 from ..models.model import MelinoeRun, apply_model, decode_step, param_shapes
-from ..models.runtime import Runtime, is_distributed, on_rows
+from ..models.runtime import Runtime, is_distributed
 from ..training.optim import OptConfig, adamw_update, global_norm
 
 
 def _shift_loss(logits, tokens, labels, prefix_len: int):
-    """Next-token NLL with the prefix-embedding offset (on a sharded mesh
-    each rank on its own batch rows, ``on_rows``)."""
+    """Next-token NLL with the prefix-embedding offset. On a sharded mesh
+    each rank takes its own batch rows and, where the logits are split
+    along the vocab, its own block of it (``nll_loss_on_mesh``)."""
     if is_distributed(logits):
-        return on_rows(lambda lg, lb: _shift_loss(lg, None, lb, prefix_len), logits, labels)
-    if prefix_len:
-        pred = logits[:, prefix_len - 1: -1]
-        tgt = labels
-    else:
-        pred = logits[:, :-1]
-        tgt = labels[:, 1:]
-    return nll_loss(pred, tgt)
+        return nll_loss_on_mesh(logits, labels, prefix_len)
+    start, tgt = next_token_shift(labels, prefix_len)
+    return nll_loss(logits[:, start:start + tgt.shape[1]], tgt)
 
 
 def device_batch(batch: dict, device) -> dict:

@@ -64,12 +64,15 @@ def on_rows(fn, *ts):
     """``fn(*ts)`` -> scalars, each a mean over equal parts of the batch
     (dim 0), computed on DTensor inputs rank by rank: each rank takes its
     own rows (the inputs sharded over dim 0 as the first is, replicated on
-    every other mesh dim), ``fn`` on the local tensors, and each scalar
-    placed back as the mean of the ranks' means (a per-row vector of the
-    local mean, sharded as the rows, averaged). ``None`` inputs pass
-    through. The batch's losses take this path rather than DTensor's
-    strategies for their scans, slices and gathers, which differ by torch
-    release."""
+    every other mesh dim, so an input split along another dim is gathered
+    whole), ``fn`` on the local tensors, and each scalar placed back as the
+    mean of the ranks' means (a per-row vector of the local mean, sharded
+    as the rows, averaged). ``None`` inputs pass through. It is for the
+    batch's small per-row losses, the MELINOE layer losses on the (B, T, E)
+    router outputs (``core.losses.melinoe_layer_losses``), rather than
+    DTensor's strategies for their scans, slices and gathers, which differ
+    by torch release. The next-token NLL on the vocab-split logits keeps
+    its split instead (``core.losses.nll_loss_on_mesh``)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     first = next(t for t in ts if t is not None)

@@ -7,7 +7,9 @@ every rank), runs every sharded case, and rank 0 writes the gathered
 results to ``root/results.pt``. Every collective (a ``full_tensor``
 included) runs on all ranks. ``run_model`` runs the model cases alone on
 the input's mesh (``tests/test_torch_distributed_mamba.py``), ``run_mlp``
-the shared MLP's body (``tests/test_torch_shared_mlp.py``).
+the shared MLP's body (``tests/test_torch_shared_mlp.py``),
+``run_vocab_loss`` the loss on vocab-split logits
+(``tests/test_torch_vocab_loss.py``).
 """
 import copy
 
@@ -118,6 +120,50 @@ def run_mlp(rank, world, port, root):
         rt = Runtime(kernel_backend="ref", device=torch.device("cpu"),
                      mesh=make_debug_mesh(data, model, *pod, device_type="cpu"))
         res = {name: _mlp(case, rt) for name, case in inp["mlp_cases"].items()}
+        if rank == 0:
+            torch.save(res, f"{root}/results.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _vocab_loss(case, rt):
+    """``core.losses.nll_loss_on_mesh`` on one case of ``root/inputs.pt``'s
+    ``loss_cases``: the logits placed as ``compute_logits`` places them
+    (``rules``: rows over the data axes, the vocab over "model" where it
+    divides) or split along the vocab over "model" whatever its size
+    (``forced``: torch.chunk's uneven blocks), the labels by batch rows.
+    Returns the loss and the logits' gradient, whole."""
+    from repro_torch.core.losses import nll_loss_on_mesh
+    from repro_torch.distributed.sharding import distribute
+
+    lg = case["logits"]
+    spec = (rt.data_axes, None, "model")
+    if case["placement"] == "rules":
+        spec = rt.prune_spec(lg.shape, spec)
+    dl = distribute(lg.clone().requires_grad_(), spec, rt.mesh)
+    labels = distribute(case["labels"], (rt.data_axes, None), rt.mesh)
+    with rt.dist():
+        loss = nll_loss_on_mesh(dl, labels, case["prefix_len"])
+        (grad,) = torch.autograd.grad(loss, [dl])
+    return {"loss": loss.full_tensor().detach(), "grad": grad.full_tensor().detach(),
+            "placements": str(tuple(dl.placements))}
+
+
+def run_vocab_loss(rank, world, port, root):
+    """Every case of ``loss_cases`` on the ("pod",) "data", "model"
+    ``mesh`` of ``root/inputs.pt``; rank 0 writes ``root/results.pt``."""
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world)
+    try:
+        from repro_torch.launch.mesh import make_debug_mesh
+        from repro_torch.models.runtime import Runtime
+
+        inp = torch.load(f"{root}/inputs.pt", weights_only=False)
+        *pod, data, model = inp["mesh"]
+        rt = Runtime(kernel_backend="ref", device=torch.device("cpu"),
+                     mesh=make_debug_mesh(data, model, *pod, device_type="cpu"))
+        res = {name: _vocab_loss(case, rt) for name, case in inp["loss_cases"].items()}
         if rank == 0:
             torch.save(res, f"{root}/results.pt")
     finally:

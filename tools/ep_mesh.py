@@ -23,8 +23,9 @@ Needs one card per rank (MESH: 2 x 2). Every rank runs:
     tokens, prefill logits within FP32_REL), and the MELINOE train step's
     loss and gradients against the single-device step, both under the
     trainer's kernel spec (loss within LOSS_REL; each leaf's gradient
-    within GRAD_REL of its largest element; grad_norm within GRAD_REL).
-    Both zero_drop: the sharded MoE sizes its capacity from each rank's
+    within GRAD_REL of its largest element; grad_norm within GRAD_REL),
+    with the card's ``memory_allocated`` before the sharded step and its
+    ``max_memory_allocated`` during it (the rank's peak). Both zero_drop: the sharded MoE sizes its capacity from each rank's
     own tokens (the reference's rule), so where the capacity drops tokens
     the two paths drop different ones by design;
 (c) bf16 at full depth (or cut to ``--layers``): the sharded prefill and
@@ -260,11 +261,16 @@ def _worker(rank: int, args, port: int, out_dir: str) -> None:
         oc = OptConfig(peak_lr=1e-3, total_steps=10)
         l1, _, g1 = build_train_step(cut, single, oc, melinoe=True).loss_and_grads(params, batch)
         _sync(dev)
+        if cuda:  # the sharded step's peak above what is allocated before it
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         l2, _, g2 = build_train_step(cut, sharded, oc, melinoe=True).loss_and_grads(
             dparams, batch)
         _sync(dev)
         step_s = time.perf_counter() - t0
+        mem = ({"allocated_before_bytes": before,
+                "max_allocated_bytes": torch.cuda.max_memory_allocated(dev)} if cuda else {})
         g1, g2 = dict(_grads(g1)), dict(_grads(g2))
         rel = {k: ((g2[k] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
                for k, g in g1.items()}
@@ -276,7 +282,7 @@ def _worker(rank: int, args, port: int, out_dir: str) -> None:
                              "grad_rel_worst_leaf": rel[worst], "worst_leaf": worst,
                              "grad_norm_rel": abs(gn2 - gn1) / gn1,
                              "leaves_equal": sorted(g1) == sorted(g2),
-                             "loss_and_grads_s": step_s}
+                             "loss_and_grads_s": step_s, **mem}
         del params, dparams, g1, g2
         if cuda:
             torch.cuda.empty_cache()
