@@ -184,7 +184,8 @@ From the root of a checkout, with CUDA available:
    transient fetch-failure plan with the naive policy (phase 4's tokens
    and transfers, ``fetch_failures`` > 0, a serial clock >= phase 4's)
    and under eviction storms (phase 4's tokens, more transfers), each
-   ``audit()`` empty; (c) the crash-safe wave server on the wave phase's 8
+   ``audit()`` empty; (c) the crash-safe wave server (on the first
+   ``LAUNCHER_LAYERS`` layers of the same weights and store) on the wave phase's 8
    requests (waves of 4, C = 16, no LoRA): journaled, checkpointed and
    audited every wave, crashed mid-serve by ``crash_at``, then resumed
    warm and, from a copy of the journal, cold: every request finishes
@@ -282,7 +283,34 @@ From the root of a checkout, with CUDA available:
    argument and peak GB, TFLOP, collective GB by kind, launches by op,
    trace seconds and whether the peak fits the card; every record's
    collective bytes above 0;
-23. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+23. Mixtral-8x7B (paper Table 6/7: 32 layers, d 4096, 32 q / 8 kv heads of
+   128, 8 experts top-2, d_ff 14,336, vocab 32,000; C = 2, gamma) offloaded
+   at full width through ``repro_torch.launch.serve.run``, 4 x (128 + 16)
+   tokens, random weights from seed 0, each store drawn into one expert
+   matrix at a time (``HostExpertStore``) in a child process of its own:
+   (a) INT4 at full depth (a 33.8 GB store), (b) bf16 at full depth where
+   the host's MemAvailable holds the 84.0 GiB store plus
+   ``MIXTRAL_HOST_HEADROOM_GIB``, else at the deepest depth that does
+   (printed as a cut). Counters from 0 in each child. Gates: one
+   ``flash_attn`` "tc" a layer in the prefill and none in decode;
+   ``moe_gmm`` "tc" in the prefill and "stream" in decode, and
+   ``int4_matmul`` by ``INT4_PHASE_ROUTES``, each total a positive multiple
+   of 3; the prefill logits against a plain run on the same pinned store
+   within ``MIXTRAL_ROUNDOFF_SPAN`` x the plain path's own bf16 round-off
+   (its distance from a plain run in fp32 activations on the INT4 codes,
+   at full depth), the INT4 kernel run within ``ACCURACY_RATIO`` x of it
+   from that fp32 run; the build's rise of the child's resident-set
+   high-water mark (VmHWM) and the host's MemAvailable drop each within
+   ``host_store_bytes`` + ``MIXTRAL_RSS_MARGIN`` (a second host copy of the
+   experts would exceed them); and, at full width on ``MIXTRAL_FP32_LAYERS``
+   layers, the fp32 kernel run against the plain one within
+   ``FP32_LOGITS_REL_TOL``. It prints transfers, hit rate, both Eq.-3 clocks, decode
+   tok/s, prefill s, ``quantize_s``, the build's seconds, the host's
+   MemAvailable before and after each build, expert copies a decode step,
+   and peak device memory beside the slab bytes. The kernel cases of step 3
+   include Mixtral's shapes (``mixtral_gmm_cases``,
+   ``MIXTRAL_FLASH_SHAPES``, ``MIXTRAL_INT4_SHAPES``);
+24. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -451,7 +479,10 @@ LITTLE_RANK = 8
 # tokens equal after a resume), which depth does not change, and the
 # engines' full-depth runs are their phases' own. Cut so that the whole run
 # stays inside its time limit (1227.8 s with them at full depth on an H100
-# 80GB HBM3 at 700 W, whose host ran the host-bound phases slowly).
+# 80GB HBM3 at 700 W, whose host ran the host-bound phases slowly). Since
+# phase 23 (Mixtral, ~110 s) the crash-safe wave server of phase 18(c) takes
+# them too: its gates read the journal, checkpoint and revival plumbing
+# (92.5 s for phase 18 with it at full depth, 41.1 s after the cut).
 LAUNCHER_LAYERS = 4
 LITTLE_BANK_BYTES = 16 * 3 * (64 * 2048 * 8 + 64 * 8 * 1024) * 4
 
@@ -573,6 +604,30 @@ def gmm_cases(gen):
     return cases
 
 
+def mixtral_gmm_cases(gen):
+    """moe_gmm at Mixtral-8x7B's expert shapes (8 experts, top-2, d_ff
+    14,336, C = 2): the slab group of a batch-4 decode step (2 slots of up
+    to 4 rows, "stream") and a prefill's overflow group (6 experts of
+    4 x 128 tokens' top-2 route, "tc"), both projections' shapes."""
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for G, M in ((2, 4), (6, 512)):
+            if M == 4:
+                sizes = torch.randint(1, M + 1, (G,), generator=gen, device="cuda",
+                                      dtype=torch.int32)
+            else:  # the rows a real top-2 route of M tokens gives 6 of the 8 experts
+                eids = torch.randn(M, 8, generator=gen, device="cuda").topk(2, dim=-1).indices
+                sizes = torch.bincount(eids.reshape(-1), minlength=8)[:G].to(torch.int32)
+            for K, F in ((4096, 14_336), (14_336, 4096)):
+                a = torch.randn(G, M, K, generator=gen, device="cuda")
+                a = (a * (torch.arange(M, device="cuda")[None, :, None]
+                          < sizes[:, None, None])).to(dtype)
+                b = (torch.randn(G, K, F, generator=gen, device="cuda") * K**-0.5).to(dtype)
+                cases.append(gmm_case(a, b, sizes, dtype))
+                del a, b
+    return cases
+
+
 def gmm_case(a, b, sizes, dtype) -> dict:
     """One moe_gmm case: the kernel against the plain version and
     ``torch.bmm``, its route, the CUDA-core route beside a fast one."""
@@ -612,16 +667,19 @@ def gmm_case(a, b, sizes, dtype) -> dict:
         "bound_ms": t_bound, "bound_by": by}
 
 
-def flash_cases(gen):
+FLASH_SHAPES = [(4, 128, 16, 1, 128, None, None), (4, 100, 16, 1, 128, None, None),
+                (1, 128, 16, 1, 128, None, None),  # the continuous server's prefill
+                (4, 128, 8, 2, 64, None, None), (4, 128, 16, 1, 128, 50.0, 32),
+                (4, 512, 32, 1, 112, None, None),  # zamba2-7b's shared attention
+                (4, 512, 8, 4, 160, None, None)]  # stablelm-12b's prefill
+MIXTRAL_FLASH_SHAPES = [(4, 128, 8, 4, 128, None, None)]  # Mixtral-8x7B's prefill
+
+
+def flash_cases(gen, shapes=FLASH_SHAPES):
     from repro_torch.kernels.flash_attn import attention_ref, flash_hopper
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     cases = []
-    shapes = [(4, 128, 16, 1, 128, None, None), (4, 100, 16, 1, 128, None, None),
-              (1, 128, 16, 1, 128, None, None),  # the continuous server's prefill
-              (4, 128, 8, 2, 64, None, None), (4, 128, 16, 1, 128, 50.0, 32),
-              (4, 512, 32, 1, 112, None, None),  # zamba2-7b's shared attention
-              (4, 512, 8, 4, 160, None, None)]  # stablelm-12b's prefill
     for dtype in (torch.bfloat16, torch.float32):
         for B, T, Hkv, G, hd, cap, win in shapes:
             q = torch.randn(B, T, Hkv, G, hd, generator=gen, device="cuda").to(dtype)
@@ -717,14 +775,20 @@ def blockwise_cases(gen) -> list:
     return rows
 
 
-def int4_cases(gen):
+INT4_SHAPES = [(M, K, N) for M in (1, 4, 512) for K, N in ((2048, 1024), (1024, 2048))]
+INT4_SHAPES.append((7, 2048, 1000))  # ragged: M and N tails of both tiles
+# Mixtral-8x7B's INT4 spillover: every token of the step against one
+# spilled expert, 4 rows in decode ("stream"), 512 in prefill ("tc")
+MIXTRAL_INT4_SHAPES = [(M, K, N) for M in (4, 512) for K, N in ((4096, 14_336),
+                                                                 (14_336, 4096))]
+
+
+def int4_cases(gen, shapes=INT4_SHAPES):
     from repro_torch.kernels.int4_matmul import (dequant_ref, int4_matmul_hopper,
                                                  int4_matmul_ref, quantize_matmul_weight)
 
     cases = []
     g = 32
-    shapes = [(M, K, N) for M in (1, 4, 512) for K, N in ((2048, 1024), (1024, 2048))]
-    shapes.append((7, 2048, 1000))  # ragged: M and N tails of both tiles
     for dtype in (torch.bfloat16, torch.float32):
         for M, K, N in shapes:
             x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
@@ -1098,15 +1162,13 @@ def _tree_float(tree):
 
 
 def _host_available_gib() -> float:
-    """MemAvailable of the host (the wave and deepseek phases hold 30-60 GB
-    of experts in host memory), or NaN where /proc/meminfo is missing."""
-    try:
-        for line in Path("/proc/meminfo").read_text().splitlines():
-            if line.startswith("MemAvailable:"):
-                return int(line.split()[1]) / 2**20
-    except OSError:
-        pass
-    return float("nan")
+    """MemAvailable of the host (the wave, deepseek and Mixtral phases hold
+    30-90 GB of experts in host memory), or NaN where /proc/meminfo is
+    missing."""
+    from repro_torch.launch.serve import host_available_bytes
+
+    b = host_available_bytes()
+    return float("nan") if b is None else b / 2**30
 
 
 def _rel(a, b) -> float:
@@ -2564,17 +2626,21 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
     if not (st["fault_counters"]["storm"] > 0 and st["transfers"] > main["transfers"]):
         raise AssertionError(f"fault-storm: {st}")
 
-    # ---- (c) the crash-safe wave server: the wave phase's 8 requests
+    # ---- (c) the crash-safe wave server: the wave phase's 8 requests, on the
+    # first LAUNCHER_LAYERS layers (its gates read the journal, checkpoint and
+    # revival plumbing, which depth does not change)
+    wparams, wcfg = _first_layers(params, cfg, min(LAUNCHER_LAYERS, cfg.n_layers))
+    wstore = store[:wcfg.n_moe_layers]
     n = len(SERVE_BUDGETS)
-    wprompts = make_prompts(cfg.vocab, n, SERVE_PROMPT)
+    wprompts = make_prompts(wcfg.vocab, n, SERVE_PROMPT)
 
     def reqs_of():
         return [ServeRequest(rid=i, prompt=wprompts[i], max_new_tokens=SERVE_BUDGETS[i])
                 for i in range(n)]
 
-    wave_kw = dict(capacity=capacity, policy="gamma", wave_size=4, host_store=store,
+    wave_kw = dict(capacity=capacity, policy="gamma", wave_size=4, host_store=wstore,
                    device=dev)
-    ref_srv = OffloadedWaveServer(cfg, params, **wave_kw)
+    ref_srv = OffloadedWaveServer(wcfg, wparams, **wave_kw)
     ref, _ = ref_srv.run(RequestQueue(reqs_of()))
     ref_toks = [r.tokens.tolist() for r in ref]
     ref_transfers = ref_srv.engine.metrics.transfers
@@ -2584,7 +2650,7 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
         jr = RequestJournal(jdir)
         install_fault_plan(f"crash_at={OPS_WAVE_CRASH_AT},seed=0")
         try:
-            OffloadedWaveServer(cfg, params, **wave_kw).run(
+            OffloadedWaveServer(wcfg, wparams, **wave_kw).run(
                 RequestQueue(reqs_of()), journal=jr, checkpoint_every=1, audit_every=1)
             raise AssertionError("the wave server did not crash")
         except InjectedCrash as e:
@@ -2594,8 +2660,8 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
             jr.close()
         shutil.copytree(jdir, cold_dir)
         snapshot = recover(jdir).engine["cache"]  # the checkpoint after wave 1
-        resumed = {"warm": _crash_and_resume(cfg, params, store, dev, jdir, True, capacity),
-                   "cold": _crash_and_resume(cfg, params, store, dev, cold_dir, False,
+        resumed = {"warm": _crash_and_resume(wcfg, wparams, wstore, dev, jdir, True, capacity),
+                   "cold": _crash_and_resume(wcfg, wparams, wstore, dev, cold_dir, False,
                                              capacity)}
     for mode, r in resumed.items():
         toks = [x.tokens.tolist() for x in r.pop("results")]
@@ -2618,7 +2684,7 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
     want = ref_transfers - warm["checkpoint_transfers"]
     same = {}
     for mode in ("warm", "cold"):
-        eng = OffloadedMoEEngine(cfg, params, host_store=store, **eng_kw)
+        eng = OffloadedMoEEngine(wcfg, wparams, host_store=wstore, **eng_kw)
         eng.revive(snapshot, warm=mode == "warm")
         t0 = eng.metrics.transfers
         eng.generate(wprompts[3][None], max_new_tokens=1)
@@ -2634,7 +2700,7 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
             and same["warm"] < same["cold"]):
         raise AssertionError(f"wave revival: {rows['wave-revival']}, warm {warm}, cold {cold}")
     shared.clear()
-    del params, store, prompts
+    del params, store, prompts, wparams, wstore
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3850,6 +3916,282 @@ def dryrun_phase(bg: subprocess.Popen, out_dir: Path, arch: str = "olmoe",
     return rep
 
 
+# Phase 23: Mixtral-8x7B (paper Table 6/7: 8 experts, top-2, d_ff 14,336,
+# C = 2) offloaded at full width through launch.serve.run, 4 x (128 + 16)
+# tokens, gamma, random weights from seed 0, one child process per store
+# (INT4 at full depth, then bf16) so that each build's host memory is its own.
+MIXTRAL = "mixtral-8x7b"
+MIXTRAL_SERVE = dict(capacity=2, policy="gamma", batch=4, prompt_len=128, seed=0)
+MIXTRAL_NEW = 16
+# host memory the bf16 phase leaves free beside its store: it serves at
+# full depth where MemAvailable at its start holds the 84.0 GiB store plus
+# this, else at the deepest depth that does (2.625 GiB of experts a layer)
+MIXTRAL_HOST_HEADROOM_GIB = 8
+MIXTRAL_FP32_LAYERS = 2
+# The child's resident-set high-water mark after the build
+# (launch.serve.max_rss_bytes) less the same before it (torch, the CUDA
+# context and the kernel library loaded), and the host's MemAvailable
+# before the build less after it, each against host_store_bytes: this
+# margin is what else the build may allocate in host memory (numpy's and
+# torch's bookkeeping, CUDA's host-side state as the draws and the
+# quantization first launch their kernels). One expert matrix is drawn or
+# quantized at a time on the card; a second host copy of the experts would
+# add 31.5 GiB (INT4) or 84.0 GiB (bf16). On the card's host /proc has no
+# VmHWM and a child's resident set follows the sandbox's (its VmRSS at its
+# start is its parent's), so the first bound is loose there; the
+# MemAvailable drop is the tight one.
+MIXTRAL_RSS_MARGIN = 2 << 30
+# The served prefill logits (bf16 activations, bf16 or INT4 experts), the
+# kernel run against the plain run on the same store. A fixed limit of 4e-2
+# (deepseek's, written before the first run) failed on the INT4 path at
+# 0.0531 (H100 80GB HBM3, 700 W): at C = 2 three of every four routed
+# experts run through the INT4 spillover, whose plain version multiplies in
+# fp32 where the kernel rounds each product to bf16, through 32 random
+# layers. The limit is therefore the path's own bf16 round-off, measured
+# in the same run at full depth: the plain run in fp32 activations on the
+# same INT4 codes (the codes do not depend on the activation type, and the
+# other weights are the fp32 draws that the bf16 ones round) is the
+# reference; the plain bf16 run lies r from it. The INT4 kernel run must lie
+# within ACCURACY_RATIO x r of it (a second rounding inside a kernel would
+# exceed that), and each path's kernel run within (1 + ACCURACY_RATIO) x r
+# of its plain run, what two runs that near the reference can be apart
+# (the bf16 experts' path has no fp32 store at full depth: 168 GiB; it is
+# held to the same architecture's r). The kernels' arithmetic is held
+# first in fp32 at full width on MIXTRAL_FP32_LAYERS layers to
+# FP32_LOGITS_REL_TOL, where only the order of sums differs.
+MIXTRAL_ROUNDOFF_SPAN = 1 + ACCURACY_RATIO
+MIXTRAL_LIMIT_S = 900  # both children together
+
+
+def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
+                   device: str, fp32_layers: int) -> None:
+    """One store of phase 23 in a process of its own: ``launch.serve.run``
+    of ``arch`` cut to ``layers`` with ``kind`` ("int4" or "bf16")
+    experts, counters from 0, then the plain run on the same store
+    (``max_new`` 1); for "int4" also the plain run in fp32 activations on
+    the same codes, and the fp32 kernel-vs-plain prefill at full width on
+    ``fp32_layers`` layers. Writes the reports, launches, logits and the
+    seconds of each step to ``out`` (``torch.save``)."""
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.launch.serve import max_rss_bytes, run
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.init()
+        _build.lib()
+    kw = dict(MIXTRAL_SERVE, dtype=torch.bfloat16, device=device)
+    q = kind == "int4"
+    name = _cut_arch(arch, layers)
+    secs = {"start": time.perf_counter() - t0}
+    baseline = max_rss_bytes()
+    dispatch.reset_launches()
+    t = time.perf_counter()
+    rep = run(name, max_new=MIXTRAL_NEW, quantized=q, keep_store=True, **kw)
+    secs["serve"] = time.perf_counter() - t
+    launches = dict(dispatch.LAUNCHES)
+    routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    store = rep.pop("host_store")
+    rep.pop("quantized_experts", None)
+    t = time.perf_counter()
+    ref = run(name, max_new=1, kernel_backend="ref", quantized=q, host_store=store, **kw)
+    secs["plain"] = time.perf_counter() - t
+    res = {"kind": kind, "layers": layers, "rep": rep, "baseline_rss": baseline,
+           "launches": launches, "routes": routes, "plain_logits": ref["prefill_logits"]}
+    if q:  # the plain run in fp32 activations on the same codes
+        t = time.perf_counter()
+        ref32 = run(name, max_new=1, kernel_backend="ref", quantized=True, host_store=store,
+                    **dict(kw, dtype=torch.float32))
+        res["plain_fp32_logits"] = ref32["prefill_logits"]
+        secs["plain_fp32"] = time.perf_counter() - t
+        del ref32
+    del store, ref
+    gc.collect()
+    if q:  # the fp32 check at full width on a few layers
+        t = time.perf_counter()
+        short = _cut_arch(arch, fp32_layers)
+        kw32 = dict(kw, dtype=torch.float32)
+        k = run(short, max_new=1, keep_store=True, **kw32)
+        st = k.pop("host_store")
+        p = run(short, max_new=1, kernel_backend="ref", host_store=st, **kw32)
+        res["fp32_short"] = (k["prefill_logits"], p["prefill_logits"])
+        del st, k, p
+        gc.collect()
+        secs["fp32_short"] = time.perf_counter() - t
+    secs["child"] = time.perf_counter() - t0
+    res["secs"] = secs
+    torch.save(res, out)
+
+
+def _mixtral_spawn(kind: str, layers: int, d: str, arch: str, device: str,
+                   fp32_layers: int, deadline: float) -> dict:
+    out = str(Path(d, f"mixtral-{kind}.pt"))
+    ctx = torch.multiprocessing.start_processes(
+        _mixtral_child, args=(kind, layers, out, arch, device, fp32_layers), nprocs=1,
+        join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"phase 23: the children took over {MIXTRAL_LIMIT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    return torch.load(out, weights_only=False)
+
+
+def _settled_available_gib(limit_s: float = 30.0) -> float:
+    """The host's MemAvailable once it stops rising (a child's pinned
+    store goes back to the host after the child has exited): read every
+    0.5 s until two reads lie within 0.25 GiB, at most ``limit_s``."""
+    t_end = time.perf_counter() + limit_s
+    prev = _host_available_gib()
+    while time.perf_counter() < t_end:
+        time.sleep(0.5)
+        cur = _host_available_gib()
+        if abs(cur - prev) < 0.25:
+            return cur
+        prev = cur
+    return prev
+
+
+def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
+                  fp32_layers: int = MIXTRAL_FP32_LAYERS) -> dict:
+    """Phase 23 (see MIXTRAL): full-width Mixtral-8x7B offloaded, INT4 at
+    full depth, then bf16 at the depth the host's memory allows; each
+    store drawn into by ``launch.serve.run`` in a child process. Every row
+    is printed first, then gated: launch totals (``flash_attn`` one "tc" a
+    layer in the prefill; ``moe_gmm`` and ``int4_matmul`` positive multiples
+    of 3, ``moe_gmm`` "tc" in the prefill and "stream" in decode,
+    ``int4_matmul`` by INT4_PHASE_ROUTES), the prefill logits (see
+    MIXTRAL_ROUNDOFF_SPAN), the fp32 check on ``fp32_layers`` layers
+    (FP32_LOGITS_REL_TOL), and the build's host memory against the store
+    (MIXTRAL_RSS_MARGIN). ``arch``/``device``: a smaller model or the CPU,
+    to rehearse the phase's logic."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    deadline = t_phase + MIXTRAL_LIMIT_S
+    cfg = get_config(arch)
+    spec = cfg.moe_spec
+    full = cfg.n_layers
+    layer_gib = spec.num_experts * 3 * cfg.d_model * spec.d_ff * 2 / 2**30
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        print(f"mixtral phase: host memory available {_host_available_gib():.1f} GiB")
+        rows["int4"] = _mixtral_spawn("int4", full, d, arch, device, fp32_layers, deadline)
+        avail = _settled_available_gib()
+        layers = full
+        if not avail >= full * layer_gib + MIXTRAL_HOST_HEADROOM_GIB:
+            layers = int((avail - MIXTRAL_HOST_HEADROOM_GIB) // layer_gib)
+            print(f"mixtral bf16: host memory available {avail:.1f} GiB < "
+                  f"{full * layer_gib:.1f} GiB of experts + {MIXTRAL_HOST_HEADROOM_GIB} "
+                  f"GiB: CUT to {layers} of {full} layers")
+            if layers < 1:
+                raise AssertionError(f"mixtral bf16: {avail:.1f} GiB of host memory "
+                                     "holds no layer")
+        else:
+            print(f"mixtral bf16: host memory available {avail:.1f} GiB: full depth, "
+                  f"{full} layers")
+        rows["bf16"] = _mixtral_spawn("bf16", layers, d, arch, device, fp32_layers,
+                                      deadline)
+    i4 = rows["int4"]
+    fp32_ref = i4["plain_fp32_logits"]
+    roundoff = _rel(i4["plain_logits"], fp32_ref)
+    k32, p32 = i4["fp32_short"]
+    checks = {"fp32_short_kernel_vs_plain": _rel(k32, p32),
+              "int4_plain_bf16_vs_fp32": roundoff,
+              "int4_kernel_bf16_vs_fp32": None}
+    out, bad = {}, []
+    gib = lambda b: f"{b / 2**30:.2f} GiB" if b is not None else "n/a"  # noqa: E731
+    for kind, r in rows.items():
+        rep, q, n = r["rep"], kind == "int4", r["layers"]
+        path = f"mixtral-{kind}"
+        PATH_LAUNCHES[path] = {"moe_gmm": None, "flash_attn": n,
+                               "int4_matmul": None if q else 0}
+        by_phase = rep["route_launches"]
+        tokens, logits = rep.pop("tokens"), rep.pop("prefill_logits")
+        rel = _rel(logits, r["plain_logits"])
+        if q:
+            checks["int4_kernel_bf16_vs_fp32"] = _rel(logits, fp32_ref)
+        top1 = (logits.argmax(-1) == r["plain_logits"].argmax(-1)).float().mean().item()
+        rss = rep["max_rss_after_build"] - r["baseline_rss"]
+        drop = rep["host_available_before_build"] - rep["host_available_after_build"]
+        steps = max(rep["max_new"] - 1, 1)
+        row = {k: rep[k] for k in (
+            "transfers", "transfer_bytes", "hit_rate", "modeled_time_s",
+            "modeled_time_overlapped_s", "decode_tok_s", "prefill_s", "quantize_s",
+            "build_s", "max_memory_allocated", "slab_bytes", "host_store_bytes",
+            "host_available_before_build", "host_available_after_build", "expert_copies")}
+        row.update(layers=n, logits_rel=rel, top1=top1, build_rss_bytes=rss,
+                   baseline_rss_bytes=r["baseline_rss"], host_available_drop_bytes=drop,
+                   rss_margin=MIXTRAL_RSS_MARGIN, secs=r["secs"],
+                   copies_per_decode_step=rep["expert_copies"]["decode"] / steps,
+                   launches_total=r["launches"], route_launches=r["routes"],
+                   route_launches_by_phase=by_phase)
+        print(f"{path} ({n} layers): transfers {row['transfers']}, hit rate "
+              f"{row['hit_rate']:.3f}, modeled {row['modeled_time_s']:.3f} s serial / "
+              f"{row['modeled_time_overlapped_s']:.3f} s overlapped; prefill "
+              f"{row['prefill_s']:.3f} s, decode {row['decode_tok_s']:.2f} tok/s, "
+              f"{row['copies_per_decode_step']:.1f} moe.fetch copies a decode step; store "
+              f"{gib(row['host_store_bytes'])} built in {row['build_s']:.1f} s (quantize "
+              f"{row['quantize_s']:.1f} s); host MemAvailable "
+              f"{gib(row['host_available_before_build'])} before, "
+              f"{gib(row['host_available_after_build'])} after (-{gib(drop)}); resident-set "
+              f"high-water +{gib(rss)} over the child's {gib(r['baseline_rss'])} (limits "
+              f"store + {gib(MIXTRAL_RSS_MARGIN)}); peak "
+              f"device {gib(row['max_memory_allocated'])} beside slabs "
+              f"{gib(row['slab_bytes'])}; logits vs plain rel {rel:.4g} (limit "
+              f"{MIXTRAL_ROUNDOFF_SPAN} x {roundoff:.4g}), top-1 {top1:.2f}; child seconds "
+              f"{ {k: round(v, 1) for k, v in r['secs'].items()} }")
+        print(f"{path}: launches {r['launches']}, by phase {by_phase}")
+        if device == "cuda":
+            try:
+                check_path(path, r["launches"], r["routes"])
+            except AssertionError as e:
+                bad.append(str(e))
+            want = {"prefill": {"moe_gmm": {"tc"}, "flash_attn": {"tc"}},
+                    "decode": {"moe_gmm": {"stream"}, "flash_attn": set()}}
+            got = {ph: {op: set(by_phase[ph][op]) for op in ("moe_gmm", "flash_attn")}
+                   for ph in want}
+            if got != want or by_phase["prefill"]["flash_attn"].get("tc") != n:
+                bad.append(f"{path}: launches by phase {by_phase}, want routes {want} and "
+                           f"{n} flash_attn a prefill")
+            i4_phase = {ph: by_phase[ph]["int4_matmul"] for ph in by_phase}
+            if q and any(set(v) - set(INT4_PHASE_ROUTES[ph]) or sum(v.values()) % 3
+                         for ph, v in i4_phase.items()):
+                bad.append(f"{path}: int4_matmul by phase {i4_phase}, want "
+                           f"{INT4_PHASE_ROUTES}, multiples of 3")
+        if (tokens.shape != (4, MIXTRAL_NEW) or logits.shape != (4, cfg.vocab)
+                or not torch.isfinite(logits).all()):
+            bad.append(f"{path}: tokens {tokens.shape} logits {logits.shape}")
+        for what, b in (("resident-set high-water mark", rss), ("MemAvailable drop", drop)):
+            if not b <= rep["host_store_bytes"] + MIXTRAL_RSS_MARGIN:
+                bad.append(f"{path}: the build's {what} {b} B, over the store's "
+                           f"{rep['host_store_bytes']} B + {MIXTRAL_RSS_MARGIN}")
+        if not (math.isfinite(rel) and rel <= MIXTRAL_ROUNDOFF_SPAN * roundoff):
+            bad.append(f"{path}: prefill logits kernel vs plain rel {rel}, over "
+                       f"{MIXTRAL_ROUNDOFF_SPAN} x the plain path's round-off {roundoff}")
+        out[kind] = row
+    print(f"mixtral prefill logits: {checks} (fp32 on {fp32_layers} layers tol "
+          f"{FP32_LOGITS_REL_TOL}; INT4 kernel vs the fp32 plain run tol {ACCURACY_RATIO} x "
+          f"the plain bf16 run's)")
+    if not checks["fp32_short_kernel_vs_plain"] <= FP32_LOGITS_REL_TOL:
+        bad.append(f"mixtral: fp32 prefill logits disagree: {checks}")
+    if not checks["int4_kernel_bf16_vs_fp32"] <= ACCURACY_RATIO * roundoff:
+        bad.append(f"mixtral-int4: the kernel run lies farther from the fp32 plain run "
+                   f"than {ACCURACY_RATIO} x the plain bf16 run: {checks}")
+    out["checks"] = checks
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mixtral phase: {out['phase_s']:.1f} s")
+    if bad:
+        raise AssertionError("mixtral phase: " + "; ".join(bad))
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it. ``source`` is the kernel the
@@ -3897,6 +4239,12 @@ def main() -> int:
     blockwise_cases(torch.Generator(device="cuda").manual_seed(1))
     i_cases = int4_cases(gen)
     s_cases = ssd_cases(gen)
+    # Mixtral-8x7B's shapes, from a generator of their own (the cases above
+    # draw what they drew before them)
+    mgen = torch.Generator(device="cuda").manual_seed(2)
+    g_cases += mixtral_gmm_cases(mgen)
+    f_cases += flash_cases(mgen, MIXTRAL_FLASH_SHAPES)
+    i_cases += int4_cases(mgen, MIXTRAL_INT4_SHAPES)
     for c in g_cases + f_cases + i_cases + s_cases:
         print(f"  {c['case']}: route {c.get('route', 'cuda')} err {c['max_abs_err']:.3g} "
               f"kernel {c['ms']:.4f} ms"
@@ -4028,6 +4376,9 @@ def main() -> int:
 
     # ---- the dry run: its one-card prediction against the card; the production meshes
     dr_rep = dryrun_phase(dry_bg, dry_dir)
+
+    # ---- Mixtral-8x7B offloaded at full width: INT4 at full depth, then bf16
+    mx_rep = mixtral_phase()
     ep_paths = {}
     for r in ep_rep["ranks"]:
         gmm = r["moe"]["bfloat16"]["moe_gmm_routes"]
@@ -4082,7 +4433,8 @@ def main() -> int:
              **{f"phase20-{n}": r["launches_total"] for n, r in dc_rep["rows"].items()
                 if "launches_total" in r},
              **{p: lr[0] for p, lr in ep_paths.items()},
-             **{f"dryrun-{n}": r["card"]["launches"] for n, r in dr_rep["rows"].items()}}
+             **{f"dryrun-{n}": r["card"]["launches"] for n, r in dr_rep["rows"].items()},
+             **{f"mixtral-{n}": mx_rep[n]["launches_total"] for n in ("int4", "bf16")}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
@@ -4103,7 +4455,8 @@ def main() -> int:
              **{f"phase20-{n}": r["route_launches"] for n, r in dc_rep["rows"].items()
                 if "route_launches" in r},
              **{p: lr[1] for p, lr in ep_paths.items()},
-             **{f"dryrun-{n}": r["card"]["routes"] for n, r in dr_rep["rows"].items()}}
+             **{f"dryrun-{n}": r["card"]["routes"] for n, r in dr_rep["rows"].items()},
+             **{f"mixtral-{n}": mx_rep[n]["route_launches"] for n in ("int4", "bf16")}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

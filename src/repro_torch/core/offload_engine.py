@@ -88,6 +88,7 @@ attention, norms and router are the slab engine's.
 """
 from __future__ import annotations
 
+import mmap
 import time
 import weakref
 from dataclasses import dataclass, field
@@ -419,27 +420,116 @@ class QuantLayout:
                 for k, v in leaves.items()}
 
 
-_PAGE = 4096
-
-
 def _host_buffer(shape, dtype, pin: bool) -> torch.Tensor:
     """An empty host buffer, page-locked with ``cudaHostRegister`` when
     ``pin``: exactly its own pages, released with the memory. (The caching
     pinned allocator behind ``pin_memory=True`` rounds each buffer up to a
     power of two and keeps freed ones for reuse, which a 30 GB store
-    cannot afford.) The memory is a numpy array that every tensor made of
-    it keeps alive; the lock is undone as that array goes, before numpy
-    frees it."""
+    cannot afford.) The memory is an anonymous mapping of its own, advised
+    into huge pages where the kernel has them: locking 8 GiB took 2.1 s
+    so against 5.6 s in 4 KiB pages on the H100's host, and Mixtral's
+    84 GiB store is locked as it is drawn. A numpy array over the mapping,
+    which every tensor made of it keeps alive, holds the mapping; the lock
+    is undone as that array goes, before the mapping is unmapped."""
     nbytes = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
     if not pin:
         return torch.empty(shape, dtype=dtype)
-    raw = np.empty(nbytes + _PAGE, np.uint8)
-    off = -raw.ctypes.data % _PAGE  # page-aligned start
-    arr = raw[off:off + nbytes]
+    mm = mmap.mmap(-1, max(nbytes, 1))  # page-aligned
+    if hasattr(mmap, "MADV_HUGEPAGE"):
+        mm.madvise(mmap.MADV_HUGEPAGE)
+    raw = np.frombuffer(mm, np.uint8, count=nbytes)
     cudart = torch.cuda.cudart()
-    torch.cuda.check_error(cudart.cudaHostRegister(arr.ctypes.data, nbytes, 0))
-    weakref.finalize(raw, cudart.cudaHostUnregister, arr.ctypes.data)
-    return torch.from_numpy(arr).view(dtype).reshape(shape)
+    torch.cuda.check_error(cudart.cudaHostRegister(raw.ctypes.data, nbytes, 0))
+    weakref.finalize(raw, cudart.cudaHostUnregister, raw.ctypes.data)
+    return torch.from_numpy(raw).view(dtype).reshape(shape)
+
+
+class HostExpertStore:
+    """The engine's host store, written one ``(E, K, N)`` expert matrix at
+    a time: per MoE layer one pinned ``(E, 3, d*f)`` buffer in which each
+    expert's three matrices are contiguous (fp), or one ``(E,
+    expert_bytes)`` byte buffer of INT4 codes (``quantized``), allocated at
+    the layer's first matrix. ``put`` writes a matrix wherever it lies (on
+    the device it was drawn on) straight into its layer's buffer, one
+    expert row at a time, quantized first on ``device`` with
+    ``quantize_linear(iters=4)`` and ``matmul_layout`` where the store is
+    INT4; nothing else keeps it. :meth:`sink` is ``init_params``'
+    ``expert_sink``, so a model's experts are drawn into the store and
+    host memory never holds them twice; :meth:`finish` gives the engine's
+    ``host_store``. Buffers are pinned where ``device`` is CUDA."""
+
+    def __init__(self, cfg: ModelConfig, *, quantized: bool = False,
+                 quant_group: int = 32, device=None):
+        spec = cfg.moe_spec
+        d, f = cfg.d_model, spec.d_ff
+        self.device = resolve_device(device)
+        self.pin = self.device.type == "cuda"
+        self.quant_group = quant_group
+        self.shapes = {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
+        self.layout = QuantLayout(self.shapes, quant_group) if quantized else None
+        # (group, position, repeat) -> MoE layer, in the engine's layer order
+        self.index: Dict[tuple, int] = {}
+        for gi, g in enumerate(cfg.layout):
+            for r in range(g.repeats):
+                for pi, bname in enumerate(g.pattern):
+                    if cfg.block_defs[bname].kind == "attn_moe":
+                        self.index[(gi, pi, r)] = len(self.index)
+        self.layers: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(self.index)
+        self._written = [set() for _ in self.index]
+        self.quantize_s = 0.0  # seconds spent quantizing and writing the INT4 store
+
+    def sink(self, gi: int, pi: int, name: str, idx: tuple, w: torch.Tensor) -> None:
+        """``init_params``' ``expert_sink``: matrix ``name`` of repeat
+        ``idx`` of block ``p{pi}`` in group ``g{gi}``."""
+        self.put(self.index[(gi, pi, *idx)], name, w)
+
+    def put(self, moe_idx: int, key: str, w: torch.Tensor) -> None:
+        """MoE layer ``moe_idx``'s ``(E, K, N)`` matrix ``key``."""
+        if self.layout is None:
+            if self.layers[moe_idx] is None:
+                E, n = w.shape[0], w[0].numel()
+                buf = _host_buffer((E, 3, n), w.dtype, self.pin)
+                self.layers[moe_idx] = {k: buf[:, i].unflatten(1, self.shapes[k])
+                                        for i, k in enumerate(_EXPERT_KEYS)}
+            dst = self.layers[moe_idx][key]
+            for e in range(w.shape[0]):  # contiguous rows: one plain copy each
+                dst[e].copy_(w[e])
+            self._written[moe_idx].add(key)
+            return
+        t0 = time.perf_counter()
+        mq = matmul_layout(quantize_linear(w.to(self.device), iters=4,
+                                           group=self.quant_group))
+        self._put_codes(moe_idx, key, mq)
+        self.quantize_s += time.perf_counter() - t0
+
+    def put_quantized(self, moe_idx: int, key: str, mq: MatmulQWeight) -> None:
+        """MoE layer ``moe_idx``'s matrix ``key`` as INT4 codes already in
+        the matmul layout (``(E, ...)`` leaves)."""
+        t0 = time.perf_counter()
+        self._put_codes(moe_idx, key, mq)
+        self.quantize_s += time.perf_counter() - t0
+
+    def _put_codes(self, moe_idx: int, key: str, mq: MatmulQWeight) -> None:
+        E = mq.packed.shape[0]
+        if self.layers[moe_idx] is None:
+            self.layers[moe_idx] = {"q": _host_buffer((E, self.layout.nbytes), torch.uint8,
+                                                      self.pin)}
+        buf = self.layers[moe_idx]["q"]
+        for k, leaf, off, n, _, _ in self.layout.fields:
+            if k == key:
+                src = getattr(mq, leaf).reshape(E, -1)
+                for e in range(E):
+                    buf[e, off:off + n].copy_(src[e].view(torch.uint8))
+        self._written[moe_idx].add(key)
+
+    def finish(self) -> List[Dict[str, torch.Tensor]]:
+        """The store, every layer's three matrices written: the engine's
+        ``host_store``."""
+        for i, keys in enumerate(self._written):
+            if keys != set(_EXPERT_KEYS):
+                raise ValueError(f"host store: MoE layer {i} holds {sorted(keys)}, "
+                                 f"want {list(_EXPERT_KEYS)}")
+        return list(self.layers)
 
 
 def _tree_map(fn, tree):
@@ -505,7 +595,6 @@ class OffloadedMoEEngine:
         self.lora_scale = lora_scale
         E, d, f = self.moe_spec.num_experts, cfg.d_model, self.moe_spec.d_ff
         dev = self.device
-        pin = dev.type == "cuda"
         self._qlayout = (QuantLayout({"wg": (d, f), "wu": (d, f), "wd": (f, d)},
                                      quant_group) if quantized else None)
         self.quantize_s = 0.0  # seconds spent building the INT4 store
@@ -518,6 +607,8 @@ class OffloadedMoEEngine:
         self.moe_layer_ids: List[int] = []
         # per MoE layer: wg/wu/wd (E, ...) views of one pinned (E, 3, d*f) buffer
         self.host_store: List[Dict[str, torch.Tensor]] = list(host_store or [])
+        store = (HostExpertStore(cfg, quantized=quantized, quant_group=quant_group,
+                                 device=dev) if host_store is None else None)
         # the little bank's source where the store holds INT4 codes
         fp_experts: List[Dict[str, torch.Tensor]] = []
         to_dev = lambda a: a.to(dev)  # noqa: E731
@@ -548,19 +639,18 @@ class OffloadedMoEEngine:
                                              "weights to distil and params' experts are "
                                              "not loaded; pass little_bank=")
                         fp_experts.append({k: ffn[k][r] for k in _EXPERT_KEYS})
-                    if host_store is None:
-                        w = {k: ffn[k][r] for k in _EXPERT_KEYS}
-                        if quantized:
-                            t0 = time.perf_counter()
-                            self._add_host_qexperts(w, quantized_experts, moe_idx, pin)
-                            self.quantize_s += time.perf_counter() - t0
+                    for k in _EXPERT_KEYS if store is not None else ():
+                        if quantized and quantized_experts is not None:
+                            store.put_quantized(moe_idx, k, quantized_experts[moe_idx][k])
                         else:
-                            self._add_host_experts(w, pin)
+                            store.put(moe_idx, k, ffn[k][r])
                     self.moe_layer_ids.append(len(self.layers))
                     ll = (_tree_map(at_r, glora[f"p{pi}"]) if f"p{pi}" in glora
                           else None)
                     self.layers.append({"spec": b, "params": lp, "lora": ll,
                                         "moe_idx": moe_idx})
+        if store is not None:
+            self.host_store, self.quantize_s = store.finish(), store.quantize_s
         if len(self.host_store) != len(self.moe_layer_ids):
             raise ValueError(f"host_store holds {len(self.host_store)} MoE layers, "
                              f"the config {len(self.moe_layer_ids)}")
@@ -613,35 +703,6 @@ class OffloadedMoEEngine:
     # ------------------------------------------------------------------
     # host store and copies
     # ------------------------------------------------------------------
-    def _add_host_experts(self, w: Dict[str, torch.Tensor], pin: bool) -> None:
-        """Copy one layer's (E, ...) expert matrices into a pinned host
-        buffer in which each expert's three matrices are contiguous."""
-        E = w["wg"].shape[0]
-        buf = _host_buffer((E, 3, w["wg"][0].numel()), w["wg"].dtype, pin)
-        views = {}
-        for i, k in enumerate(_EXPERT_KEYS):
-            buf[:, i].copy_(w[k].reshape(E, -1))
-            views[k] = buf[:, i].unflatten(1, tuple(w[k].shape[1:]))
-        self.host_store.append(views)
-
-    def _add_host_qexperts(self, w: Dict[str, torch.Tensor], given, moe_idx: int,
-                           pin: bool) -> None:
-        """One layer's experts into a pinned ``(E, expert_bytes)`` INT4
-        buffer: quantized here on the engine's device (the whole layer at
-        once; groups are independent), or taken from ``given``."""
-        if given is not None:
-            mq = given[moe_idx]
-        else:
-            mq = {k: matmul_layout(quantize_linear(v.to(self.device), iters=4,
-                                                   group=self.quant_group))
-                  for k, v in w.items()}
-        E = w["wg"].shape[0]
-        buf = _host_buffer((E, self._qlayout.nbytes), torch.uint8, pin)
-        for k, dst in self._qlayout.views(buf).items():
-            for leaf in ("packed", "scale", "zero"):
-                getattr(dst, leaf).copy_(getattr(mq[k], leaf))
-        self.host_store.append({"q": buf})
-
     def quantized_experts(self) -> List[Dict[str, MatmulQWeight]]:
         """The INT4 store as ``{k: MatmulQWeight}`` of ``(E, ...)`` views of
         the pinned host buffers (no copy), one dict per MoE layer — the

@@ -52,7 +52,9 @@ pre-rewrite baseline; tokens and accounting are the slab engine's).
 A SIGTERM mid-serve drains the server gracefully: admission stops,
 in-flight requests finish, a journaled run anchors a final checkpoint
 (``--resume`` finishes the rest), ``DRAINED on SIGTERM`` is printed and
-the launcher exits 0. ``--out-results PATH`` writes every finished
+the launcher exits 0; one that lands before the serve or after its last
+step, until the results are written, is a drain too (of everything, or of
+nothing left in flight). ``--out-results PATH`` writes every finished
 request's tokens and finish reason with the summary, as the reference's
 launcher does (to diff a drained or crashed and resumed run against an
 uninterrupted one).
@@ -186,16 +188,26 @@ def main(argv=None):
         enable_tracing()
     if args.faults:
         install_fault_plan(args.faults)
+    # graceful drain on SIGTERM: stop admission, finish in-flight, and
+    # (journaled) anchor a final checkpoint instead of dying mid-step —
+    # what a fleet supervisor or a preemption sends before SIGKILL. The
+    # handler goes in before the journal's first line is written and stays
+    # until the results are reported: a SIGTERM after the last step, while
+    # they are written, is taken as a drain with nothing left in flight
+    # (the default action would end the process and lose them).
+    drain = {"flag": False}
+    prev_term = signal.signal(signal.SIGTERM, lambda *_: drain.__setitem__("flag", True))
     try:
-        return _serve(args, cfg, jdir)
+        return _serve(args, cfg, jdir, drain)
     finally:
+        signal.signal(signal.SIGTERM, prev_term)
         if args.trace:
             disable_tracing()
         if args.faults:
             uninstall_fault_plan()
 
 
-def _serve(args, cfg, jdir):
+def _serve(args, cfg, jdir, drain):
     # -- crash recovery: an optional restore from the journal ------------
     state = None
     if args.resume:
@@ -261,12 +273,6 @@ def _serve(args, cfg, jdir):
             cfg, params, n_slots=args.slots, max_len=args.prompt_len + args.max_new + 1,
             scheduler=get_scheduler(args.scheduler), seed=seed)
 
-    # graceful drain on SIGTERM: stop admission, finish in-flight, and
-    # (journaled) anchor a final checkpoint instead of dying mid-step —
-    # what a fleet supervisor or a preemption sends before SIGKILL. The
-    # handler goes in before the journal's first line is written.
-    drain = {"flag": False}
-    prev_term = signal.signal(signal.SIGTERM, lambda *_: drain.__setitem__("flag", True))
     jr = None
     try:
         jr = RequestJournal(jdir, seen=state.seen_rids if state else None) if jdir else None
@@ -285,10 +291,6 @@ def _serve(args, cfg, jdir):
     finally:
         if jr is not None:
             jr.close()
-        signal.signal(signal.SIGTERM, prev_term)
-    if srv.drained:
-        print(f"DRAINED on SIGTERM: {len(results)} finished, {len(queue)} pending left "
-              + (f"checkpointed in {jdir}" if jdir else "(no journal — lost)"))
     for r in results[: min(4, len(results))]:
         print(f"  rid={r.rid} {len(r.tokens)} toks ({r.finish_reason}) "
               f"latency={r.latency:.4f}s tokens={r.tokens[:8].tolist()}...")
@@ -304,6 +306,9 @@ def _serve(args, cfg, jdir):
         print(f"results: {args.out_results}")
     if args.trace:
         _export_trace(args.trace, srv, mt, offloaded=args.offloaded)
+    if srv.drained or drain["flag"]:
+        print(f"DRAINED on SIGTERM: {len(results)} finished, {len(queue)} pending left "
+              + (f"checkpointed in {jdir}" if jdir else "(no journal — lost)"), flush=True)
     return results, mt
 
 

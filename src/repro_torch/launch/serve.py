@@ -4,6 +4,8 @@ stage, Sec 3.2), or the full-model path with the whole model resident.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe \
         --capacity 16 --policy gamma --batch 4 --prompt-len 128 --max-new 32 \
         [--quantized]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --batch 4 --prompt-len 128 --max-new 16 [--quantized]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --batch 4 --prompt-len 512 --max-new 32
 
@@ -41,13 +43,15 @@ from __future__ import annotations
 
 import argparse
 import json
+import resource
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..configs import get_config
-from ..core.offload_engine import HardwareProfile, OffloadedMoEEngine
+from ..core.offload_engine import HardwareProfile, HostExpertStore, OffloadedMoEEngine
 from ..bridge import params_from_jax
 from ..data.synthetic import ClusterLM, SyntheticConfig
 from ..core.predictor import (PromptEmbedder, init_predictor, predict_scores,
@@ -95,6 +99,22 @@ def _tree_to(tree, dev):
     return tree.to(dev)
 
 
+def _check_trace_fits(cfg, dtype, dev) -> None:
+    """``train_psi`` runs the whole model on the device: refuse a model
+    whose experts alone exceed the card's free memory."""
+    if dev.type != "cuda":
+        return
+    spec = cfg.moe_spec
+    need = (cfg.n_moe_layers * spec.num_experts * 3 * cfg.d_model * spec.d_ff
+            * torch.empty((), dtype=dtype).element_size())
+    free = torch.cuda.mem_get_info(dev)[0]
+    if need > free:
+        raise NotImplementedError(
+            f"predictor: the routing trace runs the whole model on the device, and "
+            f"{cfg.name}'s experts ({need} B) exceed its free memory ({free} B); an "
+            f"offloaded trace is not ported")
+
+
 def train_psi(cfg, params, train_prompts, prompts, *, device, kernel_backend="auto",
               predictor_init=None, trace_new: int = 16) -> tuple:
     """The reference launcher's predictor step: trace ``train_prompts``
@@ -126,6 +146,43 @@ def train_psi(cfg, params, train_prompts, prompts, *, device, kernel_backend="au
                     "n_train_prompts": len(train_prompts), "predictor_scores": scores}
 
 
+def host_available_bytes():
+    """The host's MemAvailable in bytes (``/proc/meminfo``), or None
+    where the file is missing."""
+    try:
+        for line in Path("/proc/meminfo").read_text().splitlines():
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return None
+
+
+def max_rss_bytes() -> int:
+    """This process's resident-set high-water mark in bytes: ``VmHWM`` of
+    ``/proc/self/status``, its own address space's, which starts afresh at
+    ``exec`` (``getrusage``'s ``ru_maxrss``, the fallback, starts at the
+    resident set of the process that forked it)."""
+    try:
+        for line in Path("/proc/self/status").read_text().splitlines():
+            if line.startswith("VmHWM:"):
+                return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _experts_to_meta(cfg, params) -> None:
+    """Replace the MoE blocks' stacked expert leaves with ``meta`` tensors
+    of their shape: the device memory they held is freed."""
+    for gi, g in enumerate(cfg.layout):
+        for pi, bname in enumerate(g.pattern):
+            if cfg.block_defs[bname].kind == "attn_moe":
+                ffn = params["groups"][f"g{gi}"][f"p{pi}"]["ffn"]
+                for k in ("wg", "wu", "wd"):
+                    ffn[k] = torch.empty_like(ffn[k], device="meta")
+
+
 def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         prompt_len: int = 32, max_new: int = 64, dtype=None, device=None,
         seed: int = 0, kernel_backend: str = "auto", quantized: bool = False,
@@ -136,26 +193,49 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
     through the offloaded engine, and return the report (scalars, plus
     ``tokens`` and the last prompt position's ``prefill_logits``).
 
+    Random experts are drawn one ``(E, i, o)`` matrix at a time on the
+    device straight into the engine's pinned store
+    (``HostExpertStore.sink``; INT4: quantized on the device first), so
+    host memory holds the store and nothing else of them: Mixtral-8x7B's
+    84 GiB of bf16 experts (31.5 GiB INT4) are served from a host that
+    could not hold them twice. The report gives the host's MemAvailable
+    before and after the build, the process's resident-set high-water mark
+    after it (``max_rss_bytes``),
+    ``host_store_bytes``, ``slab_bytes`` and the peak device memory of
+    the served batch. A ``ckpt`` is read whole into host memory first and
+    then copied into the store.
+
     ``keep_store`` puts the engine's pinned expert store into the report
     under ``host_store`` (and, quantized, under ``quantized_experts`` as
     INT4 views); an earlier report's ``host_store`` given back serves
     those experts without drawing or copying them again (the same seed
     gives the same other weights). With ``quantized``,
     ``quantized_experts`` serves those INT4 codes instead of quantizing
-    again."""
+    again. ``predictor`` traces the whole model on the device
+    (``train_psi``): its experts are drawn there too, beside the store,
+    and dropped before the engine is built."""
     cfg = get_config(arch)
     if not cfg.has_router:
         raise ValueError("offloaded serving applies to MoE architectures")
     dev = resolve_device(device)
     dt = cdtype(dtype or cfg.dtype)
+    if predictor and host_store is not None:
+        raise ValueError("predictor: the routing trace needs the experts of params")
+    avail_before, t_build = host_available_bytes(), time.perf_counter()
+    store = None
     if ckpt is not None:  # the engine moves what it keeps on the device
         params, _ = load_params(cfg, ckpt, dtype=dt, device="cpu")
     else:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        # a model served from host memory keeps its experts there from the
-        # start; with a store given they are drawn (the same stream) and dropped
+        if host_store is None and not (quantized and quantized_experts is not None):
+            store = HostExpertStore(cfg, quantized=quantized, device=dev)
+        if predictor:
+            _check_trace_fits(cfg, dt, dev)
+        # the experts go into the store as they are drawn (the same stream
+        # whether or not a store or codes were given)
         params = init_params(cfg, generator=gen, dtype=dt, device=dev,
-                             expert_device="cpu" if host_store is None else "meta")
+                             expert_device=dev if predictor else "meta",
+                             expert_sink=None if store is None else store.sink)
     capacity = capacity or cfg.melinoe_cache_capacity()
     # the training prompts continue the batch's stream, as the reference's
     all_prompts = make_prompts(cfg.vocab, batch + (n_train_prompts if predictor else 0),
@@ -163,18 +243,20 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
     prompts = all_prompts[:batch]
     psi = {}
     if predictor:
-        if host_store is not None:
-            raise ValueError("predictor: the routing trace needs the experts of params")
         scores, psi = train_psi(cfg, params, all_prompts[batch:], prompts, device=dev,
                                 kernel_backend=kernel_backend,
                                 predictor_init=predictor_init)
+        if ckpt is None:
+            _experts_to_meta(cfg, params)
     engine = OffloadedMoEEngine(cfg, params, capacity=capacity, policy=policy,
                                 quantized=quantized,
                                 quantized_experts=quantized_experts,
-                                host_store=host_store,
+                                host_store=host_store if store is None else store.finish(),
                                 hw=HardwareProfile(), kernel_backend=kernel_backend,
                                 device=dev)
     del params  # the engine holds the experts in its pinned store
+    build_s, rss_build = time.perf_counter() - t_build, max_rss_bytes()
+    avail_after = host_available_bytes()
     if dev.type == "cuda":
         _build.lib()  # build the kernels now, not inside the timed prefill
     if predictor:
@@ -190,7 +272,9 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         "policy": policy, "batch": batch, "prompt_len": prompt_len,
         "max_new": max_new, "kernel_backend": kernel_backend,
         "quantized": quantized, "expert_bytes": engine.expert_bytes,
-        "quantize_s": engine.quantize_s,
+        "quantize_s": engine.quantize_s if store is None else store.quantize_s,
+        "build_s": build_s, "host_available_before_build": avail_before,
+        "host_available_after_build": avail_after, "max_rss_after_build": rss_build,
         "decode_tokens": m.decode_tokens, "transfers": m.transfers,
         "transfer_bytes": m.transfer_bytes,
         "transfers_per_layer": res["transfers_per_layer"],
@@ -350,8 +434,14 @@ def main(argv=None):
           f"prefetch={rep['prefetch_transfers']}")
     print(f"hit rate={rep['hit_rate']:.3f}")
     if rep["quantized"]:
-        print(f"INT4 experts: {rep['expert_bytes']} bytes each, store built in "
+        print(f"INT4 experts: {rep['expert_bytes']} bytes each, quantized in "
               f"{rep['quantize_s']:.2f} s")
+    gib = lambda n: "n/a" if n is None else f"{n / 2**30:.2f} GiB"  # noqa: E731
+    print(f"host store {gib(rep['host_store_bytes'])} built in {rep['build_s']:.2f} s; "
+          f"host MemAvailable {gib(rep['host_available_before_build'])} before, "
+          f"{gib(rep['host_available_after_build'])} after; resident-set high-water "
+          f"{gib(rep['max_rss_after_build'])}; device slabs {gib(rep['slab_bytes'])}, "
+          f"peak {gib(rep['max_memory_allocated'])}")
     print(f"modeled throughput={rep['modeled_tok_s']:.2f} tok/s serial, "
           f"{rep['modeled_overlapped_tok_s']:.2f} overlapped (hw={rep['hw']}, Eq. 3)")
     print(f"measured prefill={rep['prefill_s']:.4f} s, "

@@ -28,10 +28,11 @@ from .runtime import Runtime, is_distributed
 
 
 def init_block(cfg: ModelConfig, b: BlockSpec, dtype, *, generator, device,
-               lead=(), expert_device=None):
+               lead=(), expert_device=None, expert_sink=None):
     """One block's weights, stacked over ``lead``. ``shared_attn`` blocks
     are initialized once, by the model, into its ``shared`` subtree.
-    ``expert_device``: where an ``attn_moe`` block keeps its experts."""
+    ``expert_device`` / ``expert_sink``: where an ``attn_moe`` block keeps
+    its experts, and what takes each drawn matrix (``moe.init_moe``)."""
     kw = dict(generator=generator, device=device, lead=lead)
     p = {"ln1": rms_norm_init(cfg.d_model, dtype, device=device, lead=lead)}
     if b.kind == "mamba":
@@ -40,7 +41,8 @@ def init_block(cfg: ModelConfig, b: BlockSpec, dtype, *, generator, device,
     p["mixer"] = init_attn(cfg.d_model, b.attn, dtype, **kw)
     p["ln2"] = rms_norm_init(cfg.d_model, dtype, device=device, lead=lead)
     if b.kind == "attn_moe":
-        p["ffn"] = init_moe(cfg.d_model, b.moe, dtype, expert_device=expert_device, **kw)
+        p["ffn"] = init_moe(cfg.d_model, b.moe, dtype, expert_device=expert_device,
+                            expert_sink=expert_sink, **kw)
     else:
         p["ffn"] = init_mlp(cfg.d_model, b.d_ff, dtype, **kw)
     return p

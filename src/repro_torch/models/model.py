@@ -49,6 +49,7 @@ mesh axis on a sharded mesh.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -74,13 +75,19 @@ class MelinoeRun:
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator, dtype=None,
-                device=None, expert_device=None):
+                device=None, expert_device=None, expert_sink=None):
     """Random weights with the JAX tree's key layout (the random bits
     differ from ``jax.random``). ``generator`` must live on ``device``.
 
-    ``expert_device``: keep the MoE expert weights there (e.g. "cpu" for a
-    full-width model served from host memory); they are drawn on
-    ``device`` one layer at a time and moved."""
+    ``expert_device``: keep the MoE expert weights there ("meta": not at
+    all); they are drawn on ``device`` one layer at a time and moved.
+    ``expert_sink``: called as ``expert_sink(gi, pi, name, idx, w)`` with
+    each layer's ``(E, i, o)`` matrix as it is drawn (block ``p{pi}`` of
+    group ``g{gi}``, ``idx`` its repeat), e.g.
+    ``core.offload_engine.HostExpertStore.sink``, which writes it into
+    the offload engine's host store: the tree's expert leaves then stay
+    on ``meta`` unless ``expert_device`` says otherwise. The generator's
+    stream, and so every weight, is the same with or without either."""
     dtype = cdtype(dtype or cfg.dtype)
     device = torch.device(device or generator.device)
     kw = dict(generator=generator, device=device)
@@ -99,6 +106,8 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator, dtype=None,
         groups[f"g{gi}"] = {
             f"p{pi}": init_block(cfg, cfg.block_defs[bname], dtype,
                                  lead=(g.repeats,), expert_device=expert_device,
+                                 expert_sink=(None if expert_sink is None else
+                                              functools.partial(expert_sink, gi, pi)),
                                  **kw)
             for pi, bname in enumerate(g.pattern)
             if cfg.block_defs[bname].kind != "shared_attn"

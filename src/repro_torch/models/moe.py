@@ -45,23 +45,32 @@ from .mlp import apply_mlp, init_mlp
 from .runtime import Runtime, is_distributed
 
 def init_moe(d_model: int, spec: MoESpec, dtype, *, generator, device, lead=(),
-             expert_device=None):
+             expert_device=None, expert_sink=None):
     """Router (fp32) + stacked expert weights ``(*lead, E, ...)``.
 
     ``expert_device``: where the expert weights are kept (drawn on
-    ``device`` one leading index at a time, then moved) — a full-width
-    model keeps its experts in host memory."""
+    ``device`` one leading index at a time, then moved; "meta" keeps
+    none). ``expert_sink``: called as ``expert_sink(name, idx, w)`` with
+    each ``(E, i, o)`` matrix so drawn (``idx`` its index into ``lead``),
+    which it takes instead of the tree: the leaves then stay on ``meta``
+    unless ``expert_device`` says otherwise. Either way the draws are the
+    same, in the same order: ``wg`` for every leading index, then ``wu``,
+    then ``wd``."""
     E, f = spec.num_experts, spec.d_ff
     kw = dict(generator=generator, device=device)
     p = {"router": dense_init(d_model, E, torch.float32, lead=lead, **kw)}
     for name, (i, o) in (("wg", (d_model, f)), ("wu", (d_model, f)),
                          ("wd", (f, d_model))):
-        if expert_device is None:
+        if expert_device is None and expert_sink is None:
             p[name] = dense_init(i, o, dtype, lead=(*lead, E), **kw)
             continue
-        w = torch.empty((*lead, E, i, o), dtype=dtype, device=expert_device)
+        w = torch.empty((*lead, E, i, o), dtype=dtype, device=expert_device or "meta")
         for idx in np.ndindex(*lead):  # one layer's experts at a time
-            w[idx] = dense_init(i, o, dtype, lead=(E,), **kw)
+            m = dense_init(i, o, dtype, lead=(E,), **kw)
+            if expert_sink is not None:
+                expert_sink(name, idx, m)
+            if not w.is_meta:
+                w[idx] = m
         p[name] = w
     if spec.shared_d_ff:
         p["shared"] = init_mlp(d_model, spec.shared_d_ff, dtype, lead=lead, **kw)

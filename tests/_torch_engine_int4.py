@@ -15,7 +15,8 @@ this tree (ROADMAP, Queue 3).
 The test files ``tests/test_torch_engine_int4.py`` (granite smoke),
 ``tests/test_torch_engine_int4_olmoe.py`` and
 ``tests/test_torch_engine_int4_olmoe_gamma.py`` (olmoe-mini cut to 2
-layers, lfu and gamma) import the checks below and define the ``models``
+layers, lfu and gamma) and ``tests/test_torch_engine_int4_paper.py``
+(mixtral-8x7b and phi35-moe smoke) import the checks below and define the ``models``
 fixture for their config (one file per config, and per policy for
 olmoe-mini, puts each file's JAX quantization and compile time on its
 own worker).
@@ -50,6 +51,9 @@ def _two_layers(cfg):
 ARCHS = {  # id -> (config name, reduction applied to both packages' configs)
     "granite-smoke": ("granite-moe-1b-a400m-smoke", lambda c: c),
     "olmoe-mini-2l": ("olmoe-mini", _two_layers),
+    # the paper's two backbones whose experts do not fit one card
+    "mixtral-smoke": ("mixtral-8x7b-smoke", lambda c: c),
+    "phi35-smoke": ("phi35-moe-smoke", lambda c: c),
 }
 
 # The JAX engine quantizes every expert eagerly in its constructor, which

@@ -38,6 +38,9 @@ def _two_layers(cfg):
 ARCHS = {  # id -> (config name, reduction applied to both packages' configs)
     "granite-smoke": ("granite-moe-1b-a400m-smoke", lambda c: c),
     "olmoe-mini-2l": ("olmoe-mini", _two_layers),
+    # the paper's two backbones whose experts do not fit one card
+    "mixtral-smoke": ("mixtral-8x7b-smoke", lambda c: c),
+    "phi35-smoke": ("phi35-moe-smoke", lambda c: c),
 }
 
 

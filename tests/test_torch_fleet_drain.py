@@ -102,9 +102,14 @@ def test_bench_serve_sigterm_drains_then_resumes(tmp_path):
     """SIGTERM mid-serve: exit 0, the ``DRAINED`` banner, the journal holds
     the rest; ``--resume`` (in this process, as the uninterrupted run)
     finishes it with the uninterrupted run's tokens. The payload's keys are
-    held against the reference's in ``tests/test_torch_fleet.py``."""
+    held against the reference's in ``tests/test_torch_fleet.py``. The
+    SIGTERM goes out at the journal's first event (the arrivals), so the
+    serve must outlast the time this process takes to see it and signal:
+    48 requests take about 1 s of serving on one CPU thread (8 took about
+    0.12 s, and a signal later than that reached the launcher in its
+    interpreter teardown, which ends a process with -15)."""
     common = ["--arch", ARCH, "--device", "cpu", "--dtype", "float32", "--n-requests",
-              "8", "--slots", "2", "--arrival", "all_at_once", "--prompt-len", "10",
+              "48", "--slots", "2", "--arrival", "all_at_once", "--prompt-len", "10",
               "--max-new", "10", "--seed", "0"]
     ref_path = tmp_path / "ref.json"
     bench_serve.main(common + ["--out-results", str(ref_path)])
