@@ -307,7 +307,23 @@ From the root of a checkout, with CUDA available:
    ``FP32_LOGITS_REL_TOL``. It prints transfers, hit rate, both Eq.-3 clocks, decode
    tok/s, prefill s, ``quantize_s``, the build's seconds, the host's
    MemAvailable before and after each build, expert copies a decode step,
-   and peak device memory beside the slab bytes. The kernel cases of step 3
+   and peak device memory beside the slab bytes. (c) ``bench_serve
+   --offloaded`` (``MIXTRAL_BENCH``: the wave server, expert-affinity, 2
+   requests in one wave) at the bf16 row's depth, its experts drawn into
+   the pinned store and its oracle scores streamed one staged layer at a
+   time: every request finished, transfers, a hit rate in (0, 1), the
+   MemAvailable drop within the store + one layer of experts +
+   ``MIXTRAL_RSS_MARGIN``, the peak device memory below the non-expert
+   weights + slabs + one layer + ``MIXTRAL_BENCH_ACT_BYTES`` (and the whole
+   model), ``moe_gmm`` "tc" in the oracle and the prefills and "stream" in
+   decode, one ``flash_attn`` "tc" a layer and request in the oracle and in
+   the prefills. (d) Mixtral cut to ``MIXTRAL_CKPT_LAYERS`` layers at full
+   width: the streamed oracle equal to the whole tree's, ``save_checkpoint``
+   of the tree, ``serve.run(ckpt=)`` with ``serve.run()``'s tokens,
+   transfers and hits, ``bench_serve --offloaded --ckpt`` finishing every
+   request, each checkpoint read's MemAvailable drop within the store + one
+   layer + ``MIXTRAL_RSS_MARGIN``; (c) then (d) in a third child. The
+   kernel cases of step 3
    include Mixtral's shapes (``mixtral_gmm_cases``,
    ``MIXTRAL_FLASH_SHAPES``, ``MIXTRAL_INT4_SHAPES``);
 24. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
@@ -2092,7 +2108,7 @@ def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmo
     # the launcher at full width, LAUNCHER_LAYERS layers: 4 requests in one
     # wave, quality 0.5
     t0 = time.perf_counter()
-    results, mt = bench_serve.main([
+    (results, mt), build = _bench_serve([
         "--arch", _launcher_arch(arch), "--device", device, "--offloaded", "--capacity", "16",
         "--slots", "4", "--n-requests", "4", "--prompt-len", "128", "--max-new", "32",
         "--arrival", "all_at_once", "--little", "--quality", "0.5"])
@@ -2100,7 +2116,8 @@ def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmo
     rows["bench_serve"] = {k: summ[k] for k in (
         "requests", "generated_tokens", "transfers", "degraded_requests",
         "modeled_time_serial_s", "modeled_time_overlapped_s", "cache_hit_rate")}
-    rows["bench_serve"]["wall_s"] = time.perf_counter() - t0
+    rows["bench_serve"].update(wall_s=time.perf_counter() - t0, build_s=build["build_s"],
+                               score_s=build["score_s"])
     print("bench_serve --offloaded --little --quality 0.5:", json.dumps(rows["bench_serve"]))
     if not (summ["degraded_requests"] > 0 and summ["requests"] == len(results) == 4):
         raise AssertionError(f"bench_serve --little: {summ}")
@@ -2708,8 +2725,8 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
     base = ["--arch", _launcher_arch(arch), "--device", device]
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
-        bench_serve.main(base + OPS_BENCH + ["--offloaded", "--capacity", str(capacity),
-                                             "--slots", "4", "--trace", d])
+        _, build = _bench_serve(base + OPS_BENCH + ["--offloaded", "--capacity", str(capacity),
+                                                    "--slots", "4", "--trace", d])
         names = sorted(os.listdir(d))
         with open(os.path.join(d, "reconcile.json")) as f:
             rec = json.load(f)
@@ -2717,7 +2734,8 @@ def ops_phase(main: dict, int4: dict, shared: list, arch: str = "olmoe",
             errs = validate_chrome_trace(json.load(f))
         rows["bench-trace"] = {"files": names, "reconcile_ok": rec["ok"],
                                "serial_agreement_ratio": rec["serial_agreement_ratio"],
-                               "trace_errors": errs[:5], "wall_s": time.perf_counter() - t0}
+                               "trace_errors": errs[:5], "wall_s": time.perf_counter() - t0,
+                               "build_s": build["build_s"], "score_s": build["score_s"]}
         print("bench_serve --offloaded --trace:", json.dumps(rows["bench-trace"]))
         if errs or not {"trace.json", "trace.jsonl", "metrics.json", "metrics.prom",
                         "reconcile.json"} <= set(names):
@@ -3960,7 +3978,46 @@ MIXTRAL_RSS_MARGIN = 2 << 30
 # first in fp32 at full width on MIXTRAL_FP32_LAYERS layers to
 # FP32_LOGITS_REL_TOL, where only the order of sums differs.
 MIXTRAL_ROUNDOFF_SPAN = 1 + ACCURACY_RATIO
-MIXTRAL_LIMIT_S = 900  # both children together
+# (c) the offloaded wave server from the command line, at the bf16 row's
+# depth: bench_serve --offloaded, its experts drawn into the pinned store,
+# the oracle scores streamed one staged MoE layer at a time, 2 requests of
+# 64-128 prompt tokens and 4-8 new tokens in one wave, at C = 2. (4
+# requests in waves of 2 took 40.8 s of a 1124.5 s chip_smoke run on a
+# slow host, H100 80GB HBM3, 700 W; two fewer requests save about 8 s.)
+MIXTRAL_BENCH_REQUESTS = 2
+MIXTRAL_BENCH = ["--dtype", "bfloat16", "--offloaded", "--capacity", "2",
+                 "--scheduler", "expert-affinity", "--n-requests",
+                 str(MIXTRAL_BENCH_REQUESTS), "--slots", "2", "--prompt-len", "128",
+                 "--max-new", "8", "--arrival", "all_at_once"]
+# What (c) may hold on the card beside the weights it must: the non-expert
+# weights, the slabs (C experts a layer) and one staged layer of experts
+# (the oracle's; the served prefill's overflow group, at most E - C = 6
+# experts a layer, is smaller), plus this for activations, KV caches and
+# logits of one request at a time (a 128-token prefill's are tens of MB).
+MIXTRAL_BENCH_ACT_BYTES = 1 << 30
+# (d) Mixtral cut to this many layers at full width, from a checkpoint:
+# the oracle on the whole tree against the streamed one, save_checkpoint,
+# serve.run(ckpt=) against serve.run() from the seed, bench_serve --ckpt.
+MIXTRAL_CKPT_LAYERS = 2
+MIXTRAL_CKPT_NEW = 4
+# the three children together ((a) ~50 s, (b) ~55 s, (c) then (d) ~85 s,
+# each besides its start-up and the waits for MemAvailable to settle); a
+# guard against a hang, well inside the whole run's 1200 s
+MIXTRAL_LIMIT_S = 900
+
+
+def _child_start(device: str) -> torch.device:
+    """A phase-23 child's start: fp32 products in fp32, the CUDA context and
+    the kernel library loaded (built by the parent)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.init()
+        _build.lib()
+    return dev
 
 
 def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
@@ -3973,15 +4030,10 @@ def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
     ``fp32_layers`` layers. Writes the reports, launches, logits and the
     seconds of each step to ``out`` (``torch.save``)."""
     t0 = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    from repro_torch.kernels import _build, dispatch
+    _child_start(device)
+    from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import max_rss_bytes, run
 
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        torch.cuda.init()
-        _build.lib()
     kw = dict(MIXTRAL_SERVE, dtype=torch.bfloat16, device=device)
     q = kind == "int4"
     name = _cut_arch(arch, layers)
@@ -4025,12 +4077,173 @@ def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
     torch.save(res, out)
 
 
+class _Tee:
+    """A text stream that writes to each of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for st in self.streams:
+            st.flush()
+
+
+def _bench_serve(argv) -> tuple:
+    """``bench_serve.main(argv)``, its standard error passed through and
+    read: (what it returns, its offloaded build report, the
+    ``BUILD_LINE`` JSON)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import bench_serve
+
+    buf = io.StringIO()
+    with contextlib.redirect_stderr(_Tee(sys.stderr, buf)):
+        ret = bench_serve.main(argv)
+    line = next(ln for ln in buf.getvalue().splitlines()
+                if ln.startswith(bench_serve.BUILD_LINE))
+    return ret, json.loads(line[len(bench_serve.BUILD_LINE):])
+
+
+def _mixtral_bench_child(rank: int, kind: str, layers: int, out: str, arch: str,
+                         device: str, fp32_layers: int) -> None:
+    """Phase 23 (c) and (d) in a process of their own: ``bench_serve
+    --offloaded`` (MIXTRAL_BENCH) of ``arch`` cut to ``layers``, counters
+    and the peak device memory from 0; then, its store gone,
+    ``_mixtral_ckpt`` at MIXTRAL_CKPT_LAYERS layers. Writes (c)'s summary,
+    the launcher's build report, the launches and the seconds, and (d)'s
+    readings, to ``out``."""
+    t0 = time.perf_counter()
+    dev = _child_start(device)
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dispatch
+
+    name = _cut_arch(arch, layers)
+    secs = {"start": time.perf_counter() - t0}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    dispatch.reset_launches()
+    t = time.perf_counter()
+    (results, mt), build = _bench_serve(["--arch", name, "--device", device, *MIXTRAL_BENCH])
+    secs["bench"] = time.perf_counter() - t
+    bench = {"kind": kind, "layers": layers, "summary": mt.summary(),
+             "finished": [(r.rid, len(r.tokens), r.finish_reason) for r in results],
+             "build": build, "launches": dict(dispatch.LAUNCHES),
+             "routes": {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES},
+             "secs": secs}
+    del results, mt
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    ckpt = _mixtral_ckpt(dev, device, arch,
+                         min(MIXTRAL_CKPT_LAYERS, get_config(arch).n_layers))
+    secs["child"] = time.perf_counter() - t0
+    torch.save({"bench": bench, "ckpt": ckpt}, out)
+
+
+def _mixtral_ckpt(dev, device: str, arch: str, layers: int) -> dict:
+    """Phase 23 (d), ``arch`` cut to ``layers`` at full width in bf16: the
+    seeded draw whole on the device and its oracle scores against the
+    streamed ones (the same seed drawn into a store, one staged layer at a
+    time); ``save_checkpoint`` of that tree; ``serve.run(ckpt=)`` against
+    ``serve.run()`` from the seed; and ``bench_serve --offloaded --ckpt``
+    from the file. Returns the readings."""
+    t0 = time.perf_counter()
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import ServeRequest, prefill_expert_scores
+    from repro_torch.training import save_checkpoint
+
+    name = _cut_arch(arch, layers)
+    cfg = get_config(name)
+    dt = torch.bfloat16
+    secs = {}
+    prompts = serve.make_prompts(cfg.vocab, MIXTRAL_SERVE["batch"], MIXTRAL_SERVE["prompt_len"])
+
+    def requests():
+        return [ServeRequest(rid=i, prompt=p, max_new_tokens=1) for i, p in enumerate(prompts)]
+
+    t = time.perf_counter()
+    whole = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0), dtype=dt,
+                        device=dev)
+    want = prefill_expert_scores(cfg, whole, requests())
+    _sync(dev)
+    secs["whole_oracle"] = time.perf_counter() - t
+    t = time.perf_counter()
+    params, store, _ = serve.offloaded_params(cfg, dtype=dt, device=dev)
+    secs["store"] = time.perf_counter() - t
+    t = time.perf_counter()
+    got = prefill_expert_scores(cfg, params, requests(), host_store=store)
+    _sync(dev)
+    secs["streamed_oracle"] = time.perf_counter() - t
+    res = {"kind": "ckpt", "layers": layers,
+           "scores_equal": all(np.array_equal(g, w) for g, w in zip(got, want)),
+           "scores_max_abs": max(float(np.abs(g - w).max()) for g, w in zip(got, want)),
+           "scores_shape": [tuple(g.shape) for g in got]}
+    del params, store, got
+    gc.collect()
+    kw = dict(MIXTRAL_SERVE, dtype=dt, device=device)
+    with tempfile.TemporaryDirectory() as d:
+        usage = shutil.disk_usage(d)
+        print(f"mixtral checkpoint: {d} holds {usage.free / 2**30:.1f} GiB free of "
+              f"{usage.total / 2**30:.1f} GiB", flush=True)
+        path = Path(d) / f"{name}.ckpt"
+        t = time.perf_counter()
+        save_checkpoint(path, whole)
+        secs["save"] = time.perf_counter() - t
+        res["ckpt_bytes"] = path.stat().st_size
+        del whole
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # each build starts once the host's memory has settled (the save's
+        # buffers and the last store given back), so that its MemAvailable
+        # drop is its own
+        _settled_available_gib(10.0)
+        t = time.perf_counter()
+        ck = serve.run(name, ckpt=str(path), max_new=MIXTRAL_CKPT_NEW, **kw)
+        secs["run_ckpt"] = time.perf_counter() - t
+        gc.collect()
+        _settled_available_gib(10.0)
+        t = time.perf_counter()
+        sd = serve.run(name, max_new=MIXTRAL_CKPT_NEW, **kw)
+        secs["run_seed"] = time.perf_counter() - t
+        gc.collect()
+        _settled_available_gib(10.0)
+        t = time.perf_counter()
+        (results, mt), build = _bench_serve(["--arch", name, "--device", device,
+                                             *MIXTRAL_BENCH, "--ckpt", str(path)])
+        secs["bench_ckpt"] = time.perf_counter() - t
+    keys = ("transfers", "hits", "misses", "prefetch_transfers", "host_store_bytes",
+            "host_available_before_build", "host_available_after_build", "build_s",
+            "prefill_s", "decode_tok_s")
+    res.update(run_ckpt={k: ck[k] for k in keys}, run_seed={k: sd[k] for k in keys},
+               tokens_equal=bool(np.array_equal(ck["tokens"], sd["tokens"])),
+               bench_summary=mt.summary(),
+               bench_finished=[(r.rid, len(r.tokens), r.finish_reason) for r in results],
+               bench_build=build)
+    secs["all"] = time.perf_counter() - t0
+    res["secs"] = secs
+    return res
+
+
+_MIXTRAL_CHILDREN = {"int4": _mixtral_child, "bf16": _mixtral_child,
+                     "bench": _mixtral_bench_child}
+
+
 def _mixtral_spawn(kind: str, layers: int, d: str, arch: str, device: str,
                    fp32_layers: int, deadline: float) -> dict:
     out = str(Path(d, f"mixtral-{kind}.pt"))
     ctx = torch.multiprocessing.start_processes(
-        _mixtral_child, args=(kind, layers, out, arch, device, fp32_layers), nprocs=1,
-        join=False, start_method="spawn")
+        _MIXTRAL_CHILDREN[kind], args=(kind, layers, out, arch, device, fp32_layers),
+        nprocs=1, join=False, start_method="spawn")
+    t0 = time.perf_counter()
     try:
         while not ctx.join(timeout=1.0):
             if time.perf_counter() > deadline:
@@ -4040,7 +4253,9 @@ def _mixtral_spawn(kind: str, layers: int, d: str, arch: str, device: str,
             if p.is_alive():
                 p.kill()
             p.join(10)
-    return torch.load(out, weights_only=False)
+    res = torch.load(out, weights_only=False)
+    res["spawn_s"] = time.perf_counter() - t0  # start-up and exit included
+    return res
 
 
 def _settled_available_gib(limit_s: float = 30.0) -> float:
@@ -4062,14 +4277,18 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
                   fp32_layers: int = MIXTRAL_FP32_LAYERS) -> dict:
     """Phase 23 (see MIXTRAL): full-width Mixtral-8x7B offloaded, INT4 at
     full depth, then bf16 at the depth the host's memory allows; each
-    store drawn into by ``launch.serve.run`` in a child process. Every row
+    store drawn into by ``launch.serve.run`` in a child process; then (c)
+    ``bench_serve --offloaded`` at the bf16 row's depth and (d) a
+    checkpoint at MIXTRAL_CKPT_LAYERS layers, together in a third child.
+    Every row
     is printed first, then gated: launch totals (``flash_attn`` one "tc" a
     layer in the prefill; ``moe_gmm`` and ``int4_matmul`` positive multiples
     of 3, ``moe_gmm`` "tc" in the prefill and "stream" in decode,
     ``int4_matmul`` by INT4_PHASE_ROUTES), the prefill logits (see
     MIXTRAL_ROUNDOFF_SPAN), the fp32 check on ``fp32_layers`` layers
     (FP32_LOGITS_REL_TOL), and the build's host memory against the store
-    (MIXTRAL_RSS_MARGIN). ``arch``/``device``: a smaller model or the CPU,
+    (MIXTRAL_RSS_MARGIN); (c) and (d) as ``_mixtral_bench_row`` and
+    ``_mixtral_ckpt_row`` gate them. ``arch``/``device``: a smaller model or the CPU,
     to rehearse the phase's logic."""
     from repro_torch.configs import get_config
 
@@ -4098,6 +4317,23 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
                   f"{full} layers")
         rows["bf16"] = _mixtral_spawn("bf16", layers, d, arch, device, fp32_layers,
                                       deadline)
+        # (c) the wave server from the command line, at the bf16 row's depth
+        avail = _settled_available_gib()
+        bench_layers = layers
+        if not avail >= layers * layer_gib + MIXTRAL_HOST_HEADROOM_GIB:
+            bench_layers = int((avail - MIXTRAL_HOST_HEADROOM_GIB) // layer_gib)
+            print(f"mixtral bench_serve: host memory available {avail:.1f} GiB: CUT to "
+                  f"{bench_layers} of the bf16 row's {layers} layers")
+        else:
+            print(f"mixtral bench_serve: host memory available {avail:.1f} GiB: "
+                  f"{layers} layers, as the bf16 row")
+        # then (d), a checkpoint of Mixtral cut to MIXTRAL_CKPT_LAYERS layers,
+        # in the same child (which waits for MemAvailable to settle before
+        # each of (d)'s builds)
+        both = _mixtral_spawn("bench", bench_layers, d, arch, device, fp32_layers, deadline)
+        bench, ckpt = both["bench"], both["ckpt"]
+    print(f"mixtral children: seconds from spawn to exit "
+          f"{ {k: round(r['spawn_s'], 1) for k, r in (*rows.items(), ('bench', both))} }")
     i4 = rows["int4"]
     fp32_ref = i4["plain_fp32_logits"]
     roundoff = _rel(i4["plain_logits"], fp32_ref)
@@ -4185,11 +4421,111 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
         bad.append(f"mixtral-int4: the kernel run lies farther from the fp32 plain run "
                    f"than {ACCURACY_RATIO} x the plain bf16 run: {checks}")
     out["checks"] = checks
+    out["bench"] = _mixtral_bench_row(bench, cfg, device, bad)
+    out["ckpt"] = _mixtral_ckpt_row(ckpt, cfg, bad)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"mixtral phase: {out['phase_s']:.1f} s")
     if bad:
         raise AssertionError("mixtral phase: " + "; ".join(bad))
     return out
+
+
+def _mixtral_bytes(cfg, layers: int) -> dict:
+    """Bytes of ``cfg`` cut to ``layers`` in bf16: one MoE layer's experts,
+    the non-expert weights (the router fp32), the whole model's, and the
+    slabs at MIXTRAL_SERVE's capacity."""
+    from repro_torch.models.model import param_shapes
+    from repro_torch.training.checkpoint import tree_leaves
+
+    spec = cfg.moe_spec
+    layer = spec.num_experts * 3 * cfg.d_model * spec.d_ff * 2
+    cut = dataclasses.replace(cfg, layout=(dataclasses.replace(
+        cfg.layout[0], repeats=layers // len(cfg.layout[0].pattern)),))
+    total = sum(t.numel() * t.element_size()
+                for t in tree_leaves(param_shapes(cut, torch.bfloat16)))
+    return {"layer": layer, "nonexpert": total - layers * layer, "whole": total,
+            "slabs": layers * MIXTRAL_SERVE["capacity"] * layer // spec.num_experts}
+
+
+def _mixtral_bench_row(r: dict, cfg, device: str, bad: list) -> dict:
+    """Phase 23 (c)'s row, printed, then gated into ``bad``."""
+    n, b, summ = r["layers"], r["build"], r["summary"]
+    size = _mixtral_bytes(cfg, n)
+    bound = size["nonexpert"] + size["slabs"] + size["layer"] + MIXTRAL_BENCH_ACT_BYTES
+    drop = b["host_available_before_build"] - b["host_available_after_build"] \
+        if b["host_available_before_build"] is not None else None
+    served = b["served_launches"]
+    row = {"layers": n, "requests": summ["requests"], "finished": r["finished"],
+           "transfers": summ["transfers"], "prefetch_transfers": summ["prefetch_transfers"],
+           "hit_rate": summ["cache_hit_rate"],
+           "modeled_time_serial_s": summ["modeled_time_serial_s"],
+           "modeled_time_overlapped_s": summ["modeled_time_overlapped_s"],
+           "build_s": b["build_s"], "score_s": b["score_s"],
+           "host_store_bytes": b["host_store_bytes"], "host_available_drop_bytes": drop,
+           "drop_limit_bytes": b["host_store_bytes"] + size["layer"] + MIXTRAL_RSS_MARGIN,
+           "max_memory_allocated": b["max_memory_allocated"], "memory_bound_bytes": bound,
+           "whole_model_bytes": size["whole"], "score_launches": b["score_launches"],
+           "served_launches": served, "launches_total": r["launches"],
+           "route_launches": r["routes"], "secs": r["secs"],
+           "prefill_s": b["prefill_s"], "decode_steps": b["decode_steps"],
+           "decode_tok_s": b["decode_steps"] / b["decode_s"] if b["decode_s"] > 0 else None,
+           "expert_copies": b["expert_copies"],
+           "copies_per_decode_step": b["expert_copies"]["decode"] / max(b["decode_steps"], 1)}
+    print("mixtral bench_serve --offloaded:", json.dumps(row))
+    want_flash = {"tc": MIXTRAL_BENCH_REQUESTS * n}
+    if not (summ["requests"] == len(r["finished"]) == MIXTRAL_BENCH_REQUESTS
+            and summ["transfers"] > 0 and 0 < summ["cache_hit_rate"] < 1):
+        bad.append(f"mixtral bench_serve: {MIXTRAL_BENCH_REQUESTS} requests with transfers "
+                   f"and a hit rate in (0, 1), got {summ}")
+    if drop is not None and not drop <= row["drop_limit_bytes"]:
+        bad.append(f"mixtral bench_serve: MemAvailable fell {drop} B across the build, "
+                   f"over {row['drop_limit_bytes']} B")
+    if device == "cuda":
+        peak = b["max_memory_allocated"]
+        if not peak < min(bound, size["whole"]):
+            bad.append(f"mixtral bench_serve: peak device memory {peak} B, bound {bound} B "
+                       f"(whole model {size['whole']} B)")
+        got = {"score": {op: b["score_launches"].get(op, {}) for op in ("moe_gmm", "flash_attn")},
+               **{ph: {op: served[ph].get(op, {}) for op in ("moe_gmm", "flash_attn")}
+                  for ph in ("prefill", "decode")}}
+        if not (set(got["score"]["moe_gmm"]) == {"tc"} and got["score"]["flash_attn"] == want_flash
+                and set(got["prefill"]["moe_gmm"]) == {"tc"}
+                and got["prefill"]["flash_attn"] == want_flash
+                and set(got["decode"]["moe_gmm"]) == {"stream"}
+                and not got["decode"]["flash_attn"]):
+            bad.append(f"mixtral bench_serve: launches {got}, want moe_gmm 'tc' in the oracle "
+                       f"and the prefills, 'stream' in decode, and flash_attn {want_flash} in "
+                       f"the oracle and in the prefills")
+    return row
+
+
+def _mixtral_ckpt_row(r: dict, cfg, bad: list) -> dict:
+    """Phase 23 (d)'s row, printed, then gated into ``bad``."""
+    n = r["layers"]
+    size = _mixtral_bytes(cfg, n)
+    ck, sd, b = r["run_ckpt"], r["run_seed"], r["bench_build"]
+    drops = {"run_ckpt": ck["host_available_before_build"] - ck["host_available_after_build"]
+             if ck["host_available_before_build"] is not None else None,
+             "bench_ckpt": b["host_available_before_build"] - b["host_available_after_build"]
+             if b["host_available_before_build"] is not None else None}
+    limit = ck["host_store_bytes"] + size["layer"] + MIXTRAL_RSS_MARGIN
+    row = {"layers": n, "scores_equal": r["scores_equal"], "scores_max_abs": r["scores_max_abs"],
+           "ckpt_bytes": r["ckpt_bytes"], "tokens_equal": r["tokens_equal"],
+           "run_ckpt": ck, "run_seed": sd, "host_available_drop_bytes": drops,
+           "drop_limit_bytes": limit, "bench_requests": r["bench_summary"]["requests"],
+           "bench_finished": r["bench_finished"], "bench_build_s": b["build_s"],
+           "bench_transfers": r["bench_summary"]["transfers"], "secs": r["secs"]}
+    print("mixtral checkpoint:", json.dumps(row))
+    if not (r["scores_equal"] and r["tokens_equal"]
+            and all(ck[k] == sd[k] for k in ("transfers", "hits", "misses"))):
+        bad.append(f"mixtral checkpoint: streamed oracle equal {r['scores_equal']}, run(ckpt=) "
+                   f"against run(): tokens equal {r['tokens_equal']}, {ck} vs {sd}")
+    if not r["bench_summary"]["requests"] == len(r["bench_finished"]) == MIXTRAL_BENCH_REQUESTS:
+        bad.append(f"mixtral checkpoint: bench_serve --ckpt finished {r['bench_finished']}")
+    for what, drop in drops.items():
+        if drop is not None and not drop <= limit:
+            bad.append(f"mixtral checkpoint: {what}'s MemAvailable fell {drop} B, over {limit} B")
+    return row
 
 
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
@@ -4434,7 +4770,7 @@ def main() -> int:
                 if "launches_total" in r},
              **{p: lr[0] for p, lr in ep_paths.items()},
              **{f"dryrun-{n}": r["card"]["launches"] for n, r in dr_rep["rows"].items()},
-             **{f"mixtral-{n}": mx_rep[n]["launches_total"] for n in ("int4", "bf16")}}
+             **{f"mixtral-{n}": mx_rep[n]["launches_total"] for n in ("int4", "bf16", "bench")}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
@@ -4456,7 +4792,7 @@ def main() -> int:
                 if "route_launches" in r},
              **{p: lr[1] for p, lr in ep_paths.items()},
              **{f"dryrun-{n}": r["card"]["routes"] for n, r in dr_rep["rows"].items()},
-             **{f"mixtral-{n}": mx_rep[n]["route_launches"] for n in ("int4", "bf16")}}
+             **{f"mixtral-{n}": mx_rep[n]["route_launches"] for n in ("int4", "bf16", "bench")}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

@@ -56,7 +56,7 @@ def _check_layout(tree: dict, cfg: ModelConfig) -> None:
 def _to_torch(a, dtype, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):  # e.g. a leaf of training.load_checkpoint
         t = a if dtype is None or not a.is_floating_point() else a.to(dtype)
-        return t.to(device)
+        return t if t.is_meta else t.to(device)  # a leaf not read stays a shape
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)

@@ -532,6 +532,29 @@ class HostExpertStore:
         return list(self.layers)
 
 
+def stage_experts(layer: Dict[str, torch.Tensor], device) -> Dict[str, torch.Tensor]:
+    """One MoE layer of a finished fp host store (``HostExpertStore``'s,
+    an engine's ``host_store``) on ``device``, for a forward pass over that
+    layer: ``{"wg", "wu", "wd"}``, each ``(E, K, N)`` in a device buffer of
+    its own, filled by one ``non_blocking`` copy of each expert's
+    contiguous matrix out of the pinned ``(E, 3, K*N)`` buffer (``moe_gmm``
+    takes contiguous weights, which views of that buffer are not). An INT4
+    store raises ``NotImplementedError``: what is staged this way is the
+    full-precision experts (the oracle scores' weights)."""
+    if set(layer) != set(_EXPERT_KEYS):
+        raise NotImplementedError(
+            f"stage_experts: a store of {sorted(layer)} (INT4 codes); staging takes the "
+            f"full-precision experts")
+    out = {}
+    for k in _EXPERT_KEYS:
+        v = layer[k]
+        dst = torch.empty(v.shape, dtype=v.dtype, device=device)
+        for e in range(v.shape[0]):
+            dst[e].copy_(v[e], non_blocking=True)
+        out[k] = dst
+    return out
+
+
 def _tree_map(fn, tree):
     return ({k: _tree_map(fn, v) for k, v in tree.items()} if isinstance(tree, dict)
             else fn(tree))

@@ -22,7 +22,9 @@ implicit:
   ``torch.Generator(device).manual_seed(param_seed)``, or the spec's
   ``ckpt`` (a params-only checkpoint of either package), in the spec's
   ``dtype`` (default the config's) on its ``device`` (default ``cuda``;
-  no CPU fallback),
+  no CPU fallback); a wave worker's experts go straight into its
+  engine's pinned store as they are drawn or read
+  (``launch.serve.offloaded_params``),
 * serve through the standard journaled server run loop, emitting one
   atomic heartbeat per decode step / wave via the ``on_step`` hook,
 * poll ``WORKER_DIR/inbox/`` for requests the supervisor re-offers
@@ -59,7 +61,7 @@ import torch
 from ..configs import get_config
 from ..faults import get_fault_plan, install_fault_plan, uninstall_fault_plan
 from ..kernels import dispatch
-from ..launch.serve import load_params
+from ..launch.serve import load_params, offloaded_params
 from ..models.common import cdtype
 from ..models.model import init_params
 from ..models.runtime import resolve_device
@@ -154,24 +156,28 @@ def _build_server(spec: Dict, pending: List, trace: List, state):
     cfg = get_config(spec["arch"])
     dev = resolve_device(spec.get("device") or "cuda")
     dt = cdtype(spec.get("dtype") or cfg.dtype)
-    if spec.get("ckpt"):
-        params, _ = load_params(cfg, spec["ckpt"], dtype=dt, device=dev)
-    else:
-        gen = torch.Generator(device=dev).manual_seed(int(spec.get("param_seed", 0)))
-        params = init_params(cfg, generator=gen, dtype=dt, device=dev)
+    seed = int(spec.get("param_seed", 0))
     scheduler = get_scheduler(spec.get("scheduler", "fcfs"))
     if spec.get("mode", "continuous") == "wave":
+        # the experts drawn or read into the engine's pinned store
+        params, store, _ = offloaded_params(cfg, dtype=dt, device=dev,
+                                            ckpt=spec.get("ckpt") or None, seed=seed)
         srv = OffloadedWaveServer(
             cfg, params,
             capacity=int(spec.get("capacity") or cfg.melinoe_cache_capacity()),
             scheduler=scheduler, wave_size=int(spec.get("slots", 2)),
             overlap=bool(spec.get("overlap", False)),
             engine_impl=spec.get("engine_impl", "slab"),
-            seed=int(spec.get("seed", 0)), device=dev)
+            seed=int(spec.get("seed", 0)), device=dev, host_store=store)
         if state is not None and state.engine is not None:
             srv.engine.metrics.load_state(state.engine["metrics"])
             srv.engine.revive(state.engine["cache"], warm=True)
     else:
+        if spec.get("ckpt"):
+            params, _ = load_params(cfg, spec["ckpt"], dtype=dt, device=dev)
+        else:
+            params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                                 dtype=dt, device=dev)
         max_len = int(spec.get("max_len") or (max(
             (r.prompt_len + r.max_new_tokens for r in (pending or trace)),
             default=32) + 1))

@@ -21,7 +21,9 @@ any worker starts: no CPU fallback) in ``--dtype`` (default the
 config's), on random weights from seed 0 or the params-only checkpoint
 ``--ckpt`` (either package's ``save_checkpoint``). With ``--offloaded``
 the oracle ``prefill_expert_scores`` runs here, on the same weights and
-device, and rides in the trace.
+device, and rides in the trace: the experts drawn or read into a host
+store, staged one MoE layer at a time, the store dropped before the
+workers start.
 
 Exit status: 0 iff no request is unaccounted (finished nor journaled).
 """
@@ -40,10 +42,9 @@ from ..configs import get_config
 from ..data.synthetic import ClusterLM, SyntheticConfig
 from ..fleet import FleetConfig, FleetSupervisor, parse_worker_fault_schedule
 from ..models.common import cdtype
-from ..models.model import init_params
 from ..models.runtime import resolve_device
 from ..serving import TrafficConfig, prefill_expert_scores, synthesize_workload
-from .serve import load_params
+from .serve import offloaded_params
 
 
 def build_workload(args, cfg):
@@ -124,13 +125,11 @@ def main(argv=None) -> int:
         if not cfg.has_router:
             raise SystemExit("--offloaded applies to MoE architectures")
         dt = cdtype(args.dtype or cfg.dtype)
-        if args.ckpt:
-            params, _ = load_params(cfg, args.ckpt, dtype=dt, device=dev)
-        else:
-            params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
-                                 dtype=dt, device=dev)
-        prefill_expert_scores(cfg, params, requests)  # ride in the trace
-        del params
+        # the oracle scores ride in the trace: computed one MoE layer on the
+        # device at a time from a store that goes before the workers start
+        params, store, _ = offloaded_params(cfg, dtype=dt, device=dev, ckpt=args.ckpt)
+        prefill_expert_scores(cfg, params, requests, host_store=store)
+        del params, store
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 

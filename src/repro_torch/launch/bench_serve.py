@@ -23,6 +23,21 @@ transfers, hit rate and both Eq.-3 clocks too). Weights are random from
 seed 0 in ``--dtype`` (default the config's), or ``--ckpt PATH`` (a
 params-only checkpoint). Runs on ``cuda`` unless ``--device cpu``.
 
+Offloaded, the device never holds the whole model: the experts are drawn
+(or read from ``--ckpt``) one ``(E, i, o)`` matrix at a time straight
+into the engine's pinned host store (``launch.serve.offloaded_params``),
+the other weights go to the device, the oracle scores are computed
+layer-major with one MoE layer's experts staged on the device at a time
+(``prefill_expert_scores(host_store=...)``), and the wave server serves
+from that store. A model whose experts do not fit the card (Mixtral-8x7B:
+84 GiB in bf16 on an 80 GB card) is served this way at full width. The
+launcher then prints a ``BUILD_LINE`` JSON report to standard error
+(standard output ends with the summary): the build's and the
+scoring's seconds, the host's MemAvailable before and after the build,
+``host_store_bytes``, the launches of the scoring pass and of the served
+prefills and decode steps, the served prefills' and decode steps' seconds
+(device synchronized) and expert copies, and the peak device memory.
+
 ``--little`` (offloaded path) builds the engine's always-resident
 low-rank little-expert bank (rank ``--little-rank``) on the device, and
 ``--quality q`` sets every request's quality dial: the fraction of cache
@@ -73,6 +88,8 @@ import argparse
 import json
 import os
 import signal
+import sys
+import time
 
 import torch
 
@@ -95,7 +112,9 @@ from ..serving import (
     prefill_expert_scores,
     synthesize_workload,
 )
-from .serve import load_params
+from .serve import _sync, host_available_bytes, load_params, offloaded_params
+
+BUILD_LINE = "bench_serve offloaded: "
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -223,12 +242,20 @@ def _serve(args, cfg, jdir, drain):
 
     dev = resolve_device(args.device)
     dt = cdtype(args.dtype or cfg.dtype)
-    if args.ckpt:
+    build = {}
+    if args.offloaded:  # the experts into the pinned store, the rest on the device
+        build["host_available_before_build"], t0 = host_available_bytes(), time.perf_counter()
+        params, store, meta = offloaded_params(cfg, dtype=dt, device=dev, ckpt=args.ckpt)
+        build.update(build_s=time.perf_counter() - t0,
+                     host_available_after_build=host_available_bytes())
+    elif args.ckpt:
         params, meta = load_params(cfg, args.ckpt, dtype=dt, device=dev)
-        print(f"loaded {args.ckpt} ({meta})")
     else:
         params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                              dtype=dt, device=dev)
+    if args.ckpt:
+        print(f"loaded {args.ckpt} ({meta})")
+    else:
         print("using randomly initialized weights (demo mode)")
 
     if state is not None:
@@ -254,15 +281,22 @@ def _serve(args, cfg, jdir, drain):
             print("note: the offloaded engine decodes greedily; "
                   "--temperature is ignored on this path")
         capacity = args.capacity or cfg.melinoe_cache_capacity()
-        if state is None:
-            prefill_expert_scores(cfg, params, requests)  # oracle profiles
+        if state is None:  # oracle profiles, one MoE layer on the device at a time
+            before, t0 = dispatch.route_snapshot(), time.perf_counter()
+            prefill_expert_scores(cfg, params, requests, host_store=store)
+            _sync(dev)
+            build.update(score_s=time.perf_counter() - t0,
+                         score_launches=dispatch.route_delta(before, dispatch.route_snapshot()))
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()  # the staged layer's memory, before the slabs
         kw = {"top_c": capacity} if args.scheduler == "expert-affinity" else {}
         srv = OffloadedWaveServer(
             cfg, params, capacity=capacity, scheduler=get_scheduler(args.scheduler, **kw),
             wave_size=args.slots, overlap=args.overlap, engine_impl=args.engine_impl,
             little_experts=args.little, little_rank=args.little_rank,
-            seed=seed, device=dev)
-        del params  # the engine keeps its experts in pinned host memory
+            seed=seed, device=dev, host_store=store)
+        build["host_store_bytes"] = srv.engine.host_store_bytes
+        del params, store  # the engine keeps the store
         if state is not None and state.engine is not None:
             srv.engine.metrics.load_state(state.engine["metrics"])
             rev = srv.engine.revive(state.engine["cache"], warm=not args.cold_restore)
@@ -304,6 +338,14 @@ def _serve(args, cfg, jdir, drain):
         with open(args.out_results, "w") as f:
             json.dump(payload, f, indent=2)
         print(f"results: {args.out_results}")
+    if args.offloaded:
+        build.update(served_launches=srv.route_launches, expert_copies=srv.expert_copies,
+                     prefill_s=sum(srv.span_s["serve.prefill"]),
+                     decode_s=sum(srv.span_s["serve.decode"]),
+                     decode_steps=sum(srv.span_s["decode_steps"]),
+                     max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                           if dev.type == "cuda" else None))
+        print(BUILD_LINE + json.dumps(build), file=sys.stderr, flush=True)
     if args.trace:
         _export_trace(args.trace, srv, mt, offloaded=args.offloaded)
     if srv.drained or drain["flag"]:

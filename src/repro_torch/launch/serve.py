@@ -22,8 +22,9 @@ memory.
 
 Random weights from ``--seed``, or a params-only checkpoint
 (``--ckpt PATH``: ``training.save_checkpoint`` of the parameter tree, in
-either package; read with a like-tree of the config's fp32 shapes, as
-the reference does, then cast to ``--dtype``), the slab offload engine
+either package; read leaf by leaf with a like-tree of the config's fp32
+shapes, as the reference does, then cast to ``--dtype``, the experts one
+``(E, i, o)`` matrix at a time into the engine's store), the slab offload engine
 with the cache policy and capacity C, batched greedy generation, then a
 report of transfers, hit rate, both Eq.-3 modeled clocks and the
 measured prefill seconds and decode tokens/s. ``--quantized`` keeps
@@ -62,7 +63,7 @@ from ..kernels import _build, dispatch
 from ..models.common import cdtype
 from ..models.model import decode_step, init_params, prefill
 from ..models.runtime import Runtime, resolve_device
-from ..training.checkpoint import load_checkpoint
+from ..training.checkpoint import load_checkpoint, tree_leaves
 
 
 def make_prompts(vocab: int, batch: int, prompt_len: int) -> np.ndarray:
@@ -81,16 +82,74 @@ def make_prefix(cfg, batch: int, seed: int = 0) -> np.ndarray:
     return rng.standard_normal((batch, cfg.prefix_len, cfg.d_model)).astype(np.float32)
 
 
-def load_params(cfg, ckpt, *, dtype, device):
+def _leaf_paths(tree, pre: str = ""):
+    """The tree with each leaf replaced by its path ("groups/g0/p0/ffn/wg")."""
+    if isinstance(tree, dict):
+        return {k: _leaf_paths(v, f"{pre}/{k}" if pre else k) for k, v in tree.items()}
+    return pre
+
+
+def load_params(cfg, ckpt, *, dtype, device, expert_sink=None, expert_device=None):
     """A params-only checkpoint (either package's ``save_checkpoint`` of
     the parameter tree) read with a like-tree of the config's fp32 shapes
     (built on the ``meta`` device: no memory), then through the bridge:
     floating leaves cast to ``dtype`` (the router and SSM constants stay
-    fp32), on ``device``. Returns (params, metadata)."""
+    fp32), on ``device``. Returns (params, metadata).
+
+    ``expert_sink`` / ``expert_device``, as ``init_params`` takes them:
+    the MoE blocks' experts are read one repeat's ``(E, i, o)`` matrix at
+    a time, cast to ``dtype``, and handed to ``expert_sink(gi, pi, name,
+    (r,), w)`` (``HostExpertStore.sink``: the store is filled from the
+    file, and host memory holds no other copy of the experts) and kept
+    on ``expert_device``; the tree's expert leaves stay on ``meta`` unless
+    ``expert_device`` says otherwise. With neither, they are read whole
+    into the tree with the rest."""
+    dt = cdtype(dtype)
     like = init_params(cfg, generator=torch.Generator(), dtype=torch.float32,
                        device="meta")
-    tree, _, meta = load_checkpoint(ckpt, like)
-    return params_from_jax(tree, cfg, dtype=dtype, device=device), meta
+    experts, slices = {}, {}
+    if expert_sink is not None or expert_device is not None:
+        index = {path: i for i, path in enumerate(tree_leaves(_leaf_paths(like)))}
+        for gi, g in enumerate(cfg.layout):
+            for pi, bname in enumerate(g.pattern):
+                if cfg.block_defs[bname].kind != "attn_moe":
+                    continue
+                for name in ("wg", "wu", "wd"):
+                    w = torch.empty(like["groups"][f"g{gi}"][f"p{pi}"]["ffn"][name].shape,
+                                    dtype=dt, device=expert_device or "meta")
+                    experts[gi, pi, name] = w
+
+                    def each(r, t, gi=gi, pi=pi, name=name, w=w):
+                        t = t.to(dt)
+                        if expert_sink is not None:
+                            expert_sink(gi, pi, name, (r,), t)
+                        if not w.is_meta:
+                            w[r] = t
+
+                    slices[index[f"groups/g{gi}/p{pi}/ffn/{name}"]] = each
+    tree, _, meta = load_checkpoint(ckpt, like, slices=slices)
+    for (gi, pi, name), w in experts.items():  # the bridge keeps them where they are
+        tree["groups"][f"g{gi}"][f"p{pi}"]["ffn"][name] = w
+    return params_from_jax(tree, cfg, dtype=dt, device=device), meta
+
+
+def offloaded_params(cfg, *, dtype, device, ckpt=None, seed: int = 0):
+    """An offloaded server's weights: the experts drawn from ``seed`` (the
+    stream ``init_params`` draws from ``torch.Generator(device=device)``)
+    or read from ``ckpt``, one ``(E, i, o)`` matrix at a time, straight
+    into a ``HostExpertStore`` (pinned where ``device`` is CUDA); every
+    other weight on ``device``. Returns (params, their expert leaves on
+    ``meta``; the finished store, an engine's ``host_store``; the
+    checkpoint's metadata, or None)."""
+    dev = torch.device(device)
+    store = HostExpertStore(cfg, device=dev)
+    if ckpt is not None:
+        params, meta = load_params(cfg, ckpt, dtype=dtype, device=dev,
+                                   expert_sink=store.sink)
+    else:
+        params, meta = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                                   dtype=dtype, device=dev, expert_sink=store.sink), None
+    return params, store.finish(), meta
 
 
 def _tree_to(tree, dev):
@@ -202,8 +261,8 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
     before and after the build, the process's resident-set high-water mark
     after it (``max_rss_bytes``),
     ``host_store_bytes``, ``slab_bytes`` and the peak device memory of
-    the served batch. A ``ckpt`` is read whole into host memory first and
-    then copied into the store.
+    the served batch. A ``ckpt`` fills the store the same way, one
+    ``(E, i, o)`` matrix at a time as it is read (``load_params``).
 
     ``keep_store`` puts the engine's pinned expert store into the report
     under ``host_store`` (and, quantized, under ``quantized_experts`` as
@@ -223,19 +282,19 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         raise ValueError("predictor: the routing trace needs the experts of params")
     avail_before, t_build = host_available_bytes(), time.perf_counter()
     store = None
-    if ckpt is not None:  # the engine moves what it keeps on the device
-        params, _ = load_params(cfg, ckpt, dtype=dt, device="cpu")
+    if host_store is None and not (quantized and quantized_experts is not None):
+        store = HostExpertStore(cfg, quantized=quantized, device=dev)
+    if predictor:
+        _check_trace_fits(cfg, dt, dev)
+    # the experts go into the store as they are drawn or read (the same
+    # stream whether or not a store or codes were given)
+    kw = dict(expert_device=dev if predictor else "meta",
+              expert_sink=None if store is None else store.sink)
+    if ckpt is not None:
+        params, _ = load_params(cfg, ckpt, dtype=dt, device=dev, **kw)
     else:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        if host_store is None and not (quantized and quantized_experts is not None):
-            store = HostExpertStore(cfg, quantized=quantized, device=dev)
-        if predictor:
-            _check_trace_fits(cfg, dt, dev)
-        # the experts go into the store as they are drawn (the same stream
-        # whether or not a store or codes were given)
-        params = init_params(cfg, generator=gen, dtype=dt, device=dev,
-                             expert_device=dev if predictor else "meta",
-                             expert_sink=None if store is None else store.sink)
+        params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed),
+                             dtype=dt, device=dev, **kw)
     capacity = capacity or cfg.melinoe_cache_capacity()
     # the training prompts continue the batch's stream, as the reference's
     all_prompts = make_prompts(cfg.vocab, batch + (n_train_prompts if predictor else 0),
@@ -246,8 +305,7 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
         scores, psi = train_psi(cfg, params, all_prompts[batch:], prompts, device=dev,
                                 kernel_backend=kernel_backend,
                                 predictor_init=predictor_init)
-        if ckpt is None:
-            _experts_to_meta(cfg, params)
+        _experts_to_meta(cfg, params)
     engine = OffloadedMoEEngine(cfg, params, capacity=capacity, policy=policy,
                                 quantized=quantized,
                                 quantized_experts=quantized_experts,

@@ -48,23 +48,25 @@ def init_moe(d_model: int, spec: MoESpec, dtype, *, generator, device, lead=(),
              expert_device=None, expert_sink=None):
     """Router (fp32) + stacked expert weights ``(*lead, E, ...)``.
 
-    ``expert_device``: where the expert weights are kept (drawn on
-    ``device`` one leading index at a time, then moved; "meta" keeps
-    none). ``expert_sink``: called as ``expert_sink(name, idx, w)`` with
-    each ``(E, i, o)`` matrix so drawn (``idx`` its index into ``lead``),
-    which it takes instead of the tree: the leaves then stay on ``meta``
-    unless ``expert_device`` says otherwise. Either way the draws are the
-    same, in the same order: ``wg`` for every leading index, then ``wu``,
-    then ``wd``."""
+    The experts are drawn on ``device`` one ``(E, i, o)`` matrix (one
+    leading index) at a time, ``wg`` for every leading index, then ``wu``,
+    then ``wd``. ``expert_device``: where they are kept (default
+    ``device``; "meta" keeps none). ``expert_sink``: called as
+    ``expert_sink(name, idx, w)`` with each matrix so drawn (``idx`` its
+    index into ``lead``), which it takes instead of the tree: the leaves
+    then stay on ``meta`` unless ``expert_device`` says otherwise. The
+    draws, and so every weight, are the same with or without either (a
+    draw of the whole ``(*lead, E, i, o)`` leaf would not give the same
+    matrices: torch's truncated normal may reject and draw again over the
+    whole tensor, and a CUDA generator maps elements to its stream by the
+    tensor's size)."""
     E, f = spec.num_experts, spec.d_ff
     kw = dict(generator=generator, device=device)
     p = {"router": dense_init(d_model, E, torch.float32, lead=lead, **kw)}
+    keep = expert_device or (device if expert_sink is None else "meta")
     for name, (i, o) in (("wg", (d_model, f)), ("wu", (d_model, f)),
                          ("wd", (f, d_model))):
-        if expert_device is None and expert_sink is None:
-            p[name] = dense_init(i, o, dtype, lead=(*lead, E), **kw)
-            continue
-        w = torch.empty((*lead, E, i, o), dtype=dtype, device=expert_device or "meta")
+        w = torch.empty((*lead, E, i, o), dtype=dtype, device=keep)
         for idx in np.ndindex(*lead):  # one layer's experts at a time
             m = dense_init(i, o, dtype, lead=(E,), **kw)
             if expert_sink is not None:

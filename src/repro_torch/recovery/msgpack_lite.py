@@ -4,12 +4,18 @@
 tuples; decoded as lists), str, bin, ints, floats (written as float64),
 nil and bools. The machine that runs the port on the card has no
 ``msgpack`` package, so the port carries its own.
+
+:class:`StreamReader` decodes the same subset from a binary file object,
+one object or one header at a time, and reads a ``bin`` field's bytes
+straight into a buffer the caller gives (``read_into``): a checkpoint's
+arrays are read without the whole file, or any of its fields, in memory.
 """
 from __future__ import annotations
 
+import io
 import struct
 
-__all__ = ["packb", "unpackb"]
+__all__ = ["packb", "unpackb", "StreamReader"]
 
 
 def _len_header(n: int, fix_tag: int, fix_max: int, tags) -> bytes:
@@ -94,22 +100,6 @@ def packb(obj) -> bytes:
     return b"".join(out)
 
 
-class _Reader:
-    def __init__(self, data: bytes):
-        self.data = memoryview(data)
-        self.pos = 0
-
-    def take(self, n: int) -> bytes:
-        if self.pos + n > len(self.data):
-            raise ValueError("truncated msgpack data")
-        b = self.data[self.pos:self.pos + n]
-        self.pos += n
-        return bytes(b)
-
-    def unpack(self, fmt: str):
-        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
-
-
 # tag -> (struct format of the value, kind)
 _FIXED = {0xCC: (">B", "int"), 0xCD: (">H", "int"), 0xCE: (">I", "int"),
           0xCF: (">Q", "int"), 0xD0: (">b", "int"), 0xD1: (">h", "int"),
@@ -122,31 +112,38 @@ _SIZED = {0xD9: (">B", "str"), 0xDA: (">H", "str"), 0xDB: (">I", "str"),
           0xDF: (">I", "map")}
 
 
-def _read(r: _Reader):
+def _head(r):
+    """The next object's tag: (kind, length) for a map, array, str or bin
+    ("map", "arr", "str", "bin"), ("val", value) for anything else."""
     tag = r.take(1)[0]
     if tag <= 0x7F:
-        return tag
+        return "val", tag
     if tag >= 0xE0:
-        return tag - 0x100
+        return "val", tag - 0x100
     if 0x80 <= tag <= 0x8F:
-        kind, n = "map", tag & 0x0F
-    elif 0x90 <= tag <= 0x9F:
-        kind, n = "arr", tag & 0x0F
-    elif 0xA0 <= tag <= 0xBF:
-        kind, n = "str", tag & 0x1F
-    elif tag == 0xC0:
-        return None
-    elif tag == 0xC2:
-        return False
-    elif tag == 0xC3:
-        return True
-    elif tag in _FIXED:
-        return r.unpack(_FIXED[tag][0])
-    elif tag in _SIZED:
+        return "map", tag & 0x0F
+    if 0x90 <= tag <= 0x9F:
+        return "arr", tag & 0x0F
+    if 0xA0 <= tag <= 0xBF:
+        return "str", tag & 0x1F
+    if tag == 0xC0:
+        return "val", None
+    if tag == 0xC2:
+        return "val", False
+    if tag == 0xC3:
+        return "val", True
+    if tag in _FIXED:
+        return "val", r.unpack(_FIXED[tag][0])
+    if tag in _SIZED:
         fmt, kind = _SIZED[tag]
-        n = r.unpack(fmt)
-    else:
-        raise ValueError(f"msgpack tag 0x{tag:02x} is outside the supported subset")
+        return kind, r.unpack(fmt)
+    raise ValueError(f"msgpack tag 0x{tag:02x} is outside the supported subset")
+
+
+def _read(r):
+    kind, n = _head(r)
+    if kind == "val":
+        return n
     if kind == "str":
         return r.take(n).decode("utf-8")
     if kind == "bin":
@@ -162,8 +159,54 @@ def _read(r: _Reader):
 
 def unpackb(data: bytes):
     """``msgpack.unpackb(data, raw=False)`` for the subset above."""
-    r = _Reader(data)
-    obj = _read(r)
-    if r.pos != len(r.data):
-        raise ValueError(f"{len(r.data) - r.pos} bytes of extra data after the object")
+    f = io.BytesIO(data)
+    obj = StreamReader(f).read()
+    if f.tell() != len(data):
+        raise ValueError(f"{len(data) - f.tell()} bytes of extra data after the object")
     return obj
+
+
+class StreamReader:
+    """The subset above read from a binary file object ``f``, front to
+    back: :meth:`read` decodes the next whole object, :meth:`head` only
+    its header (a map's or array's item count, a str's or bin's byte
+    count), after which the caller reads the items or, for a bin,
+    :meth:`read_into` its bytes. A file that ends early raises
+    ``ValueError``, as :func:`unpackb` does on truncated data."""
+
+    def __init__(self, f):
+        self.f = f
+
+    def take(self, n: int) -> bytes:
+        b = self.f.read(n)
+        if len(b) != n:
+            raise ValueError("truncated msgpack data")
+        return b
+
+    def unpack(self, fmt: str):
+        return struct.unpack(fmt, self.take(struct.calcsize(fmt)))[0]
+
+    def read(self):
+        """The next object, decoded whole."""
+        return _read(self)
+
+    def head(self, kind: str) -> int:
+        """The next object's header, which must be of ``kind`` ("map",
+        "arr", "str" or "bin"): its length."""
+        got, n = _head(self)
+        if got != kind:
+            raise ValueError(f"msgpack: expected a {kind}, found a {got}")
+        return n
+
+    def read_into(self, buf) -> None:
+        """Fill ``buf`` (a writable buffer of a bin's bytes, or of the next
+        part of them) from the file."""
+        view = memoryview(buf).cast("B")
+        while len(view):
+            n = self.f.readinto(view)
+            if not n:
+                raise ValueError("truncated msgpack data")
+            view = view[n:]
+
+    def at_end(self) -> bool:
+        return not self.f.read(1)

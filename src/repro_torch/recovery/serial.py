@@ -8,13 +8,15 @@ write goes through :func:`atomic_write_bytes` (temp file +
 ``os.replace``). The records are the reference's, bit for bit: a
 ``"bfloat16"`` record holds the raw 16-bit words, read here as
 ``uint16`` and viewed as ``torch.bfloat16`` (no ``ml_dtypes`` needed).
+:func:`read_array_record` decodes a record from a file as it is read
+(``msgpack_lite.StreamReader``), its bytes straight into the tensor.
 """
 from __future__ import annotations
 
 import base64
 import os
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -63,6 +65,59 @@ def record_array(rec: Optional[dict]) -> Optional[torch.Tensor]:
     else:
         raise ValueError(f"array record dtype {name!r} has no torch type")
     return t.reshape(rec["shape"])
+
+
+def _bytes_of(t: torch.Tensor):
+    """A writable byte view of a contiguous tensor's storage."""
+    return t.reshape(-1).view(torch.uint8).numpy()
+
+
+def read_array_record(r, like_shape=None,
+                      each: Optional[Callable[[int, torch.Tensor], None]] = None
+                      ) -> Optional[torch.Tensor]:
+    """Decode the next :func:`array_record` (binary) of a
+    ``msgpack_lite.StreamReader`` into a CPU tensor allocated once, its
+    bytes read from the file straight into it; the record's dtype and
+    shape must come ahead of its data, as both packages write them.
+    ``like_shape``: the shape the record must have (``ValueError``
+    otherwise). ``each``: read the array one index of its leading dim at
+    a time instead, calling ``each(j, t)`` with index ``j``'s tensor (a
+    new one each time), and return None: no more than one such slice is
+    in memory at once."""
+    name = shape = out = None
+    read = False
+    for _ in range(r.head("map")):
+        key = r.read()
+        if key == "dtype":
+            name = r.read()
+        elif key == "shape":
+            shape = tuple(r.read())
+        elif key == "data":
+            if name is None or shape is None:
+                raise ValueError("array record: its data comes ahead of its dtype and shape")
+            if name not in _FROM_NAME:
+                raise ValueError(f"array record dtype {name!r} has no torch type")
+            if like_shape is not None and shape != tuple(like_shape):
+                raise ValueError(f"leaf shape {shape} vs {tuple(like_shape)}")
+            dt = _FROM_NAME[name]
+            nbytes = r.head("bin")
+            want = int(np.prod(shape)) * dt.itemsize
+            if nbytes != want:
+                raise ValueError(f"array record of {name} {shape}: {nbytes} bytes, want {want}")
+            if each is None:
+                out = torch.empty(shape, dtype=dt)
+                r.read_into(_bytes_of(out))
+            else:
+                for j in range(shape[0]):
+                    t = torch.empty(shape[1:], dtype=dt)
+                    r.read_into(_bytes_of(t))
+                    each(j, t)
+            read = True
+        else:
+            raise ValueError(f"array record: field {key!r} is not dtype, shape or data")
+    if not read:
+        raise ValueError("array record without data")
+    return out
 
 
 def atomic_write_bytes(path, data: bytes) -> None:

@@ -495,6 +495,10 @@ class OffloadedWaveServer:
         # measured per request (device synchronized): prefill s, decode s
         # and decode steps of its generate call
         self.span_s = {"serve.prefill": [], "serve.decode": [], "decode_steps": []}
+        # kernel launches and host -> device expert copies of those calls,
+        # by phase (launches by op and route)
+        self.route_launches = {"prefill": {}, "decode": {}}
+        self.expert_copies = {"prefill": 0, "decode": 0}
         results: List[ServeResult] = []
         now = 0.0
         wave_idx = 0
@@ -595,6 +599,13 @@ class OffloadedWaveServer:
                 self.span_s["serve.prefill"].append(em.prefill_wall_time)
                 self.span_s["serve.decode"].append(em.decode_wall_time)
                 self.span_s["decode_steps"].append(int(res["tokens"].shape[1]) - 1)
+                for ph, n in res["expert_copies"].items():
+                    self.expert_copies[ph] += n
+                for ph, ops in res["route_launches"].items():
+                    for op, routes in ops.items():
+                        acc = self.route_launches[ph].setdefault(op, {})
+                        for route, n in routes.items():
+                            acc[route] = acc.get(route, 0) + n
                 mt.modeled_time_serial += d_serial
                 mt.modeled_time_overlapped += d_overlap
                 now += d_overlap if self.overlap else d_serial

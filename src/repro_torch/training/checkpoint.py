@@ -14,8 +14,8 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, List, Tuple
 
-from ..recovery.msgpack_lite import packb, unpackb
-from ..recovery.serial import array_record, atomic_write_bytes, record_array
+from ..recovery.msgpack_lite import StreamReader, packb
+from ..recovery.serial import array_record, atomic_write_bytes, read_array_record
 
 
 def _is_node(x) -> bool:
@@ -78,19 +78,39 @@ def save_checkpoint(path, tree, *, step: int = 0, metadata: dict | None = None) 
     atomic_write_bytes(Path(path), packb(payload))
 
 
-def load_checkpoint(path, like_tree) -> Tuple[Any, int, dict]:
+def load_checkpoint(path, like_tree, *, slices=None) -> Tuple[Any, int, dict]:
     """Restore into the structure of ``like_tree`` (any leaves with a
     ``.shape``: tensors, or tensors on the ``meta`` device). Returns
-    (tree of CPU tensors, step, metadata)."""
-    payload = unpackb(Path(path).read_bytes())
+    (tree of CPU tensors, step, metadata).
+
+    The file is read front to back, each leaf's bytes straight into its
+    tensor (``read_array_record``): host memory holds the tree once, and
+    neither the file nor a copy of any field. ``slices``: {leaf index (in
+    the flatten order): fn}; such a leaf is read one index of its leading
+    dim at a time, ``fn(j, t)`` called with each (a stacked expert leaf,
+    one repeat's ``(E, i, o)`` matrix a call), and the like-tree's leaf
+    stands in its place in the tree returned. A leaf count or shape that
+    differs from the like-tree's, or a file that ends early, raises
+    ``ValueError``."""
     like = tree_leaves(like_tree)
-    stored = payload["leaves"]
-    if len(stored) != len(like):
-        raise ValueError(f"leaf count mismatch: {len(stored)} vs {len(like)}")
-    leaves = []
-    for rec, l in zip(stored, like):
-        t = record_array(rec)
-        if tuple(t.shape) != tuple(l.shape):
-            raise ValueError(f"leaf shape {tuple(t.shape)} vs {tuple(l.shape)}")
-        leaves.append(t)
+    slices = slices or {}
+    payload, leaves = {}, None
+    with open(path, "rb") as f:
+        r = StreamReader(f)
+        for _ in range(r.head("map")):
+            key = r.read()
+            if key != "leaves":
+                payload[key] = r.read()
+                continue
+            n = r.head("arr")
+            if n != len(like):
+                raise ValueError(f"leaf count mismatch: {n} vs {len(like)}")
+            leaves = []
+            for i, l in enumerate(like):
+                t = read_array_record(r, l.shape, slices.get(i))
+                leaves.append(l if i in slices else t)
+        if not r.at_end():
+            raise ValueError(f"{path}: extra data after the checkpoint")
+    if leaves is None:
+        raise ValueError(f"{path}: a checkpoint without leaves")
     return _unflatten(like_tree, leaves), payload["step"], payload["metadata"]

@@ -7,11 +7,6 @@ the tokens and counts of the two-copy build; and a subprocess at a
 config of 604 MB of fp32 experts whose resident-set high-water mark,
 when the store is built, stays below the store plus one layer of experts
 over its own baseline (the two-copy build holds every expert twice)."""
-import dataclasses
-import json
-import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -25,6 +20,7 @@ from repro_torch.core.offload_engine import (HostExpertStore,  # noqa: E402
 from repro_torch.core.quant import matmul_layout, quantize_linear  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.model import init_params  # noqa: E402
+from _torch_rss import run_child  # noqa: E402
 from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
@@ -163,64 +159,20 @@ def test_serve_run_gives_the_two_copy_build_s_tokens_and_counts(dtype, quantized
         assert rep["host_available_after_build"] > 0
 
 
-# A reduced Mixtral: 3 layers of 8 experts at d_model 128, d_ff 16,384, in
-# fp32: 67 MB a matrix, 201 MB a layer, 604 MB of experts. Served on the
-# CPU at C = 1 (slabs 75 MB) with one 4-token prompt; the probe reads
-# the resident-set high-water mark as generate starts, after the whole build. On the CPU the
-# device is the host, so the working memory of drawing one matrix (torch's
-# truncated-normal rejection sampler holds about four of them at once) is
-# host memory too: the baseline is read after one such draw, freed. The
-# child runs with MALLOC_MMAP_THRESHOLD_ at 1 MiB so that glibc hands every
-# freed large block back (it otherwise keeps some for reuse, and the
-# resident set would count them as held).
-RSS_SCRIPT = r"""
-import dataclasses, json, sys
-import torch
-torch.set_num_threads(1)
-from repro_torch.configs import get_config
-from repro_torch.configs.base import LayoutGroup
-from repro_torch.launch import serve
-from repro_torch.models.common import dense_init
-
-def rss():  # VmHWM: this process's own high-water mark (ru_maxrss starts at the
-    # resident set of the process that forked it)
-    for line in open("/proc/self/status"):
-        if line.startswith("VmHWM:"):
-            return int(line.split()[1]) * 1024
-
-base = get_config("mixtral-8x7b-smoke")
-b = base.block_defs["moe"]
-cfg = dataclasses.replace(
-    base, block_defs={"moe": dataclasses.replace(
-        b, moe=dataclasses.replace(b.moe, num_experts=8, d_ff=16384))},
-    layout=(LayoutGroup(("moe",), 3),))
-serve.get_config = lambda name: cfg
-probe = []
-
-class Probe(serve.OffloadedMoEEngine):
-    def generate(self, *a, **k):
-        probe.append(rss())
-        return super().generate(*a, **k)
-
-serve.OffloadedMoEEngine = Probe
-spec = cfg.moe_spec
-dense_init(cfg.d_model, spec.d_ff, torch.float32, generator=torch.Generator(),
-           device="cpu", lead=(spec.num_experts,))
-baseline = rss()
+# serve.run at the inflated config of tests/_torch_rss.py (604 MB of fp32
+# experts), served on the CPU at C = 1 (slabs 75 MB) with one 4-token prompt.
+RSS_BODY = r"""
 rep = serve.run("mixtral-8x7b-smoke", device="cpu", dtype="float32", batch=1,
                 prompt_len=4, max_new=1, capacity=1)
 print(json.dumps({"baseline": baseline, "build_rss": probe[0],
                   "host_store_bytes": rep["host_store_bytes"],
-                  "layer_bytes": spec.num_experts * 3 * cfg.d_model * spec.d_ff * 4}))
+                  "layer_bytes": layer_bytes}))
 """
 
 
 def store_build_rss(src: Path, timeout_s: float = 300.0) -> dict:
-    """Run RSS_SCRIPT against the package under ``src`` in a fresh process."""
-    env = dict(os.environ, PYTHONPATH=str(src), MALLOC_MMAP_THRESHOLD_=str(2**20))
-    out = subprocess.run([sys.executable, "-c", RSS_SCRIPT], env=env, capture_output=True,
-                         text=True, timeout=timeout_s, check=True)
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    """Run the build against the package under ``src`` in a fresh process."""
+    return run_child(RSS_BODY, src, timeout_s)
 
 
 def test_store_build_holds_the_experts_once():
