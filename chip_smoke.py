@@ -59,7 +59,8 @@ From the root of a checkout, with CUDA available:
    1 (the bf16 agreement is printed, not gated); it prints throughput,
    latency, TTFT, ms per decode step and peak memory against the weight
    bytes;
-8. frees that model, then serves full-width OLMoE-1B-7B offloaded behind
+8. frees that model, then serves full-width OLMoE-1B-7B on its first
+   ``LAUNCHER_LAYERS`` layers offloaded behind
    ``repro_torch.serving.OffloadedWaveServer`` (bf16, random weights from
    seed 0, LoRA rank 32 / alpha 16 on every MoE layer with ``b`` drawn
    N(0, 1/r)), C = 16, policy gamma, waves of 4: the continuous phase's 8
@@ -90,12 +91,16 @@ From the root of a checkout, with CUDA available:
    ``save_checkpoint``, serves it with ``launch.serve --ckpt`` on the card
    and asserts the tokens of the in-memory run;
 11. serves step 4's batch again through ``launch.serve.run(...,
-   predictor=True)``: the whole model on the card traces 32 more prompts
-   (``routing_trace``, 16 new tokens each), the activation predictor Psi
-   is trained on them, the traced model is freed, and the engine
+   predictor=True)``: the model traces 32 more prompts in one batch
+   (``routing_trace``, 16 new tokens each), its experts staged from the
+   engine's pinned store one MoE layer at a time in every forward pass,
+   the activation predictor Psi is trained on them, and the engine
    prefetches Psi's scores; counters set to 0 just before. Gates: Psi's KL
-   falls, prefetch transfers > 0, tokens equal step 4's; it prints
-   transfers and hit rate with and without Psi;
+   falls, prefetch transfers > 0, tokens equal step 4's, the trace's
+   launches (``moe_gmm`` 3 a MoE layer and pass, ``flash_attn`` one a
+   layer, all "tc"), and the trace Psi trained on bit-equal to
+   ``routing_trace`` of the whole tree drawn on the card from the same
+   seed; it prints transfers and hit rate with and without Psi;
 12. the gradient gate: full-width OLMoE cut to 2 layers in fp32 (random
    weights from seed 0, LoRA ``b`` ~ N(0, 1/r)), one fine-tune loss and
    its gradients (router, expert wg, LoRA a/b) through the kernels
@@ -307,7 +312,16 @@ From the root of a checkout, with CUDA available:
    ``FP32_LOGITS_REL_TOL``. It prints transfers, hit rate, both Eq.-3 clocks, decode
    tok/s, prefill s, ``quantize_s``, the build's seconds, the host's
    MemAvailable before and after each build, expert copies a decode step,
-   and peak device memory beside the slab bytes. (c) ``bench_serve
+   and peak device memory beside the slab bytes. (b) then serves its batch
+   again with Psi on its kept store (``run(predictor=True, host_store=)``:
+   32 training prompts traced 16 tokens each, every forward pass staging
+   each MoE layer from the store): Psi's KL falls and is finite, C x layers
+   prefetch transfers, the tokens of the run without Psi, the trace's
+   launches (``moe_gmm`` 3 x layers x 16 "tc", ``flash_attn`` one "tc" a
+   layer), its peak device memory below the non-expert weights + one
+   staged layer + ``_mixtral_trace_act_bytes``, the MemAvailable drop
+   across the run within ``MIXTRAL_RSS_MARGIN``; it prints the trace's
+   seconds, staged bytes and GB/s. (c) ``bench_serve
    --offloaded`` (``MIXTRAL_BENCH``: the wave server, expert-affinity, 2
    requests in one wave) at the bf16 row's depth, its experts drawn into
    the pinned store and its oracle scores streamed one staged layer at a
@@ -318,7 +332,8 @@ From the root of a checkout, with CUDA available:
    model), ``moe_gmm`` "tc" in the oracle and the prefills and "stream" in
    decode, one ``flash_attn`` "tc" a layer and request in the oracle and in
    the prefills. (d) Mixtral cut to ``MIXTRAL_CKPT_LAYERS`` layers at full
-   width: the streamed oracle equal to the whole tree's, ``save_checkpoint``
+   width: the streamed oracle and Psi's streamed routing trace (tokens
+   and router distributions) equal to the whole tree's, ``save_checkpoint``
    of the tree, ``serve.run(ckpt=)`` with ``serve.run()``'s tokens,
    transfers and hits, ``bench_serve --offloaded --ckpt`` finishing every
    request, each checkpoint read's MemAvailable drop within the store + one
@@ -404,15 +419,8 @@ PATH_LAUNCHES = {
     "int4": {"moe_gmm": 1536, "flash_attn": 16, "int4_matmul": None},
     "zamba2-7b": {"ssd_scan": 68, "flash_attn": 13},
     "mamba2-130m": {"ssd_scan": 24, "flash_attn": 0},
-    # the wave server, one request at a time: per prefill (128 tokens, which
-    # route to more than C = 16 of the 64 experts in every layer) 16 flash
-    # and 6 gmm a layer (slab and overflow groups, "tc"); per decode step (1
-    # token: its 8 experts always fit the slab) 3 gmm a layer ("stream"):
-    # 8 prefills and 152 decode steps, under either policy
-    "wave-olmoe-fcfs": {"moe_gmm": 8 * 96 + 152 * 48, "flash_attn": 128,
-                        "int4_matmul": 0},
-    "wave-olmoe-affinity": {"moe_gmm": 8 * 96 + 152 * 48, "flash_attn": 128,
-                            "int4_matmul": 0},
+    # the wave server's paths ("wave-olmoe-fcfs", "wave-olmoe-affinity")
+    # follow LAUNCHER_LAYERS, below
     # deepseek, batch 4: one flash per attention layer (28) in prefill; gmm
     # 6 a MoE layer in prefill (all 64 experts: slab and overflow, "tc"),
     # then 3 a layer-step for the slab group and 3 more where the step's
@@ -498,8 +506,20 @@ LITTLE_RANK = 8
 # 80GB HBM3 at 700 W, whose host ran the host-bound phases slowly). Since
 # phase 23 (Mixtral, ~110 s) the crash-safe wave server of phase 18(c) takes
 # them too: its gates read the journal, checkpoint and revival plumbing
-# (92.5 s for phase 18 with it at full depth, 41.1 s after the cut).
+# (92.5 s for phase 18 with it at full depth, 41.1 s after the cut). Since
+# phase 23 traces Mixtral for Psi (~70 s) the wave phase (8) takes them as
+# well (79.5 s at full depth, H100 80GB HBM3, 700 W): its gates read the
+# server (both policies' tokens equal, launch totals) and the LoRA term
+# against merged experts, which depth does not change.
 LAUNCHER_LAYERS = 4
+# the wave server, one request at a time: per prefill (128 tokens, which
+# route to more than C = 16 of the 64 experts in every layer) one flash
+# and 6 gmm a layer (slab and overflow groups, "tc"); per decode step (1
+# token: its 8 experts always fit the slab) 3 gmm a layer ("stream"): 8
+# prefills and 152 decode steps, under either policy
+for _path in ("wave-olmoe-fcfs", "wave-olmoe-affinity"):
+    PATH_LAUNCHES[_path] = {"moe_gmm": LAUNCHER_LAYERS * (8 * 6 + 152 * 3),
+                            "flash_attn": 8 * LAUNCHER_LAYERS, "int4_matmul": 0}
 LITTLE_BANK_BYTES = 16 * 3 * (64 * 2048 * 8 + 64 * 8 * 1024) * 4
 
 
@@ -1217,11 +1237,12 @@ def _lora_b_drawn(cfg, dev, seed: int = 1):
 
 
 def serve_wave(arch: str = "olmoe", device: str = "cuda") -> dict:
-    """Phase 8: full-width OLMoE-1B-7B offloaded behind the port's
-    ``OffloadedWaveServer`` with LoRA on every MoE layer, under fcfs and
-    expert-affinity, and the LoRA gates on the first request's prefill
-    logits (see the module docstring). ``arch``/``device``: a smaller
-    model or the CPU, to rehearse the phase's logic."""
+    """Phase 8: full-width OLMoE-1B-7B on its first LAUNCHER_LAYERS layers
+    offloaded behind the port's ``OffloadedWaveServer`` with LoRA on every
+    MoE layer, under fcfs and expert-affinity, and the LoRA gates on the
+    first request's prefill logits (see the module docstring).
+    ``arch``/``device``: a smaller model or the CPU, to rehearse the
+    phase's logic."""
     from repro_torch.configs import get_config
     from repro_torch.core.lora import lora_scale
     from repro_torch.core.offload_engine import OffloadedMoEEngine
@@ -1234,7 +1255,7 @@ def serve_wave(arch: str = "olmoe", device: str = "cuda") -> dict:
 
     t_phase = time.perf_counter()
     print(f"wave phase: host memory available {_host_available_gib():.1f} GiB")
-    cfg = get_config(arch)
+    cfg = get_config(_launcher_arch(arch))
     dev = torch.device(device)
     n, C = len(SERVE_BUDGETS), 16
     prompts = make_prompts(cfg.vocab, n, SERVE_PROMPT)
@@ -1525,29 +1546,98 @@ def _gmm_launches() -> dict:
             "flash_attn": dispatch.LAUNCHES["flash_attn"]}
 
 
+# serve --predictor (phases 11 and 23): Psi trained on this many more
+# prompts of the batch's stream, each traced this many tokens in one batch
+# (the reference launcher's defaults); each forward pass of the trace (its
+# prefill and every decode step) stages each MoE layer from the store once
+PSI_TRAIN_PROMPTS = 32
+PSI_TRACE_NEW = 16
+
+
+def _trace_launches(routes: dict, served: dict) -> dict:
+    """The routing trace's ``moe_gmm`` and ``flash_attn`` launches by route:
+    a ``run(predictor=True)``'s launches (counted from 0 before it) less
+    its served batch's (``route_launches`` by phase)."""
+    out = {}
+    for op in ("moe_gmm", "flash_attn"):
+        left = dict(routes[op])
+        for ph in served.values():
+            for route, k in ph[op].items():
+                left[route] = left.get(route, 0) - k
+        out[op] = {route: k for route, k in left.items() if k}
+    return out
+
+
+def _trace_want(cfg) -> dict:
+    """A routing trace's launches: 3 ``moe_gmm`` a MoE layer and forward
+    pass, all "tc" (the capacity is the whole batch of PSI_TRAIN_PROMPTS
+    rows under zero_drop, above the "stream" route's 16 rows); one
+    ``flash_attn`` "tc" an attention layer, in the prefill only."""
+    return {"moe_gmm": {"tc": 3 * cfg.n_moe_layers * PSI_TRACE_NEW},
+            "flash_attn": {"tc": cfg.n_layers}}
+
+
 def predictor_phase(main_tokens, main_stats: dict, serve_kw: dict,
                     arch: str = "olmoe") -> dict:
     """Phase 11: the main path's batch served again with the activation
-    predictor (``run(..., predictor=True)``, 32 training prompts): Psi's KL
-    falls, prefetch transfers > 0, tokens equal the run without it.
-    ``arch``: a smaller model, to rehearse the phase's logic."""
+    predictor (``run(..., predictor=True)``, 32 training prompts, traced
+    from the engine's store one staged MoE layer at a time): Psi's KL
+    falls, prefetch transfers > 0, tokens equal the run without it, the
+    trace's launches (``_trace_want``), and the trace it trained on bit-equal
+    to ``routing_trace`` of the whole tree (the same seed drawn whole on the
+    device) on the same training prompts. ``arch``: a smaller model, to
+    rehearse the phase's logic."""
+    from repro_torch.configs import get_config
+    from repro_torch.inference import routing_trace
     from repro_torch.kernels import dispatch
-    from repro_torch.launch.serve import run
+    from repro_torch.launch import serve
+    from repro_torch.models.model import init_params
+    from repro_torch.models.runtime import Runtime
 
     t_phase = time.perf_counter()
-    dispatch.reset_launches()
-    rep = run(arch, max_new=32, predictor=True, n_train_prompts=32, **serve_kw)
-    launches = dict(dispatch.LAUNCHES)
-    routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    traced = []
+
+    def recorded(*a, **k):  # the trace the run trains Psi on
+        out = serve_trace(*a, **k)
+        traced.append((k.get("host_store") is not None, *out))
+        return out
+
+    serve_trace, serve.routing_trace = serve.routing_trace, recorded
+    try:
+        dispatch.reset_launches()
+        rep = serve.run(arch, max_new=32, predictor=True, n_train_prompts=PSI_TRAIN_PROMPTS,
+                        **serve_kw)
+        launches = dict(dispatch.LAUNCHES)
+        routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
+    finally:
+        serve.routing_trace = serve_trace
+    cfg = get_config(arch)
+    trace = _trace_launches(routes, rep["route_launches"])
     kl = rep["predictor_kl"]
     same = bool(np.array_equal(rep["tokens"], main_tokens))
     stats = {"with_psi": {k: rep[k] for k in ("transfers", "prefetch_transfers", "hit_rate",
                                               "modeled_time_s", "decode_tok_s",
                                               "prefill_s")},
              "without_psi": main_stats, "predictor_kl": kl, "trace_s": rep["trace_s"],
+             "trace_max_memory_allocated": rep["trace_max_memory_allocated"],
              "predictor_train_s": rep["predictor_train_s"],
              "tokens_equal_without_psi": same, "launches_total": launches,
-             "route_launches": routes}
+             "route_launches": routes, "trace_launches": trace}
+    # the same training prompts through the whole tree on the device
+    dev = torch.device(serve_kw["device"])
+    t = time.perf_counter()
+    whole = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(serve_kw["seed"]),
+                        dtype=serve_kw["dtype"], device=dev)
+    train = serve.make_prompts(cfg.vocab, serve_kw["batch"] + PSI_TRAIN_PROMPTS,
+                               serve_kw["prompt_len"])[serve_kw["batch"]:]
+    wt, wp = routing_trace(cfg, whole, train, max_new=PSI_TRACE_NEW,
+                           rt=Runtime(device=dev, zero_drop=True))
+    del whole
+    (streamed, st, sp), = traced
+    stats.update(trace_streamed=streamed, trace_tokens_equal=bool(np.array_equal(st, wt)),
+                 trace_probs_equal=bool(np.array_equal(sp, wp)),
+                 trace_probs_max_abs=float(np.abs(sp - wp).max()),
+                 whole_trace_s=time.perf_counter() - t)
     print("predictor serve olmoe:", json.dumps(stats))
     if not (kl[-1] < kl[0] and all(math.isfinite(x) for x in kl)):
         raise AssertionError(f"predictor: KL did not fall: {kl}")
@@ -1560,6 +1650,14 @@ def predictor_phase(main_tokens, main_stats: dict, serve_kw: dict,
     for op, fast in FAST_ROUTES.items():
         if set(routes[op]) - set(fast):
             raise AssertionError(f"predictor: {op} routes {routes[op]}, want {fast}")
+    if dev.type == "cuda" and trace != _trace_want(cfg):
+        raise AssertionError(f"predictor: the trace's launches {trace}, want "
+                             f"{_trace_want(cfg)}")
+    if not (streamed and stats["trace_tokens_equal"] and stats["trace_probs_equal"]):
+        raise AssertionError(f"predictor: the streamed trace (from the store: {streamed}) "
+                             f"differs from the whole tree's: tokens equal "
+                             f"{stats['trace_tokens_equal']}, probs max abs "
+                             f"{stats['trace_probs_max_abs']}")
     gc.collect()
     torch.cuda.empty_cache()
     stats["phase_s"] = time.perf_counter() - t_phase
@@ -4000,10 +4098,40 @@ MIXTRAL_BENCH_ACT_BYTES = 1 << 30
 # serve.run(ckpt=) against serve.run() from the seed, bench_serve --ckpt.
 MIXTRAL_CKPT_LAYERS = 2
 MIXTRAL_CKPT_NEW = 4
-# the three children together ((a) ~50 s, (b) ~55 s, (c) then (d) ~85 s,
-# each besides its start-up and the waits for MemAvailable to settle); a
-# guard against a hang, well inside the whole run's 1200 s
-MIXTRAL_LIMIT_S = 900
+# (b) also serves its batch with Psi on the kept store (``run(predictor=True,
+# host_store=)``): PSI_TRAIN_PROMPTS prompts traced PSI_TRACE_NEW tokens
+# each, every forward pass staging each MoE layer from the store. The
+# trace's peak device memory must stay below the non-expert weights, one
+# staged layer and the activations of the trace's prefill
+# (``_mixtral_trace_act_bytes``); the whole model is 93.4 GB.
+# the three children together ((a) ~55 s, (b) ~63 s + ~70 s for Psi, (c)
+# then (d) ~90 s, each besides its start-up and the waits for MemAvailable
+# to settle; 261.1 s for the phase before Psi on a slow host, H100 80GB
+# HBM3, 700 W); a guard against a hang, inside the whole run's 1200 s
+MIXTRAL_LIMIT_S = 600
+
+
+def _mixtral_trace_act_bytes(cfg, layers: int) -> dict:
+    """What the routing trace's prefill (PSI_TRAIN_PROMPTS x prompt_len
+    tokens, bf16, ``cfg`` cut to ``layers``) may hold on the card beside the
+    non-expert weights and the staged layer, by part: the logits of every
+    position in fp32 and the bf16 product they are cast from; the KV
+    caches of prompt_len + PSI_TRACE_NEW slots a layer and their stack
+    (``model._stack``); one MoE layer's dispatched rows (the (E + 1, n, d)
+    buffer, three (E, n, d_ff) products alive at once in ``expert_ffn``, the
+    combine's repeated, gathered and fp32 rows); the prompt embedder's fp32
+    table."""
+    from repro_torch.core.predictor import D_EMB
+
+    spec = cfg.moe_spec
+    (attn,) = {b.attn for b in cfg.block_defs.values()}
+    B, T = PSI_TRAIN_PROMPTS, MIXTRAL_SERVE["prompt_len"]
+    n, E, d, f = B * T, spec.num_experts, cfg.d_model, spec.d_ff
+    return {"logits": n * cfg.vocab * (4 + 2),
+            "kv": 2 * 2 * layers * B * (T + PSI_TRACE_NEW) * attn.n_kv_heads
+            * attn.head_dim * 2,
+            "moe": ((E + 1) * n * d + 3 * E * n * f) * 2 + n * spec.top_k * d * (2 + 2 + 4),
+            "embedder": cfg.vocab * D_EMB * 4}
 
 
 def _child_start(device: str) -> torch.device:
@@ -4027,10 +4155,12 @@ def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
     experts, counters from 0, then the plain run on the same store
     (``max_new`` 1); for "int4" also the plain run in fp32 activations on
     the same codes, and the fp32 kernel-vs-plain prefill at full width on
-    ``fp32_layers`` layers. Writes the reports, launches, logits and the
-    seconds of each step to ``out`` (``torch.save``)."""
+    ``fp32_layers`` layers; for "bf16" the batch served again with Psi on
+    the same store (``run(predictor=True, host_store=)``, counters from 0).
+    Writes the reports, launches, logits and the seconds of each step to
+    ``out`` (``torch.save``)."""
     t0 = time.perf_counter()
-    _child_start(device)
+    dev = _child_start(device)
     from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import max_rss_bytes, run
 
@@ -4059,6 +4189,26 @@ def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
         res["plain_fp32_logits"] = ref32["prefill_logits"]
         secs["plain_fp32"] = time.perf_counter() - t
         del ref32
+    else:  # Psi, traced from this store (no second store is built)
+        gc.collect()  # the earlier runs' engines and their slabs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        psi = run(name, max_new=MIXTRAL_NEW, predictor=True, n_train_prompts=PSI_TRAIN_PROMPTS,
+                  host_store=store, **kw)
+        secs["predictor"] = time.perf_counter() - t
+        res["predictor"] = {
+            "rep": {k: psi[k] for k in (
+                "predictor_kl", "trace_s", "trace_max_memory_allocated", "predictor_train_s",
+                "transfers", "prefetch_transfers", "hit_rate", "modeled_time_s",
+                "prefill_s", "decode_tok_s", "max_memory_allocated", "host_store_bytes",
+                "host_available_before_build", "host_available_after_build",
+                "route_launches")},
+            "tokens_equal": bool(np.array_equal(psi["tokens"], rep["tokens"])),
+            "launches": dict(dispatch.LAUNCHES),
+            "routes": {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}}
+        del psi
     del store, ref
     gc.collect()
     if q:  # the fp32 check at full width on a few layers
@@ -4148,15 +4298,18 @@ def _mixtral_bench_child(rank: int, kind: str, layers: int, out: str, arch: str,
 
 def _mixtral_ckpt(dev, device: str, arch: str, layers: int) -> dict:
     """Phase 23 (d), ``arch`` cut to ``layers`` at full width in bf16: the
-    seeded draw whole on the device and its oracle scores against the
-    streamed ones (the same seed drawn into a store, one staged layer at a
-    time); ``save_checkpoint`` of that tree; ``serve.run(ckpt=)`` against
+    seeded draw whole on the device and its oracle scores and Psi's
+    routing trace (PSI_TRAIN_PROMPTS prompts, PSI_TRACE_NEW tokens) against
+    the streamed ones (the same seed drawn into a store, one staged layer
+    at a time); ``save_checkpoint`` of that tree; ``serve.run(ckpt=)`` against
     ``serve.run()`` from the seed; and ``bench_serve --offloaded --ckpt``
     from the file. Returns the readings."""
     t0 = time.perf_counter()
     from repro_torch.configs import get_config
+    from repro_torch.inference import routing_trace
     from repro_torch.launch import serve
     from repro_torch.models.model import init_params
+    from repro_torch.models.runtime import Runtime
     from repro_torch.serving import ServeRequest, prefill_expert_scores
     from repro_torch.training import save_checkpoint
 
@@ -4186,7 +4339,23 @@ def _mixtral_ckpt(dev, device: str, arch: str, layers: int) -> dict:
            "scores_equal": all(np.array_equal(g, w) for g, w in zip(got, want)),
            "scores_max_abs": max(float(np.abs(g - w).max()) for g, w in zip(got, want)),
            "scores_shape": [tuple(g.shape) for g in got]}
-    del params, store, got
+    # Psi's routing trace, the whole tree against the store's staged layers
+    B = MIXTRAL_SERVE["batch"]
+    train = serve.make_prompts(cfg.vocab, B + PSI_TRAIN_PROMPTS,
+                               MIXTRAL_SERVE["prompt_len"])[B:]
+    rt = Runtime(device=dev, zero_drop=True)
+    t = time.perf_counter()
+    wt, wp = routing_trace(cfg, whole, train, max_new=PSI_TRACE_NEW, rt=rt)
+    _sync(dev)
+    secs["whole_trace"] = time.perf_counter() - t
+    t = time.perf_counter()
+    st, sp = routing_trace(cfg, params, train, max_new=PSI_TRACE_NEW, rt=rt, host_store=store)
+    _sync(dev)
+    secs["streamed_trace"] = time.perf_counter() - t
+    res.update(trace_equal=bool(np.array_equal(st, wt) and np.array_equal(sp, wp)),
+               trace_probs_max_abs=float(np.abs(sp - wp).max()),
+               trace_shape=tuple(sp.shape))
+    del params, store, got, wp, sp
     gc.collect()
     kw = dict(MIXTRAL_SERVE, dtype=dt, device=device)
     with tempfile.TemporaryDirectory() as d:
@@ -4421,6 +4590,7 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
         bad.append(f"mixtral-int4: the kernel run lies farther from the fp32 plain run "
                    f"than {ACCURACY_RATIO} x the plain bf16 run: {checks}")
     out["checks"] = checks
+    out["predictor"] = _mixtral_psi_row(rows["bf16"], cfg, device, bad)
     out["bench"] = _mixtral_bench_row(bench, cfg, device, bad)
     out["ckpt"] = _mixtral_ckpt_row(ckpt, cfg, bad)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -4499,6 +4669,54 @@ def _mixtral_bench_row(r: dict, cfg, device: str, bad: list) -> dict:
     return row
 
 
+def _mixtral_psi_row(r: dict, cfg, device: str, bad: list) -> dict:
+    """Phase 23 (b)'s run with Psi, on the bf16 child's store: printed, then
+    gated into ``bad``."""
+    p, n = r["predictor"], r["layers"]
+    rep = p["rep"]
+    cut = dataclasses.replace(cfg, layout=(dataclasses.replace(
+        cfg.layout[0], repeats=n // len(cfg.layout[0].pattern)),))
+    size = _mixtral_bytes(cfg, n)
+    act = _mixtral_trace_act_bytes(cfg, n)
+    bound = size["nonexpert"] + size["layer"] + sum(act.values())
+    staged = PSI_TRACE_NEW * n * size["layer"]
+    trace = _trace_launches(p["routes"], rep["route_launches"])
+    drop = (rep["host_available_before_build"] - rep["host_available_after_build"]
+            if rep["host_available_before_build"] is not None else None)
+    kl = rep["predictor_kl"]
+    row = dict({k: v for k, v in rep.items() if k != "route_launches"},
+               layers=n, tokens_equal_without_psi=p["tokens_equal"], trace_staged_bytes=staged,
+               trace_gb_s=staged / rep["trace_s"] / 1e9, trace_memory_bound_bytes=bound,
+               trace_act_bytes=act, whole_model_bytes=size["whole"],
+               host_available_drop_bytes=drop, trace_launches=trace,
+               launches_total=p["launches"], route_launches=p["routes"],
+               route_launches_by_phase=rep["route_launches"], secs=r["secs"]["predictor"])
+    print(f"mixtral-bf16 with Psi ({n} layers): KL {kl[0]:.4f} -> {kl[-1]:.4f}; trace "
+          f"{rep['trace_s']:.2f} s, {staged} B staged ({row['trace_gb_s']:.2f} GB/s over the "
+          f"trace), peak {rep['trace_max_memory_allocated']} B (bound {bound} B); prefetch "
+          f"{rep['prefetch_transfers']}, transfers {rep['transfers']}, decode "
+          f"{rep['decode_tok_s']:.2f} tok/s; MemAvailable drop {drop} B; trace launches "
+          f"{trace}")
+    print("mixtral-bf16 with Psi:", json.dumps(row))
+    if not (all(math.isfinite(x) for x in kl) and kl[-1] < kl[0]):
+        bad.append(f"mixtral Psi: KL did not fall: {kl}")
+    if rep["prefetch_transfers"] != MIXTRAL_SERVE["capacity"] * n:
+        bad.append(f"mixtral Psi: {rep['prefetch_transfers']} prefetch transfers, want "
+                   f"C x layers = {MIXTRAL_SERVE['capacity'] * n}")
+    if not p["tokens_equal"]:
+        bad.append("mixtral Psi: tokens differ from the run without Psi")
+    if drop is not None and not drop <= MIXTRAL_RSS_MARGIN:
+        bad.append(f"mixtral Psi: MemAvailable fell {drop} B across the run, over "
+                   f"{MIXTRAL_RSS_MARGIN} B")
+    if device == "cuda":
+        if trace != _trace_want(cut):
+            bad.append(f"mixtral Psi: the trace's launches {trace}, want {_trace_want(cut)}")
+        if not rep["trace_max_memory_allocated"] < min(bound, size["whole"]):
+            bad.append(f"mixtral Psi: the trace's peak device memory "
+                       f"{rep['trace_max_memory_allocated']} B, bound {bound} B")
+    return row
+
+
 def _mixtral_ckpt_row(r: dict, cfg, bad: list) -> dict:
     """Phase 23 (d)'s row, printed, then gated into ``bad``."""
     n = r["layers"]
@@ -4510,16 +4728,19 @@ def _mixtral_ckpt_row(r: dict, cfg, bad: list) -> dict:
              if b["host_available_before_build"] is not None else None}
     limit = ck["host_store_bytes"] + size["layer"] + MIXTRAL_RSS_MARGIN
     row = {"layers": n, "scores_equal": r["scores_equal"], "scores_max_abs": r["scores_max_abs"],
+           "trace_equal": r["trace_equal"], "trace_probs_max_abs": r["trace_probs_max_abs"],
+           "trace_shape": r["trace_shape"],
            "ckpt_bytes": r["ckpt_bytes"], "tokens_equal": r["tokens_equal"],
            "run_ckpt": ck, "run_seed": sd, "host_available_drop_bytes": drops,
            "drop_limit_bytes": limit, "bench_requests": r["bench_summary"]["requests"],
            "bench_finished": r["bench_finished"], "bench_build_s": b["build_s"],
            "bench_transfers": r["bench_summary"]["transfers"], "secs": r["secs"]}
     print("mixtral checkpoint:", json.dumps(row))
-    if not (r["scores_equal"] and r["tokens_equal"]
+    if not (r["scores_equal"] and r["tokens_equal"] and r["trace_equal"]
             and all(ck[k] == sd[k] for k in ("transfers", "hits", "misses"))):
-        bad.append(f"mixtral checkpoint: streamed oracle equal {r['scores_equal']}, run(ckpt=) "
-                   f"against run(): tokens equal {r['tokens_equal']}, {ck} vs {sd}")
+        bad.append(f"mixtral checkpoint: streamed oracle equal {r['scores_equal']}, streamed "
+                   f"trace equal {r['trace_equal']}, run(ckpt=) against run(): tokens equal "
+                   f"{r['tokens_equal']}, {ck} vs {sd}")
     if not r["bench_summary"]["requests"] == len(r["bench_finished"]) == MIXTRAL_BENCH_REQUESTS:
         bad.append(f"mixtral checkpoint: bench_serve --ckpt finished {r['bench_finished']}")
     for what, drop in drops.items():
@@ -4770,7 +4991,8 @@ def main() -> int:
                 if "launches_total" in r},
              **{p: lr[0] for p, lr in ep_paths.items()},
              **{f"dryrun-{n}": r["card"]["launches"] for n, r in dr_rep["rows"].items()},
-             **{f"mixtral-{n}": mx_rep[n]["launches_total"] for n in ("int4", "bf16", "bench")}}
+             **{f"mixtral-{n}": mx_rep[n]["launches_total"]
+                for n in ("int4", "bf16", "predictor", "bench")}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
@@ -4792,7 +5014,8 @@ def main() -> int:
                 if "route_launches" in r},
              **{p: lr[1] for p, lr in ep_paths.items()},
              **{f"dryrun-{n}": r["card"]["routes"] for n, r in dr_rep["rows"].items()},
-             **{f"mixtral-{n}": mx_rep[n]["route_launches"] for n in ("int4", "bf16", "bench")}}
+             **{f"mixtral-{n}": mx_rep[n]["route_launches"]
+                for n in ("int4", "bf16", "predictor", "bench")}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

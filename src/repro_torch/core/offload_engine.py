@@ -108,7 +108,7 @@ from ..models.blocks import apply_block_full
 from ..models.common import rms_norm, silu
 from ..models.mamba2 import apply_mamba_decode
 from ..models.mlp import apply_mlp
-from ..models.model import compute_logits, embed_tokens
+from ..models.model import compute_logits, embed_tokens, moe_layers
 from ..models.moe import (Dispatch, combine_tokens, dispatch_tokens,
                           router_probs, top_k_route)
 from ..models.runtime import Runtime, resolve_device
@@ -468,12 +468,7 @@ class HostExpertStore:
         self.shapes = {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
         self.layout = QuantLayout(self.shapes, quant_group) if quantized else None
         # (group, position, repeat) -> MoE layer, in the engine's layer order
-        self.index: Dict[tuple, int] = {}
-        for gi, g in enumerate(cfg.layout):
-            for r in range(g.repeats):
-                for pi, bname in enumerate(g.pattern):
-                    if cfg.block_defs[bname].kind == "attn_moe":
-                        self.index[(gi, pi, r)] = len(self.index)
+        self.index: Dict[tuple, int] = moe_layers(cfg)
         self.layers: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(self.index)
         self._written = [set() for _ in self.index]
         self.quantize_s = 0.0  # seconds spent quantizing and writing the INT4 store
@@ -540,7 +535,8 @@ def stage_experts(layer: Dict[str, torch.Tensor], device) -> Dict[str, torch.Ten
     contiguous matrix out of the pinned ``(E, 3, K*N)`` buffer (``moe_gmm``
     takes contiguous weights, which views of that buffer are not). An INT4
     store raises ``NotImplementedError``: what is staged this way is the
-    full-precision experts (the oracle scores' weights)."""
+    full-precision experts (the weights of the oracle scores and of the
+    predictor's routing trace)."""
     if set(layer) != set(_EXPERT_KEYS):
         raise NotImplementedError(
             f"stage_experts: a store of {sorted(layer)} (INT4 codes); staging takes the "

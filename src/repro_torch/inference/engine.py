@@ -4,6 +4,13 @@ padding, one prefill, then decode steps, greedy or sampled per row, with
 optional MELINOE router-probe collection (``collect_probs``).
 
 The memory-constrained path is ``core.offload_engine.OffloadedMoEEngine``.
+With ``host_store`` (an offloaded model: ``params``' experts on ``meta``,
+the experts in that engine's store, one fp layer per MoE layer) every
+forward pass, the prefill and each decode step, stages each MoE layer's
+experts on the device as the walk reaches it
+(``core.offload_engine.stage_experts``) and drops them before the next
+layer's: the device never holds more than one layer of experts, and the
+batch, tokens and router distributions are the whole tree's, bit for bit.
 Sampled rows draw from ``sampling.row_generator(seed, row, step)``: the
 reference's ``jax.random`` stream cannot be reproduced, so sampled tokens
 are the port's own (greedy ones are the reference's).
@@ -17,7 +24,8 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
-from ..models.model import decode_step, prefill
+from ..core.offload_engine import stage_experts
+from ..models.model import decode_step, moe_layers, prefill
 from ..models.runtime import Runtime
 from .sampling import greedy, row_generator, sample_per_row
 
@@ -51,10 +59,17 @@ def truncate_at_stop(tokens: np.ndarray, stop_tokens) -> tuple:
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, *, rt: Optional[Runtime] = None,
                  lora=None, lora_scale: float = 1.0, max_batch: int = 8,
-                 window_override: Optional[int] = None):
+                 window_override: Optional[int] = None, host_store=None):
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        self.experts = None
+        if host_store is not None:
+            n_moe = len(moe_layers(cfg))
+            if len(host_store) != n_moe:
+                raise ValueError(f"host_store holds {len(host_store)} MoE layers, the "
+                                 f"config {n_moe}")
+            self.experts = lambda i: stage_experts(host_store[i], self.device)
         self.rt = rt or Runtime(device=self.device, zero_drop=True)
         self.lora = lora
         self.lora_scale = lora_scale
@@ -83,7 +98,8 @@ class ServingEngine:
         logits, cache = prefill(self.params, self.cfg,
                                 torch.as_tensor(toks, device=self.device), self.rt,
                                 n_slots=n_slots, window_override=self.window_override,
-                                lora=self.lora, lora_scale=self.lora_scale)
+                                lora=self.lora, lora_scale=self.lora_scale,
+                                experts=self.experts)
         temps = np.asarray([r.temperature for r in requests], np.float32)
         cur = greedy(logits)
         outs = [cur]
@@ -92,7 +108,7 @@ class ServingEngine:
             logits, cache, aux = decode_step(self.params, self.cfg, cur, cache, self.rt,
                                              window_override=self.window_override,
                                              collect_probs=collect_probs, lora=self.lora,
-                                             lora_scale=self.lora_scale)
+                                             lora_scale=self.lora_scale, experts=self.experts)
             if collect_probs and aux["probs"]:
                 # aux["probs"]: list of (R, B, 1, E) -> (B, L, E)
                 p = torch.cat([a[:, :, 0] for a in aux["probs"]], dim=0)
@@ -116,13 +132,16 @@ class ServingEngine:
 
 
 def routing_trace(cfg: ModelConfig, params, prompts: np.ndarray, *, max_new: int = 32,
-                  rt: Optional[Runtime] = None, lora=None, lora_scale: float = 1.0):
+                  rt: Optional[Runtime] = None, lora=None, lora_scale: float = 1.0,
+                  host_store=None):
     """Greedy-decode every prompt in one batch, returning (tokens (B,
     max_new), probs (B, L, max_new - 1, E)): the router distributions of
     every decode step, the dataset of the activation predictor (Sec
-    3.1.2) and of the transfer-count benchmarks."""
+    3.1.2) and of the transfer-count benchmarks. ``host_store``: the
+    experts come from it, one staged MoE layer at a time in every forward
+    pass (``ServingEngine``), and ``params``' own are not read."""
     eng = ServingEngine(cfg, params, rt=rt, lora=lora, lora_scale=lora_scale,
-                        max_batch=len(prompts))
+                        max_batch=len(prompts), host_store=host_store)
     reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
     comps = eng.generate_batch(reqs, collect_probs=True)
     toks = np.stack([c.tokens for c in comps])

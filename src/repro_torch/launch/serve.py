@@ -33,12 +33,19 @@ also gives ``quantize_s``, the seconds spent building the INT4 store
 (not part of ``prefill_s``). Runs on ``cuda`` unless ``--device cpu``.
 
 ``--predictor`` (with ``--n-train-prompts N``) trains the activation
-predictor Psi first, as ``repro.launch.serve`` does: the whole model on
-the device traces N more prompts of the same stream (``routing_trace``,
-16 new tokens each), Psi is fit to their per-layer mean router
-distributions, the traced model is freed, and the engine prefetches
-Psi's scores for the batch's mean prompt embedding before ``generate``
-(``run``'s report keeps them, (L, E), under ``predictor_scores``).
+predictor Psi first, as ``repro.launch.serve`` does: the model traces N
+more prompts of the same stream in one batch (``routing_trace``, 16 new
+tokens each), Psi is fit to their per-layer mean router distributions,
+and the engine prefetches Psi's scores for the batch's mean prompt
+embedding before ``generate`` (``run``'s report keeps them, (L, E), under
+``predictor_scores``). The experts stay in the engine's store: every
+forward pass of the trace stages each MoE layer on the device in turn
+and drops it before the next (``routing_trace(host_store=)``), so a
+model whose experts exceed the card (Mixtral-8x7B's 84.0 GiB) is traced
+on it with the same tokens and router distributions as the whole tree.
+With ``--quantized`` the store keeps no full-precision experts: they are
+drawn onto the device whole for the trace, and a model whose experts do
+not fit the card raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -153,14 +160,17 @@ def offloaded_params(cfg, *, dtype, device, ckpt=None, seed: int = 0):
 
 
 def _tree_to(tree, dev):
+    """``tree`` on ``dev``; a ``meta`` leaf (an expert kept in a host store)
+    stays where it is."""
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
-    return tree.to(dev)
+    return tree if tree.is_meta else tree.to(dev)
 
 
 def _check_trace_fits(cfg, dtype, dev) -> None:
-    """``train_psi`` runs the whole model on the device: refuse a model
-    whose experts alone exceed the card's free memory."""
+    """``--predictor`` with INT4 experts traces the whole model on the
+    device (the store holds no full-precision experts to stage): refuse a
+    model whose experts alone exceed the card's free memory."""
     if dev.type != "cuda":
         return
     spec = cfg.moe_spec
@@ -169,25 +179,33 @@ def _check_trace_fits(cfg, dtype, dev) -> None:
     free = torch.cuda.mem_get_info(dev)[0]
     if need > free:
         raise NotImplementedError(
-            f"predictor: the routing trace runs the whole model on the device, and "
-            f"{cfg.name}'s experts ({need} B) exceed its free memory ({free} B); an "
-            f"offloaded trace is not ported")
+            f"predictor with INT4 experts: the routing trace takes the full-precision "
+            f"experts, which an INT4 store does not keep, so the whole model runs on the "
+            f"device, and {cfg.name}'s experts ({need} B) exceed its free memory "
+            f"({free} B); a trace from an INT4 store is not ported")
 
 
 def train_psi(cfg, params, train_prompts, prompts, *, device, kernel_backend="auto",
-              predictor_init=None, trace_new: int = 16) -> tuple:
+              predictor_init=None, trace_new: int = 16, host_store=None) -> tuple:
     """The reference launcher's predictor step: trace ``train_prompts``
-    through the whole model (a device copy of ``params``, freed before
-    this returns), fit Psi (``predictor_init``, else drawn from seed 1) to
-    the per-layer mean router distributions, and score the mean
-    embedding of ``prompts``. Returns ((L, E) scores, report)."""
+    (a device copy of ``params``, freed before this returns), fit Psi
+    (``predictor_init``, else drawn from seed 1) to the per-layer mean
+    router distributions, and score the mean embedding of ``prompts``.
+    With ``host_store`` (``params``' experts on ``meta``) the trace stages
+    each MoE layer from it in every forward pass and the device copy holds
+    the other weights only. Returns ((L, E) scores, report); the report's
+    ``trace_max_memory_allocated`` is the device's peak during the trace
+    (None off CUDA)."""
     dev = torch.device(device)
     emb = PromptEmbedder(cfg.vocab, device=dev)
     t0 = time.perf_counter()
     traced = _tree_to(params, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     _, probs = routing_trace(cfg, traced, train_prompts, max_new=trace_new,
                              rt=Runtime(kernel_backend=kernel_backend, device=dev,
-                                        zero_drop=True))
+                                        zero_drop=True), host_store=host_store)
+    trace_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     del traced
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -201,6 +219,7 @@ def train_psi(cfg, params, train_prompts, prompts, *, device, kernel_backend="au
     pp, hist = train_predictor(pp, embs, targets)
     scores = predict_scores(pp, emb(prompts).mean(0))
     return scores, {"predictor_kl": hist, "trace_s": trace_s,
+                    "trace_max_memory_allocated": trace_peak,
                     "predictor_train_s": time.perf_counter() - t1,
                     "n_train_prompts": len(train_prompts), "predictor_scores": scores}
 
@@ -270,25 +289,33 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
     those experts without drawing or copying them again (the same seed
     gives the same other weights). With ``quantized``,
     ``quantized_experts`` serves those INT4 codes instead of quantizing
-    again. ``predictor`` traces the whole model on the device
-    (``train_psi``): its experts are drawn there too, beside the store,
+    again. ``predictor`` trains Psi on a routing trace (``train_psi``)
+    whose experts come from the store, one staged MoE layer at a time, a
+    given ``host_store`` included; with ``quantized`` the trace needs the
+    full-precision experts the INT4 store does not keep: they are drawn
+    onto the device too (a model whose experts exceed the card raises
+    ``NotImplementedError``; a given INT4 ``host_store`` ``ValueError``)
     and dropped before the engine is built."""
     cfg = get_config(arch)
     if not cfg.has_router:
         raise ValueError("offloaded serving applies to MoE architectures")
     dev = resolve_device(device)
     dt = cdtype(dtype or cfg.dtype)
-    if predictor and host_store is not None:
-        raise ValueError("predictor: the routing trace needs the experts of params")
+    # an INT4 store keeps no full-precision experts to trace: they go to
+    # the device whole beside it
+    whole_trace = predictor and quantized
+    if whole_trace and host_store is not None:
+        raise ValueError("predictor: the routing trace takes the full-precision experts, "
+                         "which a given INT4 host_store does not hold")
     avail_before, t_build = host_available_bytes(), time.perf_counter()
     store = None
     if host_store is None and not (quantized and quantized_experts is not None):
         store = HostExpertStore(cfg, quantized=quantized, device=dev)
-    if predictor:
+    if whole_trace:
         _check_trace_fits(cfg, dt, dev)
     # the experts go into the store as they are drawn or read (the same
     # stream whether or not a store or codes were given)
-    kw = dict(expert_device=dev if predictor else "meta",
+    kw = dict(expert_device=dev if whole_trace else "meta",
               expert_sink=None if store is None else store.sink)
     if ckpt is not None:
         params, _ = load_params(cfg, ckpt, dtype=dt, device=dev, **kw)
@@ -300,16 +327,20 @@ def run(arch: str, *, capacity: int = 0, policy: str = "gamma", batch: int = 2,
     all_prompts = make_prompts(cfg.vocab, batch + (n_train_prompts if predictor else 0),
                                prompt_len)
     prompts = all_prompts[:batch]
+    if store is not None:
+        host_store = store.finish()
     psi = {}
     if predictor:
         scores, psi = train_psi(cfg, params, all_prompts[batch:], prompts, device=dev,
                                 kernel_backend=kernel_backend,
-                                predictor_init=predictor_init)
-        _experts_to_meta(cfg, params)
+                                predictor_init=predictor_init,
+                                host_store=None if whole_trace else host_store)
+        if whole_trace:
+            _experts_to_meta(cfg, params)
     engine = OffloadedMoEEngine(cfg, params, capacity=capacity, policy=policy,
                                 quantized=quantized,
                                 quantized_experts=quantized_experts,
-                                host_store=host_store if store is None else store.finish(),
+                                host_store=host_store,
                                 hw=HardwareProfile(), kernel_backend=kernel_backend,
                                 device=dev)
     del params  # the engine holds the experts in its pinned store
@@ -485,7 +516,10 @@ def main(argv=None):
         print(f"loaded {args.ckpt}")
     if args.predictor:
         kl = rep["predictor_kl"]
-        print(f"predictor KL {kl[0]:.4f} -> {kl[-1]:.4f}")
+        peak = rep["trace_max_memory_allocated"]
+        print(f"predictor KL {kl[0]:.4f} -> {kl[-1]:.4f}; routing trace "
+              f"{rep['trace_s']:.2f} s, peak device memory "
+              f"{'n/a' if peak is None else f'{peak / 2**30:.2f} GiB'}")
     print(f"generated {rep['decode_tokens']} tokens x batch {args.batch} "
           f"on {rep['device_name']}")
     print(f"transfers={rep['transfers']} ({rep['transfers_per_layer']:.1f}/layer), "

@@ -25,6 +25,16 @@ continuous-batching server's slot pool). Unlike the JAX version,
 Router probes (``collect_probs``) come back in the JAX layout: a list of
 (R, B, T, E) router distributions, one per (group, MoE position).
 
+Offloaded experts (``experts``): ``apply_model``, ``prefill`` and
+``decode_step`` take a callable ``experts(moe_idx) -> {"wg", "wu", "wd"}``
+that hands each MoE block its experts (MoE layers numbered in walk
+order, ``moe_layers``: the offload engine's and its host store's layer
+order) in place of the tree's, e.g. one layer staged from the engine's
+host store (``inference.engine.ServingEngine(host_store=)``); the staged
+tensors are dropped before the next MoE layer asks for its own. Without
+it a MoE block whose experts lie on the ``meta`` device (an offloaded
+tree) raises ``ValueError``.
+
 LoRA trees (``lora``, from ``core.lora`` or ``bridge.lora_from_jax``)
 mirror ``params["groups"]``; each repeat takes its slice of the stacked
 adapters, as the reference's scan does. A stacked leaf may also be given
@@ -194,6 +204,36 @@ def _block_params(params, gparams, b, pi: int, r: int):
     return _index(gparams[f"p{pi}"], r)
 
 
+def moe_layers(cfg: ModelConfig) -> Dict[tuple, int]:
+    """(group, position, repeat) -> MoE layer index, in the order the model
+    walks its blocks (groups, then repeats, then pattern positions)."""
+    index: Dict[tuple, int] = {}
+    for gi, g in enumerate(cfg.layout):
+        for r in range(g.repeats):
+            for pi, bname in enumerate(g.pattern):
+                if cfg.block_defs[bname].kind == "attn_moe":
+                    index[(gi, pi, r)] = len(index)
+    return index
+
+
+def _walk_params(params, gparams, b, gi: int, pi: int, r: int, experts, index):
+    """Block ``p{pi}`` of group ``g{gi}``, repeat ``r``: its weights, a MoE
+    block's experts from ``experts`` where given (``index``:
+    :func:`moe_layers`). A MoE block whose experts are on ``meta`` with no
+    ``experts`` raises ``ValueError``."""
+    bp = _block_params(params, gparams, b, pi, r)
+    if b.kind != "attn_moe":
+        return bp
+    if experts is not None:
+        return dict(bp, ffn=dict(bp["ffn"], **experts(index[gi, pi, r])))
+    if bp["ffn"]["wg"].is_meta:
+        raise ValueError(
+            f"MoE layer {index[gi, pi, r]} (group {gi}, position {pi}, repeat {r}): its "
+            f"experts are on the meta device (an offloaded tree); pass experts= to stage "
+            f"them")
+    return bp
+
+
 def _block_lora(lora_g, pi: int, r: int):
     """Repeat ``r`` of position ``pi``'s adapters, or None."""
     if lora_g is None or f"p{pi}" not in lora_g:
@@ -214,7 +254,7 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
                 melinoe: Optional[MelinoeRun] = None, collect_probs: bool = False,
                 want_cache: bool = False, cache_slots: int = 0,
                 window_override: Optional[int] = None, lora=None,
-                lora_scale: float = 1.0, remat: bool = False):
+                lora_scale: float = 1.0, remat: bool = False, experts=None):
     """tokens (B, T) -> (logits (B, P + T, V) fp32, aux), P the rows of
     ``prefix_embed`` (B, P, d) placed ahead of the tokens (0 without
     one; positions run over both); ``aux["cache"]``
@@ -225,18 +265,21 @@ def apply_model(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=N
 
     ``remat`` recomputes each repeat's blocks in the backward pass
     (``torch.utils.checkpoint``, non-reentrant): activation memory of one
-    repeat instead of all. On a sharded ``rt`` everything is a DTensor (see
+    repeat instead of all. ``experts``: each MoE block's experts (see the
+    module's docstring). On a sharded ``rt`` everything is a DTensor (see
     the module's docstring)."""
     with rt.dist():
         return _apply_model(params, cfg, tokens, rt, prefix_embed=prefix_embed,
                             melinoe=melinoe, collect_probs=collect_probs,
                             want_cache=want_cache, cache_slots=cache_slots,
                             window_override=window_override, lora=lora,
-                            lora_scale=lora_scale, remat=remat)
+                            lora_scale=lora_scale, remat=remat, experts=experts)
 
 
 def _apply_model(params, cfg, tokens, rt, *, prefix_embed, melinoe, collect_probs,
-                 want_cache, cache_slots, window_override, lora, lora_scale, remat):
+                 want_cache, cache_slots, window_override, lora, lora_scale, remat,
+                 experts):
+    index = moe_layers(cfg)
     x = rt.constrain(embed_tokens(params, cfg, tokens, prefix_embed), rt.batch_spec_entry())
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
@@ -253,12 +296,13 @@ def _apply_model(params, cfg, tokens, rt, *, prefix_embed, melinoe, collect_prob
 
         # the group's values are bound now: remat recomputes the body in the
         # backward pass, after this loop has moved on to later groups
-        def body(x, losses, r, g=g, gparams=gparams, lora_g=lora_g, base_g=base_g):
+        def body(x, losses, r, g=g, gi=gi, gparams=gparams, lora_g=lora_g, base_g=base_g):
             kv, probs = {}, {}
             for pi, bname in enumerate(g.pattern):
                 b = cfg.block_defs[bname]
                 x, aux = apply_block_full(
-                    _block_params(params, gparams, b, pi, r), cfg, b, x, positions, rt,
+                    _walk_params(params, gparams, b, gi, pi, r, experts, index), cfg, b,
+                    x, positions, rt,
                     window_override=window_override, want_cache=want_cache,
                     cache_slots=cache_slots, want_probs=want_probs and b.moe is not None,
                     lora=_block_lora(lora_g, pi, r), lora_scale=lora_scale)
@@ -300,15 +344,16 @@ def _apply_model(params, cfg, tokens, rt, *, prefix_embed, melinoe, collect_prob
 
 def prefill(params, cfg: ModelConfig, tokens, rt: Runtime, *, prefix_embed=None,
             n_slots: Optional[int] = None, window_override: Optional[int] = None,
-            lora=None, lora_scale: float = 1.0):
+            lora=None, lora_scale: float = 1.0, experts=None):
     """Process the prompt (``prefix_embed`` rows, then the tokens),
     returning (last-position logits (B,1,V), cache); the cache holds
-    ``n_slots`` positions, by default the prefix's and the tokens'."""
+    ``n_slots`` positions, by default the prefix's and the tokens'.
+    ``experts``: as ``apply_model``'s."""
     T = tokens.shape[1] + (prefix_embed.shape[1] if prefix_embed is not None else 0)
     logits, aux = apply_model(params, cfg, tokens, rt, prefix_embed=prefix_embed,
                               want_cache=True, cache_slots=n_slots or T,
                               window_override=window_override, lora=lora,
-                              lora_scale=lora_scale)
+                              lora_scale=lora_scale, experts=experts)
     return logits[:, -1:], aux["cache"]
 
 
@@ -335,18 +380,21 @@ def init_cache(cfg: ModelConfig, batch: int, n_slots: int, dtype=None,
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, rt: Runtime, *,
                 window_override: Optional[int] = None, collect_probs: bool = False,
-                lora=None, lora_scale: float = 1.0):
+                lora=None, lora_scale: float = 1.0, experts=None):
     """One autoregressive step. tokens (B, 1); ``cache["pos"]`` an int (the
     batch in lockstep) or a (B,) tensor (per-row positions). Returns
     (logits (B,1,V), cache, aux); the cache is updated in place, and
-    ``aux["probs"]`` holds the router distributions when ``collect_probs``."""
+    ``aux["probs"]`` holds the router distributions when ``collect_probs``.
+    ``experts``: as ``apply_model``'s."""
     with rt.dist():
         return _decode_step(params, cfg, tokens, cache, rt, window_override=window_override,
-                            collect_probs=collect_probs, lora=lora, lora_scale=lora_scale)
+                            collect_probs=collect_probs, lora=lora, lora_scale=lora_scale,
+                            experts=experts)
 
 
 def _decode_step(params, cfg, tokens, cache, rt, *, window_override, collect_probs, lora,
-                 lora_scale):
+                 lora_scale, experts):
+    index = moe_layers(cfg)
     pos = cache["pos"]
     x = rt.constrain(embed_tokens(params, cfg, tokens), rt.batch_spec_entry())
     probs_out = []
@@ -359,7 +407,8 @@ def _decode_step(params, cfg, tokens, cache, rt, *, window_override, collect_pro
                 b = cfg.block_defs[bname]
                 c = _index(gcache[f"p{pi}"], r)  # views into the stacked cache
                 x, new_c, aux = apply_block_decode(
-                    _block_params(params, gparams, b, pi, r), cfg, b, x, c, pos, rt,
+                    _walk_params(params, gparams, b, gi, pi, r, experts, index), cfg, b,
+                    x, c, pos, rt,
                     window_override=window_override,
                     want_probs=collect_probs and b.moe is not None,
                     lora=_block_lora(lora_g, pi, r), lora_scale=lora_scale)

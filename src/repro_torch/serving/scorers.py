@@ -26,7 +26,7 @@ from ..configs.base import ModelConfig
 from ..core.predictor import PromptEmbedder, predict_scores
 from ..core.offload_engine import stage_experts
 from ..models.blocks import apply_block_full
-from ..models.model import _block_lora, _block_params, apply_model, embed_tokens
+from ..models.model import _block_lora, _walk_params, apply_model, embed_tokens, moe_layers
 from ..models.runtime import Runtime
 from .request import ServeRequest
 
@@ -59,6 +59,14 @@ def streamed_router_profiles(cfg: ModelConfig, params, prompts, host_store, *,
     block alone (batch 1), the ops of the whole-tree pass in its order."""
     device = params["embed"].device
     rt = rt or Runtime(device=device, zero_drop=True)
+    index = moe_layers(cfg)
+    if len(host_store) != len(index):
+        raise ValueError(f"host_store holds {len(host_store)} MoE layers, the config "
+                         f"{len(index)}")
+
+    def experts(i):
+        return stage_experts(host_store[i], device)
+
     with rt.dist():
         xs = [embed_tokens(params, cfg, torch.as_tensor(np.asarray(p), dtype=torch.long,
                                                         device=device)[None])
@@ -66,7 +74,6 @@ def streamed_router_profiles(cfg: ModelConfig, params, prompts, host_store, *,
         positions = [torch.arange(x.shape[1], device=device).expand(1, x.shape[1])
                      for x in xs]
         probs: List[list] = [[] for _ in xs]  # per prompt: (R, 1, T, E) per MoE position
-        moe_idx = 0
         for gi, g in enumerate(cfg.layout):
             gparams = params["groups"][f"g{gi}"]
             lora_g = lora.get(f"g{gi}") if lora is not None else None
@@ -74,11 +81,7 @@ def streamed_router_profiles(cfg: ModelConfig, params, prompts, host_store, *,
             for r in range(g.repeats):
                 for pi, bname in enumerate(g.pattern):
                     b = cfg.block_defs[bname]
-                    bp = _block_params(params, gparams, b, pi, r)
-                    if b.kind == "attn_moe":
-                        bp = dict(bp, ffn=dict(bp["ffn"],
-                                               **stage_experts(host_store[moe_idx], device)))
-                        moe_idx += 1
+                    bp = _walk_params(params, gparams, b, gi, pi, r, experts, index)
                     for j, x in enumerate(xs):
                         xs[j], aux = apply_block_full(
                             bp, cfg, b, x, positions[j], rt,
@@ -89,9 +92,6 @@ def streamed_router_profiles(cfg: ModelConfig, params, prompts, host_store, *,
                     del bp  # the staged experts go before the next layer's
             for j in range(len(xs)):
                 probs[j] += [torch.stack(p) for p in per[j] if p]
-    if moe_idx != len(host_store):
-        raise ValueError(f"host_store holds {len(host_store)} MoE layers, the config "
-                         f"{moe_idx}")
     return [torch.cat([p[:, 0].mean(dim=1) for p in pr], dim=0).float().cpu().numpy()
             for pr in probs]
 

@@ -182,14 +182,36 @@ def test_store_build_holds_the_experts_once():
     assert r["build_rss"] < limit, r
 
 
-def test_predictor_refuses_experts_that_do_not_fit_the_card(monkeypatch):
-    """``--predictor`` traces the whole model on the card: where the experts
-    alone exceed its free memory (Mixtral's 84.0 GiB on an 80 GB card) it
-    raises instead of drawing them there; on the CPU it does not check."""
-    cfg = get_config("mixtral-8x7b")
-    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda dev=None: (80 * 10**9, 85 * 10**9))
-    with pytest.raises(NotImplementedError, match="routing trace"):
-        serve._check_trace_fits(cfg, torch.bfloat16, torch.device("cuda"))
-    small = get_config("olmoe")  # 12.9 GB of bf16 experts
-    serve._check_trace_fits(small, torch.bfloat16, torch.device("cuda"))
-    serve._check_trace_fits(cfg, torch.bfloat16, torch.device("cpu"))
+@pytest.mark.parametrize("experts", ["int4", "bf16"])
+def test_predictor_refuses_experts_that_do_not_fit_the_card(monkeypatch, experts):
+    """``--predictor`` with INT4 experts traces the whole model on the card
+    (the INT4 store keeps no full-precision experts to stage): where the
+    experts alone exceed its free memory (Mixtral's 84.0 GiB on an 80 GB
+    card) it raises instead of drawing them there; on the CPU it does not
+    check. With bf16 (any full-precision) experts the trace stages them
+    from the store, and ``run`` never calls the check."""
+    called = []
+    check = serve._check_trace_fits
+
+    def counted(*a):
+        called.append(a)
+        return check(*a)
+
+    monkeypatch.setattr(serve, "_check_trace_fits", counted)
+    kw = dict(batch=1, prompt_len=6, max_new=2, capacity=2, n_train_prompts=2,
+              device="cpu", predictor=True)
+    if experts == "int4":
+        cfg = get_config("mixtral-8x7b")
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda dev=None: (80 * 10**9, 85 * 10**9))
+        with pytest.raises(NotImplementedError, match="INT4 experts: the routing trace"):
+            serve._check_trace_fits(cfg, torch.bfloat16, torch.device("cuda"))
+        small = get_config("olmoe")  # 12.9 GB of bf16 experts
+        serve._check_trace_fits(small, torch.bfloat16, torch.device("cuda"))
+        serve._check_trace_fits(cfg, torch.bfloat16, torch.device("cpu"))
+        called.clear()
+        serve.run(ARCH, dtype=torch.float32, quantized=True, **kw)
+        assert len(called) == 1
+    else:
+        rep = serve.run(ARCH, dtype=torch.bfloat16, **kw)
+        assert called == [] and rep["prefetch_transfers"] > 0
