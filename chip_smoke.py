@@ -140,10 +140,12 @@ From the root of a checkout, with CUDA available:
    stream_all and cpu_execute launches nothing, their prefill overflow
    group holds all 64 experts); ``stream_all``'s prefill logits against a
    plain run within ``LOGITS_REL_TOL``;
-16. the little-expert tier on the same batch and weights: a rank-8 bank
-   (fp32 factors, ``LITTLE_BANK_BYTES``) built on the card, printed with
-   its build seconds; served at quality 1.0 (the bank is inert: step 4's
-   tokens, transfers and launches), 0.5 and 0.0 (no transfer, little
+16. the little-expert tier on the same batch and weights cut to their
+   first ``LITTLE_LAYERS`` layers: the cut served without a bank, then a
+   rank-8 bank (fp32 factors, ``LITTLE_BANK_BYTES``) built on the card,
+   printed with its build seconds; served at quality 1.0 (the bank is
+   inert: the tokens, transfers and launches of the cut without a bank),
+   0.5 and 0.0 (no transfer, little
    substitutions, a lower modeled clock), then under a deadline of half
    the quality-1.0 run's serial modeled seconds (the prefill spends it:
    the call stops after the prefill) and under one that the prefill and
@@ -210,7 +212,8 @@ From the root of a checkout, with CUDA available:
    watermark; only in fp32 is that the arithmetic of its uninterrupted
    decode);
 19. the supervised fleet (``fleet/``): two ``repro_torch.fleet.worker``
-   processes of full-width OLMoE-1B-7B whole on the one card (continuous
+   processes of full-width OLMoE-1B-7B on its first ``LAUNCHER_LAYERS``
+   layers (``olmoe-4l``) whole on the one card (continuous
    batching, 4 slots each, step 7's 8 requests split between them; the
    environment sets ``REPRO_TORCH_KERNEL_BACKEND=hopper``), after a check
    that the free device memory holds two fp32 copies of the weights:
@@ -337,10 +340,29 @@ From the root of a checkout, with CUDA available:
    of the tree, ``serve.run(ckpt=)`` with ``serve.run()``'s tokens,
    transfers and hits, ``bench_serve --offloaded --ckpt`` finishing every
    request, each checkpoint read's MemAvailable drop within the store + one
-   layer + ``MIXTRAL_RSS_MARGIN``; (c) then (d) in a third child. The
-   kernel cases of step 3
+   layer + ``MIXTRAL_RSS_MARGIN``; (c) then (d) in a third child. (e)
+   the paper's comparison systems (``core/baselines.py``, Fig. 3), each
+   built by ``make_engine(..., capacity=2)`` on a child's kept store with
+   the other weights re-drawn from the seed (``mixtral_baselines``): the
+   six bf16 ones in the bf16 child after (b), ``melinoe`` prefetching (b)'s
+   Psi scores, and ``quant_cache`` (INT4, 3C = 6) in the INT4 child, each
+   serving the batch's prompts, ``MIXTRAL_BASELINE_NEW`` new tokens,
+   counters from 0. Printed: each row's transfers, ``host_executed``,
+   hits, misses, both clocks and their tokens/s, prefill s, decode tok/s,
+   expert copies, peak device memory, ``slab_bytes`` and launches, then
+   the Fig.-3 ratios of ``melinoe``. Gates: ``stream_all`` L x K x (B x T +
+   B x (new - 1)) transfers and no cache access; ``cpu_execute`` none, its
+   ``host_executed`` equal to ``static_lfu``'s transfers; ``profile_prefetch``
+   equal to ``static_lfu``; the six bf16 rows' tokens equal; ``stream_all``'s
+   prefill logits within ``MIXTRAL_ROUNDOFF_SPAN`` x r of the bf16 child's
+   plain run; launches by phase and route (``_baseline_launches_ok``); each
+   child's MemAvailable drop across its rows under
+   ``MIXTRAL_BASELINE_HOST_BYTES``; each row's peak device memory within the
+   non-expert weights + its slab + one layer's experts +
+   ``MIXTRAL_BASELINE_ACT_BYTES``. The kernel cases of step 3
    include Mixtral's shapes (``mixtral_gmm_cases``,
-   ``MIXTRAL_FLASH_SHAPES``, ``MIXTRAL_INT4_SHAPES``);
+   ``MIXTRAL_FLASH_SHAPES``, ``MIXTRAL_INT4_SHAPES``; the gmm shapes of (e),
+   ``MIXTRAL_BASELINE_GMM_SHAPES``);
 24. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
@@ -490,11 +512,21 @@ for _name, _sets in BASELINE_SETS.items():
     PATH_LAUNCHES[f"baseline-{_name}"] = {
         "moe_gmm": sum(n for ph in BASELINE_GMM[_sets].values() for n in ph.values()),
         "flash_attn": 16, "int4_matmul": None if _name == "quant_cache" else 0}
-# The little tier (phase 16): at quality 1.0 the bank is inert, so the
-# launches are the main path's.
-PATH_LAUNCHES["little-q1.0"] = PATH_LAUNCHES["bf16"]
-# rank-8 fp32 factors of OLMoE's 16 layers: 3 projections x
-# (64 x 2048 x 8 + 64 x 8 x 1024) x 4 B a layer
+# The little tier (phase 16) serves the main path's weights on their first
+# LITTLE_LAYERS layers: the bank's build (one fp64 eigendecomposition per
+# expert and projection, 2.6-3.0 s a layer on an H100 80GB HBM3 at 700 W,
+# 45-75 s for all 16) is what the phase spends, and its gates read
+# the tier against an engine without a bank on the same cut (the tokens,
+# transfers and launches of quality 1.0; no transfer at 0.0; the two
+# deadlines), which depth does not change. Cut so that phase 23(e), the
+# paper's comparison at Mixtral's width, fits the whole run's time.
+# At quality 1.0 the bank is inert: the launches of the main path's cut,
+# 6 gmm a layer-step (slab and overflow groups) and one flash a layer.
+LITTLE_LAYERS = 4
+PATH_LAUNCHES["little-q1.0"] = {"moe_gmm": LITTLE_LAYERS * 6 * 32,
+                                "flash_attn": LITTLE_LAYERS, "int4_matmul": 0}
+# rank-8 fp32 factors: 3 projections x (64 x 2048 x 8 + 64 x 8 x 1024) x
+# 4 B a layer of OLMoE
 LITTLE_RANK = 8
 # The launchers' own runs at OLMoE's full width (``bench_serve --little``,
 # ``--trace``, the journaled fp32 serve and its resume, ``--engine-impl
@@ -510,7 +542,13 @@ LITTLE_RANK = 8
 # phase 23 traces Mixtral for Psi (~70 s) the wave phase (8) takes them as
 # well (79.5 s at full depth, H100 80GB HBM3, 700 W): its gates read the
 # server (both policies' tokens equal, launch totals) and the LoRA term
-# against merged experts, which depth does not change.
+# against merged experts, which depth does not change. Since phase 23(e)
+# (Mixtral's comparison systems, ~66-83 s) the fleet phase (19) takes them
+# too: its gates read the supervisor's plumbing (every request finished or
+# checkpointed, a killed worker restarted from its journal with the
+# uninterrupted run's tokens, a drain exiting 0, the launch routes of each
+# dtype), which depth does not change; its workers resolve the cut by name
+# (``<arch>-<N>l``).
 LAUNCHER_LAYERS = 4
 # the wave server, one request at a time: per prefill (128 tokens, which
 # route to more than C = 16 of the 64 experts in every layer) one flash
@@ -520,7 +558,7 @@ LAUNCHER_LAYERS = 4
 for _path in ("wave-olmoe-fcfs", "wave-olmoe-affinity"):
     PATH_LAUNCHES[_path] = {"moe_gmm": LAUNCHER_LAYERS * (8 * 6 + 152 * 3),
                             "flash_attn": 8 * LAUNCHER_LAYERS, "int4_matmul": 0}
-LITTLE_BANK_BYTES = 16 * 3 * (64 * 2048 * 8 + 64 * 8 * 1024) * 4
+LITTLE_BANK_BYTES = LITTLE_LAYERS * 3 * (64 * 2048 * 8 + 64 * 8 * 1024) * 4
 
 
 def check_path(path: str, launches: dict, routes: dict) -> None:
@@ -640,18 +678,26 @@ def gmm_cases(gen):
     return cases
 
 
-def mixtral_gmm_cases(gen):
+# Phase 23(e)'s own moe_gmm shapes at Mixtral-8x7B's width: stream_all's
+# prefill overflow group (all 8 experts of 4 x 128 tokens' top-2 route,
+# "tc") and quant_cache's dequantized INT4 slab in a batch-4 decode step
+# (3C = 6 slots of up to 4 rows, "stream")
+MIXTRAL_BASELINE_GMM_SHAPES = ((8, 512), (6, 4))
+
+
+def mixtral_gmm_cases(gen, shapes=((2, 4), (6, 512))):
     """moe_gmm at Mixtral-8x7B's expert shapes (8 experts, top-2, d_ff
-    14,336, C = 2): the slab group of a batch-4 decode step (2 slots of up
-    to 4 rows, "stream") and a prefill's overflow group (6 experts of
-    4 x 128 tokens' top-2 route, "tc"), both projections' shapes."""
+    14,336, C = 2), (groups, rows) by ``shapes``: by default the slab group
+    of a batch-4 decode step (2 slots of up to 4 rows, "stream") and a
+    prefill's overflow group (6 experts of 4 x 128 tokens' top-2 route,
+    "tc"), both projections' shapes."""
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        for G, M in ((2, 4), (6, 512)):
+        for G, M in shapes:
             if M == 4:
                 sizes = torch.randint(1, M + 1, (G,), generator=gen, device="cuda",
                                       dtype=torch.int32)
-            else:  # the rows a real top-2 route of M tokens gives 6 of the 8 experts
+            else:  # the rows a real top-2 route of M tokens gives G of the 8 experts
                 eids = torch.randn(M, 8, generator=gen, device="cuda").topk(2, dim=-1).indices
                 sizes = torch.bincount(eids.reshape(-1), minlength=8)[:G].to(torch.int32)
             for K, F in ((4096, 14_336), (14_336, 4096)):
@@ -1991,26 +2037,31 @@ def _check_phases(path: str, by_phase: dict, want: dict) -> None:
         raise AssertionError(f"{path}: moe_gmm by phase {got}, want {want}")
 
 
-def _serve_row(eng, prompts, dev, **gen_kw) -> tuple:
-    """One ``generate`` of ``eng``, counters set to 0 just before: (its
-    result, a row of its numbers)."""
+def _serve_row(eng, prompts, dev, max_new: int = 32, **gen_kw) -> tuple:
+    """One ``generate`` of ``eng`` (``max_new`` tokens), counters and the
+    peak device memory set to 0 just before: (its result, a row of its
+    numbers)."""
     from repro_torch.kernels import dispatch
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     dispatch.reset_launches()
-    res = eng.generate(prompts, max_new_tokens=32, **gen_kw)
-    torch.cuda.synchronize()
+    res = eng.generate(prompts, max_new_tokens=max_new, **gen_kw)
+    _sync(dev)
     m, st = res["metrics"], res["cache_stats"]
     row = {"capacity": eng.capacity, "transfers": m.transfers,
            "host_executed": m.host_executed, "degraded_uses": m.degraded_uses,
            "hit_rate": st.hit_rate, "hits": st.hits, "misses": st.misses,
+           "evictions": st.evictions, "prefetch_transfers": m.prefetch_transfers,
            "modeled_time_s": res["modeled_time_s"],
            "modeled_time_overlapped_s": res["modeled_time_overlapped_s"],
            "modeled_tok_s": res["throughput_tok_s"],
            "modeled_overlapped_tok_s": res["throughput_overlapped_tok_s"],
            "prefill_s": res["prefill_s"], "decode_tok_s": res["decode_tok_s"],
-           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "expert_copies": res["expert_copies"],
+           "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                    if dev.type == "cuda" else None),
            "slab_bytes": eng.slab_bytes, "quantize_s": eng.quantize_s,
            "stopped_early": res["stopped_early"],
            "launches_total": dict(dispatch.LAUNCHES),
@@ -2062,7 +2113,6 @@ def serve_baselines(main_tokens, psi_scores, arch: str = "olmoe",
                 raise AssertionError(f"{path}: int4_matmul by phase {int4}")
         toks = res["tokens"].cpu().numpy()
         row["tokens_equal_main"] = bool(np.array_equal(toks, main_tokens))
-        row["prefetch_transfers"] = res["metrics"].prefetch_transfers
         logits[name] = res["prefill_logits"].float().cpu()
         rows[name] = row
         print(f"{path}:", json.dumps({k: v for k, v in row.items() if k != "by_phase"}),
@@ -2090,7 +2140,7 @@ def serve_baselines(main_tokens, psi_scores, arch: str = "olmoe",
               f"{r['hit_rate']:9.4f} {r['modeled_time_s']:9.4f} "
               f"{r['modeled_time_overlapped_s']:10.4f} {r['modeled_tok_s']:12.2f} "
               f"{r['prefill_s']:10.4f} {r['decode_tok_s']:13.2f} "
-              f"{r['max_memory_allocated'] / 1e9:8.2f}  "
+              f"{(r['max_memory_allocated'] or 0) / 1e9:8.2f}  "
               f"{ph['prefill'].get('moe_gmm')}/{ph['decode'].get('moe_gmm')}  "
               f"{ph['prefill'].get('int4_matmul')}/{ph['decode'].get('int4_matmul')}")
     L, K = cfg.n_moe_layers, cfg.moe_spec.top_k
@@ -2117,24 +2167,32 @@ def serve_baselines(main_tokens, psi_scores, arch: str = "olmoe",
     return rep, [params, store, prompts]
 
 
-def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmoe",
-                 device: str = "cuda") -> dict:
+def little_phase(shared: tuple, arch: str = "olmoe", device: str = "cuda",
+                 layers: int = LITTLE_LAYERS) -> dict:
     """Phase 16: the little-expert tier on the main path's batch and
-    weights (``shared``: phase 15's params, pinned store and prompts), C =
-    16, gamma: a rank-8 bank built on the card, then serves at quality 1.0,
-    0.5 and 0.0 and under a deadline of half the quality-1.0 run's serial
-    modeled seconds (each on a fresh engine serving the same bank), then
-    ``bench_serve --offloaded --little --quality 0.5`` at full width on
-    LAUNCHER_LAYERS layers."""
+    weights (``shared``: phase 15's params, pinned store and prompts) cut
+    to their first ``layers`` layers, C = 16, gamma: the cut served
+    without a bank (the reference), a rank-8 bank built on the card, then
+    serves at quality 1.0, 0.5 and 0.0 and under a deadline of half the
+    quality-1.0 run's serial modeled seconds (each on a fresh engine
+    serving the same bank), then ``bench_serve --offloaded --little
+    --quality 0.5`` at full width on LAUNCHER_LAYERS layers."""
     from repro_torch.configs import get_config
     from repro_torch.core.offload_engine import OffloadedMoEEngine
     from repro_torch.launch import bench_serve
 
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
     dev = torch.device(device)
-    params, store, prompts = shared
+    full, store, prompts = shared
+    params, cfg = _first_layers(full, get_config(arch), layers)
+    store = store[:cfg.n_moe_layers]
     eng_kw = dict(capacity=16, policy="gamma", host_store=store, device=dev)
+    ref = OffloadedMoEEngine(cfg, params, **eng_kw)
+    res, main = _serve_row(ref, prompts, dev)
+    main_tokens = res["tokens"].cpu().numpy()
+    print(f"little: the main path's weights on {layers} of {get_config(arch).n_layers} layers, "
+          f"without a bank:", json.dumps({k: v for k, v in main.items() if k != "by_phase"}))
+    del ref, res
     eng = OffloadedMoEEngine(cfg, params, little_experts=True, little_rank=LITTLE_RANK,
                              **eng_kw)
     bank = eng.little
@@ -2166,9 +2224,10 @@ def little_phase(main_tokens, main_stats: dict, shared: tuple, arch: str = "olmo
         if e is not eng:
             del e
     check_path("little-q1.0", rows["q1.0"]["launches_total"], rows["q1.0"]["route_launches"])
+    rows["no-bank"] = main
     q1, q0 = rows["q1.0"], rows["q0.0"]
-    if not (q1["tokens_equal_main"] and q1["transfers"] == main_stats["transfers"]
-            and q1["degraded_uses"] == 0):
+    if not (q1["tokens_equal_main"] and q1["transfers"] == main["transfers"]
+            and q1["launches_total"] == main["launches_total"] and q1["degraded_uses"] == 0):
         raise AssertionError(f"little q1.0: the bank is not inert: {q1}")
     if not (q0["transfers"] == 0 and q0["degraded_uses"] > 0
             and q0["modeled_time_s"] < q1["modeled_time_s"]):
@@ -2259,23 +2318,16 @@ OFFLOAD_PREFIX_LEN = 64
 
 
 def _cut_arch(arch: str, layers) -> str:
-    """The name of ``arch`` cut to ``layers`` layers (its single layout
-    group's repeats replaced), registered in the port's config registry;
-    ``arch`` itself where ``layers`` is None."""
+    """The name of ``arch`` cut to ``layers`` layers, ``<arch>-<layers>l``
+    (its single layout group's repeats replaced), which the port's config
+    registry resolves in any process; ``arch`` itself where ``layers`` is
+    None or its depth."""
     from repro_torch.configs import get_config
-    from repro_torch.configs.registry import register
 
-    cfg = get_config(arch)
-    if layers is None or layers == cfg.n_layers:
+    if layers is None or layers == get_config(arch).n_layers:
         return arch
-    (g,) = cfg.layout
-    if layers % len(g.pattern):
-        raise ValueError(f"{arch}: {layers} layers is not a whole number of "
-                         f"{g.pattern} repeats")
     name = f"{arch}-{layers}l"
-    cut = dataclasses.replace(cfg, name=name, layout=(dataclasses.replace(
-        g, repeats=layers // len(g.pattern)),))
-    register(name)(lambda: cut)
+    get_config(name)  # a depth the layout cannot take raises here
     return name
 
 
@@ -2940,7 +2992,9 @@ def _fleet_row(report: dict, t_wall: float) -> dict:
 
 def fleet_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
     """Phase 19, the supervised fleet: two ``repro_torch.fleet.worker``
-    processes of full-width OLMoE on the one card. (a) fp32, no fault;
+    processes of full-width OLMoE on its first LAUNCHER_LAYERS layers
+    (``<arch>-<N>l``, a name each worker resolves) on the one card. (a)
+    fp32, no fault;
     (b) fp32 with worker 0 killed at its fourth decode step (restart from
     its journal, tokens equal (a)'s); (c) bf16 ``python -m
     repro_torch.launch.bench_fleet`` with ``FLEET_DRAIN_REQUESTS`` sent
@@ -2958,6 +3012,7 @@ def fleet_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
     from repro_torch.serving import ServeRequest
 
     t_phase = time.perf_counter()
+    arch = _launcher_arch(arch)
     cfg = get_config(arch)
     n = len(SERVE_BUDGETS)
     prompts = make_prompts(cfg.vocab, n, SERVE_PROMPT)
@@ -4109,6 +4164,27 @@ MIXTRAL_CKPT_NEW = 4
 # to settle; 261.1 s for the phase before Psi on a slow host, H100 80GB
 # HBM3, 700 W); a guard against a hang, inside the whole run's 1200 s
 MIXTRAL_LIMIT_S = 600
+# (e) the paper's comparison systems (core/baselines.py, Fig. 3), each built
+# as the reference builds it, make_engine(cfg, params, BASELINES[name],
+# capacity=C), on a child's kept store, with the other weights re-drawn
+# from the seed (experts on meta): the six bf16 systems in the bf16 child
+# after (b), melinoe prefetching (b)'s own Psi scores; quant_cache (INT4
+# residents at 3C = 6) in the INT4 child on its INT4 store (84.0 + 31.5 GiB
+# of stores do not fit the host together). Each serves phase 23's prompts,
+# MIXTRAL_BASELINE_NEW new tokens, counters and the peak device memory
+# from 0, its engine freed before the next.
+MIXTRAL_BASELINE_NEW = 8
+MIXTRAL_BF16_SYSTEMS = ("static_lru", "static_lfu", "stream_all", "profile_prefetch",
+                        "cpu_execute", "melinoe")
+MIXTRAL_INT4_SYSTEMS = ("quant_cache",)
+# What (e) may take from the host's MemAvailable across a child's rows (the
+# re-drawn params' host side, the engines' bookkeeping): a second host copy
+# of any expert would take 352 MB (bf16) a matrix set
+MIXTRAL_BASELINE_HOST_BYTES = 1 << 30
+# What a row may hold on the card beside the non-expert weights, its slab
+# and one layer's overflow group (all E experts of a layer): activations,
+# KV caches, logits
+MIXTRAL_BASELINE_ACT_BYTES = 1 << 30
 
 
 def _mixtral_trace_act_bytes(cfg, layers: int) -> dict:
@@ -4134,6 +4210,65 @@ def _mixtral_trace_act_bytes(cfg, layers: int) -> dict:
             "embedder": cfg.vocab * D_EMB * 4}
 
 
+def mixtral_baselines(store, names, psi_scores=None, arch: str = MIXTRAL,
+                      device: str = "cuda", dtype=torch.bfloat16,
+                      batch: int = MIXTRAL_SERVE["batch"],
+                      prompt_len: int = MIXTRAL_SERVE["prompt_len"],
+                      new: int = MIXTRAL_BASELINE_NEW) -> dict:
+    """Phase 23(e) on one kept store (``run(keep_store=True)``'s
+    ``host_store``, bf16 or INT4): ``arch``'s other weights re-drawn from
+    MIXTRAL_SERVE's seed with the experts on ``meta`` (``init_params``
+    draws the same stream whether or not a store is given, so these are
+    the weights the store was drawn with), then each system of ``names``
+    built by ``make_engine(cfg, params, BASELINES[name], capacity=C,
+    host_store=store, device=)`` and serving ``batch`` x (``prompt_len`` +
+    ``new``) tokens of ``make_prompts`` (``melinoe`` prefetching
+    ``psi_scores`` first), counters and the peak device memory from 0, each
+    engine freed (and the allocator's cache emptied) before the next.
+    Returns the rows (``_serve_row``'s numbers, ``slab_bytes``, the build's
+    seconds, launches by phase and route), each row's tokens and prefill
+    logits, and the host's MemAvailable before and after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.baselines import BASELINES, make_engine
+    from repro_torch.core.offload_engine import HardwareProfile
+    from repro_torch.launch.serve import host_available_bytes, make_prompts
+    from repro_torch.models.model import init_params
+
+    t0 = time.perf_counter()
+    cfg = get_config(arch)
+    dev = torch.device(device)
+    avail0 = host_available_bytes()
+    params = init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(MIXTRAL_SERVE["seed"]),
+        dtype=dtype, device=dev, expert_device="meta")
+    prompts = make_prompts(cfg.vocab, batch, prompt_len)
+    rows, tokens, logits = {}, {}, {}
+    for name in names:
+        spec = BASELINES[name]
+        t = time.perf_counter()
+        eng = make_engine(cfg, params, spec, capacity=MIXTRAL_SERVE["capacity"],
+                          hw=HardwareProfile(), device=dev, host_store=store)
+        if spec.use_predictor:
+            eng.prefetch(psi_scores)
+        build_s = time.perf_counter() - t
+        res, row = _serve_row(eng, prompts, dev, max_new=new)
+        row.update(layers=cfg.n_layers, build_s=build_s, host_time_s=res["metrics"].host_time,
+                   quantized=spec.quantized)
+        tokens[name] = res["tokens"].cpu().numpy()
+        logits[name] = res["prefill_logits"].float().cpu()
+        rows[name] = row
+        del eng, res
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    return {"layers": cfg.n_layers, "batch": batch, "prompt_len": prompt_len, "new": new,
+            "rows": rows, "tokens": tokens, "logits": logits,
+            "host_available_before": avail0, "host_available_after": host_available_bytes(),
+            "secs": time.perf_counter() - t0}
+
+
 def _child_start(device: str) -> torch.device:
     """A phase-23 child's start: fp32 products in fp32, the CUDA context and
     the kernel library loaded (built by the parent)."""
@@ -4157,8 +4292,9 @@ def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
     the same codes, and the fp32 kernel-vs-plain prefill at full width on
     ``fp32_layers`` layers; for "bf16" the batch served again with Psi on
     the same store (``run(predictor=True, host_store=)``, counters from 0).
-    Writes the reports, launches, logits and the seconds of each step to
-    ``out`` (``torch.save``)."""
+    Then (e), ``mixtral_baselines`` on the same store: quant_cache for
+    "int4", the six bf16 systems for "bf16". Writes the reports, launches,
+    logits and the seconds of each step to ``out`` (``torch.save``)."""
     t0 = time.perf_counter()
     dev = _child_start(device)
     from repro_torch.kernels import dispatch
@@ -4189,6 +4325,11 @@ def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
         res["plain_fp32_logits"] = ref32["prefill_logits"]
         secs["plain_fp32"] = time.perf_counter() - t
         del ref32
+        gc.collect()
+        # (e) quant_cache on this child's INT4 store
+        res["baselines"] = mixtral_baselines(store, MIXTRAL_INT4_SYSTEMS, arch=name,
+                                             device=device)
+        secs["baselines"] = res["baselines"]["secs"]
     else:  # Psi, traced from this store (no second store is built)
         gc.collect()  # the earlier runs' engines and their slabs
         if dev.type == "cuda":
@@ -4208,7 +4349,15 @@ def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
             "tokens_equal": bool(np.array_equal(psi["tokens"], rep["tokens"])),
             "launches": dict(dispatch.LAUNCHES),
             "routes": {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}}
+        scores = psi["predictor_scores"]
         del psi
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        # (e) the six bf16 systems on this store, melinoe on (b)'s scores
+        res["baselines"] = mixtral_baselines(store, MIXTRAL_BF16_SYSTEMS, psi_scores=scores,
+                                             arch=name, device=device)
+        secs["baselines"] = res["baselines"]["secs"]
     del store, ref
     gc.collect()
     if q:  # the fp32 check at full width on a few layers
@@ -4448,8 +4597,9 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
     full depth, then bf16 at the depth the host's memory allows; each
     store drawn into by ``launch.serve.run`` in a child process; then (c)
     ``bench_serve --offloaded`` at the bf16 row's depth and (d) a
-    checkpoint at MIXTRAL_CKPT_LAYERS layers, together in a third child.
-    Every row
+    checkpoint at MIXTRAL_CKPT_LAYERS layers, together in a third child;
+    (e) the comparison systems inside the first two children
+    (``mixtral_baselines``, gated by ``_mixtral_baselines_rows``). Every row
     is printed first, then gated: launch totals (``flash_attn`` one "tc" a
     layer in the prefill; ``moe_gmm`` and ``int4_matmul`` positive multiples
     of 3, ``moe_gmm`` "tc" in the prefill and "stream" in decode,
@@ -4593,6 +4743,8 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
     out["predictor"] = _mixtral_psi_row(rows["bf16"], cfg, device, bad)
     out["bench"] = _mixtral_bench_row(bench, cfg, device, bad)
     out["ckpt"] = _mixtral_ckpt_row(ckpt, cfg, bad)
+    out["baselines"] = _mixtral_baselines_rows(rows["bf16"], rows["int4"], cfg, device, bad,
+                                               roundoff)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"mixtral phase: {out['phase_s']:.1f} s")
     if bad:
@@ -4749,6 +4901,162 @@ def _mixtral_ckpt_row(r: dict, cfg, bad: list) -> dict:
     return row
 
 
+# profile_prefetch's spec is static_lfu's but for its name, and make_engine
+# wires no prefetcher in either package: these numbers are equal
+_PROFILE_SAME = ("transfers", "hits", "misses", "evictions", "modeled_time_s",
+                 "modeled_time_overlapped_s")
+
+
+def _baseline_launches_ok(r: dict, n: int, steps: int, name: str) -> bool:
+    """Phase 23(e): one row's launches by phase and route, on ``n`` layers
+    and ``steps`` decode steps. ``flash_attn`` one "tc" a layer in the
+    prefill, none in decode; ``moe_gmm`` "tc" in the prefill and "stream"
+    in decode, 3 a group set: the empty slab of stream_all and cpu_execute
+    leaves the overflow group alone, every layer-step (exact); the other
+    fp systems' prefill routes all 8 experts past C = 2, slab and overflow
+    (exact), their decode steps one or both sets; quant_cache's INT4 slab
+    one set, its spilled experts on ``int4_matmul`` (INT4_PHASE_ROUTES,
+    three a spilled expert); no ``int4_matmul`` in an fp row; every
+    launch on FAST_ROUTES."""
+    ph = r["by_phase"]
+    get = lambda p, op: ph[p].get(op) or {}  # noqa: E731
+    pre, dec = get("prefill", "moe_gmm"), get("decode", "moe_gmm")
+    npre, ndec = sum(pre.values()), sum(dec.values())
+    i4 = {p: get(p, "int4_matmul") for p in ("prefill", "decode")}
+    n_i4 = sum(sum(v.values()) for v in i4.values())
+    ok = (get("prefill", "flash_attn") == {"tc": n} and not get("decode", "flash_attn")
+          and set(pre) <= {"tc"} and set(dec) <= {"stream"}
+          and r["launches_total"]["moe_gmm"] == npre + ndec
+          and r["launches_total"]["flash_attn"] == n
+          and r["launches_total"]["int4_matmul"] == n_i4
+          and all(set(r["route_launches"][op]) <= set(fast)
+                  for op, fast in FAST_ROUTES.items()))
+    if name in ("stream_all", "cpu_execute"):
+        ok = ok and (npre, ndec) == (3 * n, 3 * n * steps)
+    elif r["quantized"]:
+        ok = ok and npre == 3 * n and 0 < ndec <= 3 * n * steps and ndec % 3 == 0
+    else:
+        ok = ok and npre == 6 * n and 3 * n * steps <= ndec <= 6 * n * steps and ndec % 3 == 0
+    if r["quantized"]:
+        return ok and n_i4 > 0 and n_i4 % 3 == 0 and all(
+            set(v) <= set(INT4_PHASE_ROUTES[p]) for p, v in i4.items())
+    return ok and n_i4 == 0
+
+
+def _mixtral_baselines_rows(bf16: dict, int4: dict, cfg, device: str, bad: list,
+                            roundoff: float) -> dict:
+    """Phase 23(e)'s rows (``mixtral_baselines`` of the bf16 and INT4
+    children, full config ``cfg``), printed with the Fig.-3 table, then
+    gated into ``bad`` (see the module docstring); ``roundoff``: the INT4
+    child's plain bf16 round-off r."""
+    spec, C = cfg.moe_spec, MIXTRAL_SERVE["capacity"]
+    parts = {"bf16": bf16["baselines"], "int4": int4["baselines"]}
+    rows, drops = {}, {}
+    for kind, b in parts.items():
+        n = b["layers"]
+        size = _mixtral_bytes(cfg, n)
+        before = b["host_available_before"]
+        drops[kind] = None if before is None else before - b["host_available_after"]
+        print(f"mixtral baselines, {kind} child: {n} of {cfg.n_layers} layers, {b['batch']} x "
+              f"({b['prompt_len']} + {b['new']}) tokens, C = {C}; MemAvailable drop "
+              f"{drops[kind]} B across its rows (limit {MIXTRAL_BASELINE_HOST_BYTES} B); "
+              f"{b['secs']:.1f} s")
+        for name, r in b["rows"].items():
+            r = dict(r, kind=kind, memory_bound_bytes=size["nonexpert"] + r["slab_bytes"]
+                     + size["layer"] + MIXTRAL_BASELINE_ACT_BYTES,
+                     copies_per_decode_step=r["expert_copies"]["decode"] / max(b["new"] - 1, 1))
+            rows[name] = r
+            print(f"mixtral-baseline-{name}:", json.dumps({k: v for k, v in r.items()
+                                                          if k != "by_phase"}),
+                  f"by phase {r['by_phase']}")
+    gb = lambda x: f"{x / 1e9:7.2f}" if x is not None else "    n/a"  # noqa: E731
+    print("system           layers transfers host_exec   hits  misses hit_rate  serial_s "
+          "overlap_s serial_tok/s overlap_tok/s prefill_s decode_tok/s copies(pre/dec) "
+          "peak_GB slab_GB")
+    for name, r in rows.items():
+        print(f"{name:16s} {r['layers']:6d} {r['transfers']:9d} {r['host_executed']:9d} "
+              f"{r['hits']:6d} {r['misses']:7d} {r['hit_rate']:8.4f} "
+              f"{r['modeled_time_s']:9.3f} {r['modeled_time_overlapped_s']:9.3f} "
+              f"{r['modeled_tok_s']:12.3f} {r['modeled_overlapped_tok_s']:13.3f} "
+              f"{r['prefill_s']:9.3f} {r['decode_tok_s']:12.3f} "
+              f"{r['expert_copies']['prefill']:7d}/{r['expert_copies']['decode']:<7d} "
+              f"{gb(r['max_memory_allocated'])} {gb(r['slab_bytes'])}")
+    mel = rows["melinoe"]
+    fig3 = {}
+    for name, r in rows.items():
+        if name != "melinoe" and r["layers"] == mel["layers"]:
+            fig3[name] = {"serial": mel["modeled_tok_s"] / r["modeled_tok_s"],
+                          "overlapped": mel["modeled_overlapped_tok_s"]
+                          / r["modeled_overlapped_tok_s"],
+                          "measured": (mel["decode_tok_s"] / r["decode_tok_s"]
+                                       if r["decode_tok_s"] > 0 else None)}
+    print(f"Fig. 3 on {cfg.name} ({mel['layers']} layers, C = {C}): melinoe's "
+          f"decode tokens/s over each system's, serial-modeled / overlapped-modeled / "
+          f"measured")
+    for name, f in fig3.items():
+        meas = f"{f['measured']:.3f}" if f["measured"] is not None else "n/a"
+        print(f"  melinoe / {name:16s} {f['serial']:7.3f} {f['overlapped']:7.3f} {meas:>7s}")
+    print("  (random weights, and Mixtral not fine-tuned: no path of either package "
+          "fine-tunes with the experts offloaded, so these ratios are not the paper's)")
+
+    bl = parts["bf16"]
+    n, steps, B, T = bl["layers"], bl["new"] - 1, bl["batch"], bl["prompt_len"]
+    n_moe = n * cfg.n_moe_layers // cfg.n_layers
+    want_stream = n_moe * spec.top_k * (B * T + B * steps)
+    sa, cx, lfu, pp = (rows[k] for k in ("stream_all", "cpu_execute", "static_lfu",
+                                         "profile_prefetch"))
+    toks = bl["tokens"]
+    first = next(iter(toks))
+    differ = [k for k, t in toks.items() if not np.array_equal(t, toks[first])]
+    names = list(bl["logits"])
+    pair_rel = max((_rel(bl["logits"][a], bl["logits"][b])
+                    for i, a in enumerate(names) for b in names[i + 1:]), default=0.0)
+    stream_rel = _rel(bl["logits"]["stream_all"], bf16["plain_logits"])
+    print(f"mixtral baselines: stream_all transfers {sa['transfers']} (want {want_stream}), "
+          f"hits + misses {sa['hits'] + sa['misses']}; cpu_execute transfers "
+          f"{cx['transfers']}, host_executed {cx['host_executed']} (static_lfu transfers "
+          f"{lfu['transfers']}); profile_prefetch vs static_lfu equal "
+          f"{all(pp[k] == lfu[k] for k in _PROFILE_SAME)}; the six bf16 rows' tokens "
+          f"{'equal' if not differ else f'differ: {differ}'}, prefill logits at most "
+          f"{pair_rel:.4g} apart; stream_all prefill logits vs the plain run rel "
+          f"{stream_rel:.4g} (limit {MIXTRAL_ROUNDOFF_SPAN} x {roundoff:.4g})")
+    if not (sa["transfers"] == want_stream and sa["hits"] + sa["misses"] == 0):
+        bad.append(f"mixtral stream_all: {sa['transfers']} transfers, hits + misses "
+                   f"{sa['hits'] + sa['misses']}, want {want_stream} and 0")
+    if not (cx["transfers"] == 0 and cx["host_executed"] == lfu["transfers"] > 0):
+        bad.append(f"mixtral cpu_execute: transfers {cx['transfers']}, host_executed "
+                   f"{cx['host_executed']}, want 0 and static_lfu's {lfu['transfers']}")
+    if any(pp[k] != lfu[k] for k in _PROFILE_SAME):
+        bad.append(f"mixtral profile_prefetch differs from static_lfu: "
+                   f"{ {k: (pp[k], lfu[k]) for k in _PROFILE_SAME} }")
+    if differ or not all(t.shape == (B, bl["new"]) for t in toks.values()):
+        bad.append(f"mixtral baselines: the bf16 rows' tokens differ ({differ})")
+    if not all(torch.isfinite(x).all() and x.shape == (B, cfg.vocab)
+               for x in bl["logits"].values()):
+        bad.append("mixtral baselines: prefill logits not finite or of another shape")
+    if not (math.isfinite(stream_rel) and stream_rel <= MIXTRAL_ROUNDOFF_SPAN * roundoff):
+        bad.append(f"mixtral stream_all: prefill logits vs plain rel {stream_rel}, over "
+                   f"{MIXTRAL_ROUNDOFF_SPAN} x {roundoff}")
+    if device == "cuda":
+        for kind, drop in drops.items():
+            if drop is None or not drop < MIXTRAL_BASELINE_HOST_BYTES:
+                bad.append(f"mixtral baselines ({kind} child): MemAvailable fell {drop} B, "
+                           f"limit {MIXTRAL_BASELINE_HOST_BYTES} B")
+        for name, r in rows.items():
+            b = parts[r["kind"]]
+            if not _baseline_launches_ok(r, b["layers"], b["new"] - 1, name):
+                bad.append(f"mixtral baseline {name}: launches {r['launches_total']} by "
+                           f"phase {r['by_phase']}")
+            if not r["max_memory_allocated"] <= r["memory_bound_bytes"]:
+                bad.append(f"mixtral baseline {name}: peak device memory "
+                           f"{r['max_memory_allocated']} B, bound {r['memory_bound_bytes']} B")
+    return {"rows": rows, "fig3": fig3, "stream_all_logits_rel": stream_rel,
+            "logits_max_pairwise_rel": pair_rel, "tokens_equal": not differ,
+            "host_available_drop_bytes": drops,
+            "launches_total": {k: r["launches_total"] for k, r in rows.items()},
+            "route_launches": {k: r["route_launches"] for k, r in rows.items()}}
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it. ``source`` is the kernel the
@@ -4802,6 +5110,8 @@ def main() -> int:
     g_cases += mixtral_gmm_cases(mgen)
     f_cases += flash_cases(mgen, MIXTRAL_FLASH_SHAPES)
     i_cases += int4_cases(mgen, MIXTRAL_INT4_SHAPES)
+    g_cases += mixtral_gmm_cases(torch.Generator(device="cuda").manual_seed(3),
+                                 MIXTRAL_BASELINE_GMM_SHAPES)
     for c in g_cases + f_cases + i_cases + s_cases:
         print(f"  {c['case']}: route {c.get('route', 'cuda')} err {c['max_abs_err']:.3g} "
               f"kernel {c['ms']:.4f} ms"
@@ -4916,7 +5226,7 @@ def main() -> int:
 
     # ---- the paper's comparison systems and the little-expert tier
     b_rep, shared = serve_baselines(tokens, p_rep["psi_scores"])
-    l_rep = little_phase(tokens, main_stats, shared)
+    l_rep = little_phase(shared)
 
     # ---- the dense and prefix-conditioned configs; OLMoE offloaded with a prefix
     dn_rep = dense_phase(shared)
@@ -4992,7 +5302,9 @@ def main() -> int:
              **{p: lr[0] for p, lr in ep_paths.items()},
              **{f"dryrun-{n}": r["card"]["launches"] for n, r in dr_rep["rows"].items()},
              **{f"mixtral-{n}": mx_rep[n]["launches_total"]
-                for n in ("int4", "bf16", "predictor", "bench")}}
+                for n in ("int4", "bf16", "predictor", "bench")},
+             **{f"mixtral-baseline-{n}": lt
+                for n, lt in mx_rep["baselines"]["launches_total"].items()}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
@@ -5015,7 +5327,9 @@ def main() -> int:
              **{p: lr[1] for p, lr in ep_paths.items()},
              **{f"dryrun-{n}": r["card"]["routes"] for n, r in dr_rep["rows"].items()},
              **{f"mixtral-{n}": mx_rep[n]["route_launches"]
-                for n in ("int4", "bf16", "predictor", "bench")}}
+                for n in ("int4", "bf16", "predictor", "bench")},
+             **{f"mixtral-baseline-{n}": rl
+                for n, rl in mx_rep["baselines"]["route_launches"].items()}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

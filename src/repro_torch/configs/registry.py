@@ -1,7 +1,12 @@
-"""Architecture registry: ``--arch <id>`` resolves through here."""
+"""Architecture registry: ``--arch <id>`` resolves through here. An id
+``<arch>-<N>l`` names ``<arch>`` cut to its first N layers (``cut_layers``),
+so that a process handed the name (a fleet worker, a spawned child)
+resolves the same cut."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
+import re
 from typing import Callable, Dict
 
 from .base import ModelConfig, make_smoke
@@ -40,9 +45,26 @@ def register(name: str):
     return deco
 
 
+_CUT = re.compile(r"(?P<base>.+)-(?P<layers>[0-9]+)l")
+
+
+def cut_layers(cfg: ModelConfig, layers: int) -> ModelConfig:
+    """``cfg`` (one layout group) cut to its first ``layers`` layers, a
+    whole number of its pattern's repeats, named ``<name>-<layers>l``."""
+    (g,) = cfg.layout
+    if not 0 < layers <= cfg.n_layers or layers % len(g.pattern):
+        raise ValueError(f"{cfg.name}: {layers} layers is not a whole number of "
+                         f"{g.pattern} repeats up to {cfg.n_layers}")
+    return dataclasses.replace(cfg, name=f"{cfg.name}-{layers}l", layout=(
+        dataclasses.replace(g, repeats=layers // len(g.pattern)),))
+
+
 def get_config(name: str) -> ModelConfig:
     smoke = name.endswith("-smoke")
     base = name[: -len("-smoke")] if smoke else name
+    cut = _CUT.fullmatch(name)
+    if base not in _REGISTRY and base not in _MODULES and cut:
+        return cut_layers(get_config(cut["base"]), int(cut["layers"]))
     if base not in _REGISTRY:
         if base not in _MODULES:
             raise KeyError(f"unknown arch {base!r}; known: {sorted(_MODULES)}")

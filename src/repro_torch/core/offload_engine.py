@@ -118,6 +118,13 @@ from .little_expert import LittleExpertBank
 from .quant import matmul_layout, qmatmul, quantize_linear
 
 _EXPERT_KEYS = ("wg", "wu", "wd")
+# The INT4 slab's slots are dequantized in fp32 (``dequant_ref``) at most
+# this many bytes of fp32 weights at a time, each part cast into the
+# activation dtype as it is made: Mixtral-8x7B's six quant_cache slots take
+# 1.41 GB of fp32 a leaf, and three such temporaries at once set the row's
+# peak (34.89 GB against 32.47 GB for its weights and working set on an H100
+# 80GB HBM3). OLMoE's 16 slots (128 MiB a leaf) stay one part.
+_DEQUANT_PART_BYTES = 256 << 20
 
 
 # ---------------------------------------------------------------------------
@@ -1282,11 +1289,21 @@ class OffloadedMoEEngine:
         return self._dequant_slots(moe_idx, used, h2f.dtype), remap[slots], slab.slot_expert[used]
 
     def _dequant_slots(self, moe_idx: int, used: np.ndarray, dtype):
-        """{k: (G, K, N)} weights of the slab slots ``used``, in ``dtype``."""
+        """{k: (G, K, N)} weights of the slab slots ``used``, in ``dtype``:
+        dequantized a part of at most _DEQUANT_PART_BYTES of fp32 at a time,
+        each part cast as one call's would be (the same bits)."""
         idx = torch.as_tensor(used).to(self.device)
-        return {k: dequant_ref(mq.packed[idx], mq.scale[idx], mq.zero[idx],
-                               mq.group).to(dtype)
-                for k, mq in self._slab_q[moe_idx].items()}
+        out = {}
+        for k, mq in self._slab_q[moe_idx].items():
+            K, N = 2 * mq.packed.shape[-2], mq.packed.shape[-1]
+            step = max(1, _DEQUANT_PART_BYTES // (K * N * 4))
+            w = torch.empty((len(used), K, N), dtype=dtype, device=self.device)
+            for s in range(0, len(used), step):
+                part = idx[s:s + step]
+                w[s:s + step] = dequant_ref(mq.packed[part], mq.scale[part], mq.zero[part],
+                                            mq.group)
+            out[k] = w
+        return out
 
     def _spill_load(self, moe_idx: int, missing) -> Dict[str, MatmulQWeight]:
         """Copy the INT4 experts ``missing`` into a reused buffer; returns

@@ -39,6 +39,7 @@ from repro.models import init_params as jax_init_params  # noqa: E402
 from repro_torch.bridge import params_from_jax, quantized_experts_from_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.offload_engine import HardwareProfile, OffloadedMoEEngine  # noqa: E402
+from _torch_mixtral8 import SMOKE as MIXTRAL_SMOKE, eight_experts  # noqa: E402
 
 HW = HardwareProfile(**{f.name: getattr(PCIE5_H100, f.name)
                         for f in dataclasses.fields(HardwareProfile)})
@@ -54,19 +55,63 @@ ARCHS = {  # id -> (config name, reduction applied to both packages' configs)
     # the paper's two backbones whose experts do not fit one card
     "mixtral-smoke": ("mixtral-8x7b-smoke", lambda c: c),
     "phi35-smoke": ("phi35-moe-smoke", lambda c: c),
+    # Mixtral's expert ratios (8 experts, top-2; tests/_torch_mixtral8.py)
+    "mixtral8-smoke": (MIXTRAL_SMOKE, eight_experts),
 }
 
-# The JAX engine quantizes every expert eagerly in its constructor, which
-# takes tens of seconds per olmoe-mini engine. Engines of one config get
-# the same weights, so the codes of the first are reused for the rest:
-# the memo returns what quantize_linear returned for the same bytes.
+# The JAX engine quantizes every expert eagerly in its constructor, one
+# quantize_linear call per expert matrix, and each eager call compiles its
+# HQQ scan anew (0.3 s a call: 65 s for olmoe-mini's 2 layers). The memo
+# returns what quantize_linear returns for the same bytes: engines of one
+# config share the codes of the first, and the experts of each tree that
+# ``build`` made are quantized beforehand one stacked (E, i, o) leaf per
+# eager call of the same ``quantize`` (its ops act group by group along the
+# last axis, so each expert's codes, scales and zero points are the bits of
+# its own call; ``_prequantize`` holds one expert against that call).
 _QMEMO = {}
+_PENDING = []  # JAX trees whose experts _prequantize has not memoized yet
 _real_quantize_linear = jax_engine_mod.quantize_linear
+_ENGINE_QUANT_KW = {"group": 32, "iters": 4}  # the JAX engine's call
+
+
+def _memo_key(a: np.ndarray, kw: dict) -> tuple:
+    return (hashlib.sha1(a.tobytes()).hexdigest(), a.shape, tuple(sorted(kw.items())))
+
+
+def _prequantize(jparams) -> None:
+    """Memoize quantize_linear(w, **_ENGINE_QUANT_KW) for every expert
+    matrix of ``jparams``, one eager ``quantize`` call per stacked leaf."""
+    from repro.core.quant import QTensor, quantize
+
+    checked = False
+    for g in jparams["groups"].values():
+        for blk in g.values():
+            ffn = blk.get("ffn", {})
+            if "router" not in ffn:
+                continue
+            for k in ("wg", "wu", "wd"):
+                for stack in np.asarray(ffn[k]):  # (E, i, o) a repeat
+                    qt = quantize(jnp.swapaxes(jnp.asarray(stack), -1, -2), **_ENGINE_QUANT_KW)
+                    packed, scale, zero = (np.asarray(x) for x in (qt.packed, qt.scale, qt.zero))
+                    for e, w in enumerate(stack):
+                        got = QTensor(packed=jnp.asarray(packed[e]), scale=jnp.asarray(scale[e]),
+                                      zero=jnp.asarray(zero[e]), shape=tuple(qt.shape[1:]),
+                                      group=qt.group)
+                        if not checked:  # the bits of the engine's own call
+                            want = _real_quantize_linear(jnp.asarray(w), **_ENGINE_QUANT_KW)
+                            assert want.shape == got.shape and want.group == got.group
+                            for f in ("packed", "scale", "zero"):
+                                np.testing.assert_array_equal(np.asarray(getattr(got, f)),
+                                                              np.asarray(getattr(want, f)))
+                            checked = True
+                        _QMEMO[_memo_key(w, _ENGINE_QUANT_KW)] = got
 
 
 def _memo_quantize_linear(w, **kw):
     a = np.asarray(w)
-    key = (hashlib.sha1(a.tobytes()).hexdigest(), a.shape, tuple(sorted(kw.items())))
+    key = _memo_key(a, kw)
+    while key not in _QMEMO and _PENDING:
+        _prequantize(_PENDING.pop())
     if key not in _QMEMO:
         _QMEMO[key] = _real_quantize_linear(w, **kw)
     return _QMEMO[key]
@@ -77,6 +122,7 @@ def build(key: str) -> dict:
     name, cut = ARCHS[key]
     jcfg, tcfg = cut(jax_get_config(name)), cut(get_config(name))
     jparams = jax_init_params(jax.random.key(0), jcfg, jnp.float32)
+    _PENDING.append(jparams)
     rng = np.random.default_rng(7)
     toks = rng.integers(0, jcfg.vocab, (2, 12)).astype(np.int32)
     scores = rng.random((jcfg.n_moe_layers, jcfg.moe_spec.num_experts))

@@ -1,11 +1,13 @@
 """The paper's comparison systems (``core/baselines.py``, Sec 4.2) in the
 port against the JAX package on the CPU: every ``BASELINES`` entry but
 ``quant_cache`` (INT4: ``tests/test_torch_baselines_int4.py``) through
-both packages' ``make_engine`` on ``olmoe-mini-smoke``, and the two
-engine baselines (``stream_all``, ``cpu_execute``) also on
-``deepseek-moe-16b-smoke`` (a dense first layer, shared experts). The
-JAX engines run with ``kernel_backend="ref"`` in fp32, from the same
-weights (JAX init, key 0, bridged).
+both packages' ``make_engine`` on ``olmoe-mini-smoke`` and on
+``mixtral-8x7b-smoke`` at Mixtral's expert ratios (8 experts, top-2, C = 2:
+``tests/_torch_mixtral8.py``), and the two engine baselines
+(``stream_all``, ``cpu_execute``) also on ``deepseek-moe-16b-smoke`` (a
+dense first layer, shared experts). The JAX engines run with
+``kernel_backend="ref"`` in fp32, from the same weights (JAX init, key 0,
+bridged).
 
 Exact, as the ROADMAP's parity rules ask: greedy tokens, demand and
 prefetch transfers and bytes, hits, misses, evictions, ``host_executed``
@@ -31,22 +33,27 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import baselines as tb  # noqa: E402
 from repro_torch.core.offload_engine import HardwareProfile  # noqa: E402
+from _torch_mixtral8 import SMOKE as MIXTRAL_SMOKE, eight_experts  # noqa: E402
 from _torch_threads import one_thread  # noqa: E402,F401
 
 pytestmark = pytest.mark.torch
 
 HW = HardwareProfile(**{f.name: getattr(PCIE5_H100, f.name)
                         for f in dataclasses.fields(HardwareProfile)})
-ARCHS = {"olmoe-smoke": "olmoe-mini-smoke", "deepseek-smoke": "deepseek-moe-16b-smoke"}
+_SAME = lambda c: c  # noqa: E731
+ARCHS = {"olmoe-smoke": ("olmoe-mini-smoke", _SAME),
+         "deepseek-smoke": ("deepseek-moe-16b-smoke", _SAME),
+         "mixtral8-smoke": (MIXTRAL_SMOKE, eight_experts)}
 C = 2
 NEW = 5
+FP_BASELINES = [n for n in jb.BASELINES if n != "quant_cache"]
 
 
 @pytest.fixture(scope="module")
 def models():
     out = {}
-    for key, name in ARCHS.items():
-        jcfg, tcfg = jax_get_config(name), get_config(name)
+    for key, (name, cut) in ARCHS.items():
+        jcfg, tcfg = cut(jax_get_config(name)), cut(get_config(name))
         jparams = jax_init_params(jax.random.key(0), jcfg, jnp.float32)
         toks = np.random.default_rng(3).integers(0, jcfg.vocab, (2, 10)).astype(np.int32)
         out[key] = dict(jcfg=jcfg, tcfg=tcfg, jparams=jparams,
@@ -80,10 +87,12 @@ def _run_both(m, key, name):
     return te, tr
 
 
-@pytest.mark.parametrize("name", [n for n in jb.BASELINES if n != "quant_cache"])
-def test_baseline_matches_reference(models, name):
-    m = models["olmoe-smoke"]
-    te, tr = _run_both(m, "olmoe-smoke", name)
+@pytest.mark.parametrize("key,name", [
+    *[pytest.param("olmoe-smoke", n, id=n) for n in FP_BASELINES],
+    *[pytest.param("mixtral8-smoke", n, id=f"mixtral8-smoke-{n}") for n in FP_BASELINES]])
+def test_baseline_matches_reference(models, key, name):
+    m = models[key]
+    te, tr = _run_both(m, key, name)
     tm = tr["metrics"]
     if name == "stream_all":
         # N * K per MoE layer and step: the prompt's tokens, then B a step

@@ -4,7 +4,12 @@
 capacity, paper Sec 3.2 / D.5) through both packages' ``make_engine``,
 and the two engine baselines with INT4 experts (``stream_all`` and
 ``cpu_execute`` with ``quantized=True``: every expert runs through the
-per-expert INT4 spillover, the slab stays empty).
+per-expert INT4 spillover, the slab stays empty); and ``quant_cache`` on
+``mixtral-8x7b-smoke`` at Mixtral's expert ratios (8 experts, top-2, C =
+2: 6 INT4 residents of 8, so the spillover runs). The JAX engine is built
+with ``kernel_backend="ref"`` (its default, which the reference's
+``make_engine`` keeps): its "auto" INT4 slab is a reference caveat
+(ROADMAP, Queue 3).
 
 The JAX engine quantizes its experts eagerly (HQQ, ``iters=4``); the
 port computes on those codes, carried across by
@@ -33,29 +38,43 @@ pytestmark = pytest.mark.torch
 
 @pytest.fixture(scope="module")
 def models():
-    return build("granite-smoke")
+    return {**build("granite-smoke"), **build("mixtral8-smoke")}
 
 
 _SHARED = {}
 
 
-@pytest.mark.parametrize("name", ["quant_cache", "stream_all", "cpu_execute"])
-def test_int4_baseline_matches_reference(models, monkeypatch, name):
-    jcfg, tcfg, jparams, tree, toks, _ = models["granite-smoke"]
+@pytest.mark.parametrize("key,cap,name", [
+    *[pytest.param("granite-smoke", 1, n, id=n)
+      for n in ("quant_cache", "stream_all", "cpu_execute")],
+    pytest.param("mixtral8-smoke", 2, "quant_cache", id="mixtral8-smoke-quant_cache")])
+def test_int4_baseline_matches_reference(models, monkeypatch, key, cap, name):
+    jcfg, tcfg, jparams, tree, toks, _ = models[key]
     monkeypatch.setattr(jax_engine_mod, "quantize_linear", _memo_quantize_linear)
     jspec = dataclasses.replace(jb.BASELINES[name], quantized=True)
     tspec = dataclasses.replace(tb.BASELINES[name], quantized=True)
-    je = jb.make_engine(jcfg, jparams, jspec, capacity=1, hw=PCIE5_H100)
+    je = jb.make_engine(jcfg, jparams, jspec, capacity=cap, hw=PCIE5_H100)
+    assert je.kernel_backend == "ref"
     names = ("_jit_cache", "_embed_fn", "_next_tok_fn", "_slab_set")
-    for n, v in _SHARED.setdefault("granite", {n: getattr(je, n) for n in names}).items():
+    for n, v in _SHARED.setdefault(key, {n: getattr(je, n) for n in names}).items():
         setattr(je, n, v)
-    te = tb.make_engine(tcfg, params_from_jax(tree, tcfg), tspec, capacity=1, hw=HW,
+    te = tb.make_engine(tcfg, params_from_jax(tree, tcfg), tspec, capacity=cap, hw=HW,
                         device="cpu",
                         quantized_experts=quantized_experts_from_jax(je.host_store))
-    assert te.capacity == je.capacity == (3 if name == "quant_cache" else 1)
+    assert te.capacity == je.capacity == (3 * cap if name == "quant_cache" else cap)
+    assert te.capacity < tcfg.moe_spec.num_experts
     assert te.expert_bytes == je.expert_bytes_q
+    spills = []
+    real_spill = te._quant_spillover
+
+    def spill(*a, **k):
+        spills.append(1)
+        return real_spill(*a, **k)
+
+    te._quant_spillover = spill
     jr = je.generate(toks, max_new_tokens=5)
     tr = te.generate(toks, max_new_tokens=5)
+    assert spills  # experts outside the INT4 slab ran through the spillover
     np.testing.assert_array_equal(tr["tokens"].numpy(), np.asarray(jr["tokens"]))
     jm, tm = jr["metrics"], tr["metrics"]
     for f in ("transfers", "transfer_bytes", "host_executed", "host_time",

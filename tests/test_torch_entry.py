@@ -41,6 +41,22 @@ def test_run_on_cpu_at_smoke_size(capsys):
     np.testing.assert_array_equal(again["tokens"], rep["tokens"])
 
 
+def test_a_cut_depth_name_resolves_to_the_first_layers():
+    """``<arch>-<N>l`` names ``<arch>`` cut to its first N layers, in any
+    process that resolves it (the fleet's workers, spawned children)."""
+    import dataclasses
+
+    full, cut = get_config("olmoe-mini"), get_config("olmoe-mini-2l")
+    assert (cut.name, cut.n_layers, cut.n_moe_layers) == ("olmoe-mini-2l", 2, 2)
+    assert dataclasses.replace(cut, name=full.name, layout=full.layout) == full
+    assert get_config("mixtral-8x7b-8l").n_layers == 8
+    for bad in ("olmoe-mini-9l", "olmoe-mini-0l"):
+        with pytest.raises(ValueError, match="whole number"):
+            get_config(bad)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("no-such-arch-2l")
+
+
 def test_quantized_run_on_cpu_at_smoke_size(capsys):
     rep = serve.main(["--arch", "granite-moe-1b-a400m-smoke", "--device", "cpu",
                       "--capacity", "2", "--batch", "2", "--prompt-len", "8",

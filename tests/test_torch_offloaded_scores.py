@@ -66,14 +66,32 @@ def _requests(prompts):
             for i, p in enumerate(prompts)]
 
 
+@pytest.fixture(scope="module")
+def draws():
+    """Per config and dtype, drawn once for the module's tests (the oracle
+    reads the trees and the store and writes none of them): the seed's tree
+    with its experts (the whole tree), and the same draw offloaded (params
+    with meta experts, the host store)."""
+    memo = {}
+
+    def get(cfg, dtype):
+        if (cfg.name, dtype) not in memo:
+            whole = init_params(cfg, generator=torch.Generator().manual_seed(0), dtype=dtype,
+                                device="cpu")
+            params, store, _ = offloaded_params(cfg, dtype=dtype, device="cpu")
+            memo[cfg.name, dtype] = whole, params, store
+        return memo[cfg.name, dtype]
+
+    yield get
+    memo.clear()
+
+
 @pytest.mark.parametrize("lora", [False, True], ids=["nolora", "lora"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("arch", ["mixtral-8x7b-smoke", "olmoe-mini"])
-def test_streamed_oracle_is_bit_equal_to_the_whole_tree(monkeypatch, arch, dtype, lora):
+def test_streamed_oracle_is_bit_equal_to_the_whole_tree(monkeypatch, draws, arch, dtype, lora):
     cfg = get_config(arch)
-    whole = init_params(cfg, generator=torch.Generator().manual_seed(0), dtype=dtype,
-                        device="cpu")
-    params, store, _ = offloaded_params(cfg, dtype=dtype, device="cpu")
+    whole, params, store = draws(cfg, dtype)
     assert all(params["groups"]["g0"][p]["ffn"][k].is_meta
                for p in params["groups"]["g0"] for k in ("wg", "wu", "wd"))
     kw = {}

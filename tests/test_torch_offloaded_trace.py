@@ -85,12 +85,27 @@ def _draws(cfg, dtype):
     return whole, params, store
 
 
+@pytest.fixture(scope="module")
+def draws():
+    """``_draws`` once per config and dtype for the module's tests (a
+    trace reads the trees and the store and writes none of them)."""
+    memo = {}
+
+    def get(cfg, dtype):
+        if (cfg.name, dtype) not in memo:
+            memo[cfg.name, dtype] = _draws(cfg, dtype)
+        return memo[cfg.name, dtype]
+
+    yield get
+    memo.clear()
+
+
 @pytest.mark.parametrize("lora", [False, True], ids=["nolora", "lora"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_streamed_trace_is_bit_equal_to_the_whole_tree(monkeypatch, arch, dtype, lora):
+def test_streamed_trace_is_bit_equal_to_the_whole_tree(monkeypatch, draws, arch, dtype, lora):
     cfg = get_config(arch)
-    whole, params, store = _draws(cfg, dtype)
+    whole, params, store = draws(cfg, dtype)
     kw = {}
     if lora:
         kw = dict(lora=lora_from_jax(cfg, lora_tree(cfg, 1), dtype=dtype),
@@ -113,9 +128,9 @@ def test_streamed_trace_is_bit_equal_to_the_whole_tree(monkeypatch, arch, dtype,
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_streamed_trace_stages_one_layer_at_a_time_whatever_the_batch(monkeypatch, arch):
+def test_streamed_trace_stages_one_layer_at_a_time_whatever_the_batch(monkeypatch, draws, arch):
     cfg = get_config(arch)
-    params, store, _ = serve.offloaded_params(cfg, dtype=torch.float32, device="cpu")
+    _, params, store = draws(cfg, torch.float32)
     for n, max_new in ((1, 2), (7, 5)):
         staged = Staged()
         monkeypatch.setattr(inference_engine, "stage_experts", staged)
