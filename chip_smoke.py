@@ -85,8 +85,8 @@ From the root of a checkout, with CUDA available:
    through ``repro_torch.launch.serve.run``: C = 16, batch 4, prompt 128,
    32 new tokens, counters set to 0 just before; asserts launches per
    phase and route and holds the prefill logits against the plain
-   versions, in fp32 first (``FP32_LOGITS_REL_TOL``), then in bf16
-   (``DEEPSEEK_BF16_LOGITS_REL_TOL``);
+   versions, in bf16 (``DEEPSEEK_BF16_LOGITS_REL_TOL``) and in fp32 on its
+   first ``DEEPSEEK_FP32_LAYERS`` layers (``FP32_LOGITS_REL_TOL``);
 10. writes a params-only checkpoint of olmoe-mini-smoke with the port's
    ``save_checkpoint``, serves it with ``launch.serve --ckpt`` on the card
    and asserts the tokens of the in-memory run;
@@ -235,17 +235,18 @@ From the root of a checkout, with CUDA available:
    slab engine on phase 4's batch, full-width OLMoE at C = 16: (a) fp32 on
    the first 4 layers, dict against slab on one pinned store: equal
    tokens, transfers, bytes, hits, misses, evictions and both Eq.-3
-   clocks; (b) bf16, full depth, both on one store: the dict engine's
-   prefill logits against its plain run, one ``flash_attn`` ``tc`` a layer
-   in its prefill and no ``moe_gmm`` or ``int4_matmul`` launch (its expert
-   products are ``torch.matmul``); (c) INT4 codes of the same experts, both
-   engines: the dict engine's ``int4_matmul`` on ``tc`` in prefill and
-   ``stream`` in decode, its logits against the INT4 slab engine's; (d)
+   clocks; (b) bf16 on the first ``DICT_LAYERS`` layers, both on one store:
+   the dict engine's prefill logits against its plain run, one
+   ``flash_attn`` ``tc`` a layer in its prefill and no ``moe_gmm`` or
+   ``int4_matmul`` launch (its expert products are ``torch.matmul``); (c)
+   INT4 codes of the same experts, both engines: the dict engine's
+   ``int4_matmul`` on ``tc`` in prefill and ``stream`` in decode, its
+   logits against the INT4 slab engine's on the same codes; (d)
    ``launch.bench_serve --offloaded --engine-impl dict`` at full width on
    ``LAUNCHER_LAYERS`` layers, phase 4's shape (4 requests of 128 + 32
    tokens, one wave);
    each engine's prefill s, decode tok/s, transfers, hit rate, clocks and
-   launches by phase and route printed side by side;
+   launches by phase and route printed side by side (``dict_phase``);
 21. expert parallelism: two processes over gloo (NCCL takes one rank per
    device), (1, 2) ("data", "model") meshes: (a) on the card,
    ``apply_moe_sharded`` at OLMoE's MoE width (32 experts a rank), 4 x 128
@@ -342,7 +343,7 @@ From the root of a checkout, with CUDA available:
    request, each checkpoint read's MemAvailable drop within the store + one
    layer + ``MIXTRAL_RSS_MARGIN``; (c) then (d) in a third child. (e)
    the paper's comparison systems (``core/baselines.py``, Fig. 3), each
-   built by ``make_engine(..., capacity=2)`` on a child's kept store with
+   built by ``make_engine(..., capacity=C)`` on a child's kept store with
    the other weights re-drawn from the seed (``mixtral_baselines``): the
    six bf16 ones in the bf16 child after (b), ``melinoe`` prefetching (b)'s
    Psi scores, and ``quant_cache`` (INT4, 3C = 6) in the INT4 child, each
@@ -359,11 +360,23 @@ From the root of a checkout, with CUDA available:
    child's MemAvailable drop across its rows under
    ``MIXTRAL_BASELINE_HOST_BYTES``; each row's peak device memory within the
    non-expert weights + its slab + one layer's experts +
-   ``MIXTRAL_BASELINE_ACT_BYTES``. The kernel cases of step 3
-   include Mixtral's shapes (``mixtral_gmm_cases``,
-   ``MIXTRAL_FLASH_SHAPES``, ``MIXTRAL_INT4_SHAPES``; the gmm shapes of (e),
+   ``MIXTRAL_BASELINE_ACT_BYTES``. C is the config's cache capacity
+   (``OFFLOAD_SERVE``). The kernel cases of step 3 include Mixtral's shapes
+   (``offload_gmm_cases``, ``MIXTRAL_FLASH_SHAPES``,
+   ``offload_int4_shapes``; the gmm shapes of (e),
    ``MIXTRAL_BASELINE_GMM_SHAPES``);
-24. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
+24. Phi-3.5-MoE (paper Table 6/7: 32 layers, d 4096, 32 q / 8 kv heads of
+   128, 16 experts top-2, d_ff 6400, vocab 32,064; C = 4) offloaded at full
+   width as step 23(a) serves Mixtral, in two child processes: INT4 at
+   full depth, then bf16 at the depth MemAvailable allows (the 75.0 GiB
+   store + ``MIXTRAL_HOST_HEADROOM_GIB``), 4 x (128 + 16) tokens, gamma,
+   seed 0 (``phi_phase``). It prints and gates each row as 23(a) does
+   (``_offload_rows``), and also the peak device memory within the
+   non-expert weights + the slabs + one layer's overflow group (its 12
+   other experts) + ``OFFLOAD_ACT_BYTES``. The kernel cases of step 3
+   include Phi's ``moe_gmm`` and ``int4_matmul`` shapes (its
+   ``flash_attn`` shape is Mixtral's);
+25. prints ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": ...}``.
 
 Any failure raises (non-zero exit, no result line). Imports nothing of
 JAX or of the JAX package.
@@ -372,6 +385,7 @@ from __future__ import annotations
 
 import atexit
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -477,13 +491,21 @@ WAVE_BF16_LOGITS_REL_TOL = 3e-2
 # deepseek's 28 random bf16 layers: the kernel run read 0.0288 from the
 # plain run (H100 80GB HBM3, 700 W; 0.0322 with the plain path's attention
 # blockwise), as zamba2's 81 layers read 0.0418 (its limit 4.5e-2); held
-# first in fp32 at full width and depth to FP32_LOGITS_REL_TOL, where only
-# the order of sums differs, and with it a router's top-k choice at a near
-# tie: with the blockwise plain attention two tokens' top-6 experts differ
-# (the first where two router probabilities lie 7.1e-08 apart) and it reads
-# 8.54e-05, with the kernel run's routes replayed 1.73e-06
-# (tools/route_flips.py).
+# first in fp32 at full width to FP32_LOGITS_REL_TOL, where only the order
+# of sums differs. At full depth that check also met a router's top-k
+# choice at a near tie: with the blockwise plain attention two tokens'
+# top-6 experts differ (the first where two router probabilities lie
+# 7.1e-08 apart) and it read 8.54e-05, with the kernel run's routes
+# replayed 1.73e-06 (tools/route_flips.py).
 DEEPSEEK_BF16_LOGITS_REL_TOL = 4e-2
+# The fp32 check takes deepseek's first DEEPSEEK_FP32_LAYERS layers (the
+# dense layer and three MoE layers), as phase 23 holds Mixtral's kernels in
+# fp32 on its first layers: it reads each kernel's arithmetic at full width,
+# which depth does not change. At full depth its fp32 store (60 GB, in
+# pageable host memory: a pinned copy beside it does not fit the host) and
+# two prefills through it were most of the phase's 72.3 s of a 947.4 s run
+# (H100 80GB HBM3, 700 W); cut so that phase 24 fits the whole run's time.
+DEEPSEEK_FP32_LAYERS = 4
 # The MELINOE fine-tune (phases 12-13): batch 8 x 128 tokens, 4 steps.
 TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 128, 4
 # fp32 gradients of the 2-layer full-width fine-tune, kernels against plain
@@ -685,22 +707,30 @@ def gmm_cases(gen):
 MIXTRAL_BASELINE_GMM_SHAPES = ((8, 512), (6, 4))
 
 
-def mixtral_gmm_cases(gen, shapes=((2, 4), (6, 512))):
-    """moe_gmm at Mixtral-8x7B's expert shapes (8 experts, top-2, d_ff
-    14,336, C = 2), (groups, rows) by ``shapes``: by default the slab group
-    of a batch-4 decode step (2 slots of up to 4 rows, "stream") and a
-    prefill's overflow group (6 experts of 4 x 128 tokens' top-2 route,
-    "tc"), both projections' shapes."""
+def offload_gmm_cases(gen, arch: str, shapes=None):
+    """moe_gmm at ``arch``'s expert shapes (its experts, top-k, d_model and
+    d_ff; C its config's cache capacity, the paper's Table 7), (groups,
+    rows) by ``shapes``: by default the slab group of a batch-4 decode step
+    (C slots of up to 4 rows, "stream") and a prefill's overflow group (the
+    E - C other experts of 4 x 128 tokens' top-k route, "tc"), both
+    projections' shapes. Mixtral-8x7B: (2, 4) and (6, 512) of 8 experts,
+    d_ff 14,336; Phi-3.5-MoE: (4, 4) and (12, 512) of 16, d_ff 6400."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    spec = cfg.moe_spec
+    E, k, d, f = spec.num_experts, spec.top_k, cfg.d_model, spec.d_ff
+    C = cfg.melinoe_cache_capacity()
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
-        for G, M in shapes:
+        for G, M in shapes or ((C, 4), (E - C, 512)):
             if M == 4:
                 sizes = torch.randint(1, M + 1, (G,), generator=gen, device="cuda",
                                       dtype=torch.int32)
-            else:  # the rows a real top-2 route of M tokens gives G of the 8 experts
-                eids = torch.randn(M, 8, generator=gen, device="cuda").topk(2, dim=-1).indices
-                sizes = torch.bincount(eids.reshape(-1), minlength=8)[:G].to(torch.int32)
-            for K, F in ((4096, 14_336), (14_336, 4096)):
+            else:  # the rows a real top-k route of M tokens gives G of the E experts
+                eids = torch.randn(M, E, generator=gen, device="cuda").topk(k, dim=-1).indices
+                sizes = torch.bincount(eids.reshape(-1), minlength=E)[:G].to(torch.int32)
+            for K, F in ((d, f), (f, d)):
                 a = torch.randn(G, M, K, generator=gen, device="cuda")
                 a = (a * (torch.arange(M, device="cuda")[None, :, None]
                           < sizes[:, None, None])).to(dtype)
@@ -859,10 +889,17 @@ def blockwise_cases(gen) -> list:
 
 INT4_SHAPES = [(M, K, N) for M in (1, 4, 512) for K, N in ((2048, 1024), (1024, 2048))]
 INT4_SHAPES.append((7, 2048, 1000))  # ragged: M and N tails of both tiles
-# Mixtral-8x7B's INT4 spillover: every token of the step against one
-# spilled expert, 4 rows in decode ("stream"), 512 in prefill ("tc")
-MIXTRAL_INT4_SHAPES = [(M, K, N) for M in (4, 512) for K, N in ((4096, 14_336),
-                                                                 (14_336, 4096))]
+
+
+def offload_int4_shapes(arch: str) -> list:
+    """``arch``'s INT4 spillover: every token of the step against one
+    spilled expert's (d_model, d_ff) and (d_ff, d_model) matrices, 4 rows in
+    decode ("stream"), 512 in prefill ("tc"), as (M, K, N)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    d, f = cfg.d_model, cfg.moe_spec.d_ff
+    return [(M, K, N) for M in (4, 512) for K, N in ((d, f), (f, d))]
 
 
 def int4_cases(gen, shapes=INT4_SHAPES):
@@ -1421,17 +1458,25 @@ def serve_wave(arch: str = "olmoe", device: str = "cuda") -> dict:
 
 
 def deepseek_fp32_rel(arch: str, device: str, capacity: int) -> float:
-    """The deepseek phase's prefill (4 x 128 tokens, full width and depth)
-    in fp32, kernels against plain versions: fp32 weights from seed 0,
-    the experts kept in pageable host memory and served as the engines'
-    store as they are (60 GB: a second, pinned copy would not fit the
-    host). Returns ||kernel - plain|| / ||plain||."""
+    """The deepseek phase's prefill (4 x 128 tokens, full width) in fp32 on
+    its first DEEPSEEK_FP32_LAYERS layers, kernels against plain versions: fp32
+    weights from seed 0, the experts kept in pageable host memory and served
+    as the engines' store as they are (at full depth 60 GB: a second,
+    pinned copy would not fit the host). Returns ||kernel - plain|| /
+    ||plain||."""
     from repro_torch.configs import get_config
     from repro_torch.core.offload_engine import OffloadedMoEEngine
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models.model import init_params
 
     cfg = get_config(arch)
+    groups, left = [], DEEPSEEK_FP32_LAYERS
+    for g in cfg.layout:  # the layout's groups in order, up to that depth
+        r = min(g.repeats, left // len(g.pattern))
+        if r:
+            groups.append(dataclasses.replace(g, repeats=r))
+        left -= r * len(g.pattern)
+    cfg = dataclasses.replace(cfg, layout=tuple(groups))
     dev = torch.device(device)
     params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
                          dtype=torch.float32, device=dev, expert_device="cpu")
@@ -1499,16 +1544,18 @@ def serve_deepseek(arch: str = "deepseek-moe-16b", device: str = "cuda",
     del store, ref
     gc.collect()
     torch.cuda.empty_cache()
+    t = time.perf_counter()
     rel32 = deepseek_fp32_rel(arch, device, capacity)
-    print(f"deepseek prefill logits kernel vs plain: fp32 rel {rel32:.3g} (tol "
-          f"{FP32_LOGITS_REL_TOL}); bf16 rel {rel:.4g} (tol {DEEPSEEK_BF16_LOGITS_REL_TOL}), "
-          f"top-1 agreement {top1:.2f}")
+    fp32_s = time.perf_counter() - t
+    print(f"deepseek prefill logits kernel vs plain: fp32 rel {rel32:.3g} on "
+          f"{DEEPSEEK_FP32_LAYERS} layers (tol {FP32_LOGITS_REL_TOL}; {fp32_s:.1f} s); bf16 "
+          f"rel {rel:.4g} (tol {DEEPSEEK_BF16_LOGITS_REL_TOL}), top-1 agreement {top1:.2f}")
     if not (math.isfinite(rel32) and rel32 <= FP32_LOGITS_REL_TOL):
         raise AssertionError(f"deepseek: fp32 prefill logits disagree: rel {rel32}")
     if not (math.isfinite(rel) and rel <= DEEPSEEK_BF16_LOGITS_REL_TOL):
         raise AssertionError(f"deepseek: prefill logits disagree: rel {rel}")
     rep.update(launches_total=launches, route_launches_total=routes, gmm_by_phase=by_phase,
-               logits_rel=rel, fp32_logits_rel=rel32, top1=top1,
+               logits_rel=rel, fp32_logits_rel=rel32, fp32_s=fp32_s, top1=top1,
                phase_s=time.perf_counter() - t_phase)
     print(f"deepseek phase: {rep['phase_s']:.1f} s")
     return rep
@@ -3163,29 +3210,26 @@ def fleet_phase(arch: str = "olmoe", device: str = "cuda") -> dict:
 # DICT_FP32_LAYERS layers of full-width OLMoE (as phase 17 cuts its fp32
 # checks), the main batch
 DICT_FP32_LAYERS = 4
+# (b) and (c), the dict engine's bf16 and INT4 serves beside the slab
+# engine's on the same store or codes, take the first LAUNCHER_LAYERS layers
+# of full-width OLMoE: their gates read the dict engine's plumbing (one
+# flash_attn a layer, no moe_gmm; int4_matmul by phase and route; its
+# logits against its plain run and against the slab engine on the same
+# codes), which depth does not change. Cut so that phase 24 (Phi-3.5-MoE
+# offloaded) fits the whole run's time: the full-depth serves took 63.7 s
+# of a 947.4 s run (H100 80GB HBM3, 700 W).
+DICT_LAYERS = LAUNCHER_LAYERS
 # the dict engine's bf16 serve: one flash_attn a layer in the prefill, its
 # expert products torch.matmul (no moe_gmm); INT4: int4_matmul, three per
 # needed expert and layer-step (a positive multiple of 3)
-PATH_LAUNCHES["dict-bf16"] = {"moe_gmm": 0, "flash_attn": 16, "int4_matmul": 0}
-PATH_LAUNCHES["dict-int4"] = {"moe_gmm": 0, "flash_attn": 16, "int4_matmul": None}
+PATH_LAUNCHES["dict-bf16"] = {"moe_gmm": 0, "flash_attn": DICT_LAYERS, "int4_matmul": 0}
+PATH_LAUNCHES["dict-int4"] = {"moe_gmm": 0, "flash_attn": DICT_LAYERS, "int4_matmul": None}
 # (d): the launcher at full width on phase 4's shape, one wave
 DICT_BENCH = ["--arch", "olmoe", "--offloaded", "--engine-impl", "dict", "--n-requests",
               "4", "--slots", "4", "--prompt-len", "128", "--max-new", "32", "--arrival",
               "all_at_once"]
 _COUNTS = ("transfers", "transfer_bytes", "hits", "misses", "evictions", "modeled_time_s",
            "modeled_time_overlapped_s")
-
-
-def _slab_row(rep: dict) -> dict:
-    """Phase 4's or 5's report (``launch.serve.run``: the slab engine on the
-    same weights, batch and cache) as a row of the dict phase's table, its
-    tokens and prefill logits beside."""
-    return {**{k: rep[k] for k in ("prefill_s", "decode_tok_s", "transfers", "transfer_bytes",
-                                   "hit_rate", "hits", "misses", "modeled_time_s",
-                                   "modeled_time_overlapped_s")},
-            "by_phase": rep["route_launches"], "expert_copies": rep["expert_copies"],
-            "impl": "slab",
-            "tokens": torch.as_tensor(rep["tokens"]), "prefill_logits": rep["prefill_logits"]}
 
 
 def _engine_row(eng, prompts, dev) -> tuple:
@@ -3222,26 +3266,26 @@ def dict_bench(device: str = "cuda", capacity: int = 16, bench=DICT_BENCH) -> di
     return row
 
 
-def dict_phase(slab: dict, arch: str = "olmoe", device: str = "cuda",
+def dict_phase(arch: str = "olmoe", device: str = "cuda",
                fp32_layers: int = DICT_FP32_LAYERS, capacity: int = 16,
-               bench=DICT_BENCH) -> dict:
+               bench=DICT_BENCH, layers: int = DICT_LAYERS) -> dict:
     """Phase 20, the per-expert engine (``impl="dict"``) beside the slab
     engine, full-width OLMoE at C = 16 (gamma), phase 4's batch: (a) fp32 on
     the first ``fp32_layers`` layers, dict against slab on one store:
     equal tokens, transfers and bytes, hits, misses, evictions and both
-    Eq.-3 clocks; (b) bf16, full depth, phase 4's weights: the dict
-    engine's prefill logits against its plain run (LOGITS_REL_TOL), one
-    ``flash_attn`` ``tc`` launch a layer in the prefill, no ``moe_gmm`` and
-    no ``int4_matmul`` launch; (c) INT4 (phase 5's codes, quantized again
-    from the same experts), bf16: ``int4_matmul`` on ``tc`` in the prefill
-    and ``stream`` in decode, both > 0, tokens equal to phase 5's or
-    prefill logits within LOGITS_REL_TOL of them; (d) :func:`dict_bench`.
-    Prints each engine's
+    Eq.-3 clocks; (b) bf16 on the first ``layers`` layers (DICT_LAYERS),
+    phase 4's weights: the dict engine's prefill logits against its plain
+    run (LOGITS_REL_TOL), one ``flash_attn`` ``tc`` launch a layer in the
+    prefill, no ``moe_gmm`` and no ``int4_matmul`` launch, the slab engine
+    on its store beside it; (c) INT4 codes of the same experts, bf16, the
+    slab engine then the dict engine on them: the dict engine's
+    ``int4_matmul`` on ``tc`` in the prefill and ``stream`` in decode, both
+    > 0, tokens equal to the slab engine's or prefill logits within
+    LOGITS_REL_TOL of them; (d) :func:`dict_bench`. Prints each engine's
     prefill s, decode tok/s, transfers, hit rate, both clocks and launches
-    by phase and route beside the slab engine's of phases 4 and 5
-    (``slab``: :func:`_slab_row` of each, "slab-bf16" and "slab-int4").
-    ``arch``/``device``/``fp32_layers``/``capacity``/``bench``: a smaller
-    model or the CPU, to rehearse the phase's logic."""
+    by phase and route side by side. ``arch``/``device``/``fp32_layers``/
+    ``capacity``/``bench``/``layers``: a smaller model or the CPU, to
+    rehearse the phase's logic."""
     from repro_torch.configs import get_config
     from repro_torch.core.offload_engine import OffloadedMoEEngine
     from repro_torch.core.quant import matmul_layout, quantize_linear
@@ -3253,7 +3297,7 @@ def dict_phase(slab: dict, arch: str = "olmoe", device: str = "cuda",
     dev = torch.device(device)
     prompts = make_prompts(cfg.vocab, 4, 128)
     kw = dict(capacity=capacity, policy="gamma", device=dev)
-    rows = dict(slab)
+    rows = {}
 
     # ---- (a) fp32, the first layers: dict against slab on one store
     cut = get_config(_cut_arch(arch, fp32_layers))
@@ -3280,35 +3324,41 @@ def dict_phase(slab: dict, arch: str = "olmoe", device: str = "cuda",
                              f"logits rel {fp32_rel}")
     del res_s, res_d
 
-    # ---- (b) bf16, full depth: phase 4's weights, the plain run on its store
-    params = init_params(cfg, generator=torch.Generator(device=dev).manual_seed(0),
+    # ---- (b) bf16, the first layers: phase 4's weights, the plain run and
+    # the slab engine on the dict engine's store
+    cut = get_config(_cut_arch(arch, min(layers, cfg.n_layers)))
+    n = cut.n_layers
+    params = init_params(cut, generator=torch.Generator(device=dev).manual_seed(0),
                          dtype=torch.bfloat16, device=dev, expert_device="cpu")
-    eng = OffloadedMoEEngine(cfg, params, impl="dict", **kw)
+    eng = OffloadedMoEEngine(cut, params, impl="dict", **kw)
     store = eng.host_store
     _strip_experts(params)
     gc.collect()
     res, rows["dict-bf16"] = _engine_row(eng, prompts, dev)
     del eng
-    plain = OffloadedMoEEngine(cfg, params, host_store=store, impl="dict",
+    plain = OffloadedMoEEngine(cut, params, host_store=store, impl="dict",
                                kernel_backend="ref", **kw)
     plain_logits = plain.generate(prompts, max_new_tokens=1)["prefill_logits"]
     del plain
     rows["dict-bf16"]["logits_rel_plain"] = rel = _rel(res["prefill_logits"], plain_logits)
     del res
-    check_path("dict-bf16", rows["dict-bf16"]["launches_total"],
-               rows["dict-bf16"]["route_launches"])
+    _, rows["slab-bf16"] = _engine_row(OffloadedMoEEngine(cut, params, host_store=store, **kw),
+                                       prompts, dev)
+    if dev.type == "cuda":
+        check_path("dict-bf16", rows["dict-bf16"]["launches_total"],
+                   rows["dict-bf16"]["route_launches"])
     flash_pre = rows["dict-bf16"]["by_phase"]["prefill"].get("flash_attn", {})
-    print(f"dict engine bf16 prefill logits vs plain: rel {rel:.3g} (tol {LOGITS_REL_TOL}); "
-          f"flash_attn in its prefill {flash_pre}")
-    if (dev.type == "cuda" and flash_pre != {"tc": cfg.n_layers}) or not (
+    print(f"dict engine bf16, {n} layers, prefill logits vs plain: rel {rel:.3g} (tol "
+          f"{LOGITS_REL_TOL}); flash_attn in its prefill {flash_pre}")
+    if (dev.type == "cuda" and flash_pre != {"tc": n}) or not (
             math.isfinite(rel) and rel <= LOGITS_REL_TOL):
         raise AssertionError(f"dict engine bf16: flash {flash_pre}, logits rel {rel}")
 
-    # ---- (c) INT4: phase 5's codes of the same experts
+    # ---- (c) INT4: codes of the same experts, the slab engine then the dict engine
     t0 = time.perf_counter()
     qexp = [{k: matmul_layout(quantize_linear(layer[k].to(dev), iters=4, group=32))
              for k in ("wg", "wu", "wd")} for layer in store]
-    for gi, g in enumerate(cfg.layout):  # the engines read only the experts' shapes
+    for gi, g in enumerate(cut.layout):  # the engines read only the experts' shapes
         for bp in params["groups"][f"g{gi}"].values():
             if "router" in bp.get("ffn", {}):
                 for k, v in store[0].items():
@@ -3316,30 +3366,35 @@ def dict_phase(slab: dict, arch: str = "olmoe", device: str = "cuda",
                                                device="meta")
     del store
     print(f"INT4 codes for the dict phase: {time.perf_counter() - t0:.1f} s")
-    eng = OffloadedMoEEngine(cfg, params, quantized=True, quantized_experts=qexp,
+    slab_q, rows["slab-int4"] = _engine_row(
+        OffloadedMoEEngine(cut, params, quantized=True, quantized_experts=qexp, **kw),
+        prompts, dev)
+    eng = OffloadedMoEEngine(cut, params, quantized=True, quantized_experts=qexp,
                              impl="dict", **kw)
     res, rows["dict-int4"] = _engine_row(eng, prompts, dev)
-    check_path("dict-int4", rows["dict-int4"]["launches_total"],
-               rows["dict-int4"]["route_launches"])
+    if dev.type == "cuda":
+        check_path("dict-int4", rows["dict-int4"]["launches_total"],
+                   rows["dict-int4"]["route_launches"])
     del eng, qexp, params
     gc.collect()
     torch.cuda.empty_cache()
     int4 = {ph: r.get("int4_matmul", {}) for ph, r in rows["dict-int4"]["by_phase"].items()}
     qrel = rows["dict-int4"]["logits_rel_slab"] = _rel(res["prefill_logits"],
-                                                       slab["slab-int4"]["prefill_logits"])
+                                                       slab_q["prefill_logits"])
     q_eq = rows["dict-int4"]["tokens_equal_slab"] = bool(torch.equal(
-        res["tokens"].cpu(), slab["slab-int4"]["tokens"].cpu()))
-    del res
+        res["tokens"].cpu(), slab_q["tokens"].cpu()))
+    del res, slab_q
     print(f"dict engine INT4: int4_matmul by phase and route {int4}; tokens equal the INT4 "
           f"slab engine's {q_eq}, prefill logits vs its rel {qrel:.3g} (tol {LOGITS_REL_TOL})")
     if (dev.type == "cuda" and (set(int4["prefill"]) != {"tc"} or set(int4["decode"]) != {
-            "stream"} or min(n for r in int4.values() for n in r.values()) <= 0)
+            "stream"} or min(c for r in int4.values() for c in r.values()) <= 0)
             or not (q_eq or (math.isfinite(qrel) and qrel <= LOGITS_REL_TOL))):
         raise AssertionError(f"dict engine INT4: int4_matmul {int4}, tokens equal {q_eq}, "
                              f"logits rel {qrel}")
 
     rows["bench-dict"] = dict_bench(device, capacity, bench)
 
+    print(f"(fp32 rows on {fp32_layers} layers, the others on {n}; bench-dict below)")
     print("engine          prefill_s  decode_tok/s  transfers  hit_rate  serial_s  "
           "overlap_s  copies(pre/dec)  gmm(pre/dec)  flash(pre)  int4(pre/dec)")
     for name, r in rows.items():
@@ -3353,10 +3408,7 @@ def dict_phase(slab: dict, arch: str = "olmoe", device: str = "cuda",
               f"{ph['prefill'].get('moe_gmm')}/{ph['decode'].get('moe_gmm')}  "
               f"{ph['prefill'].get('flash_attn')}  "
               f"{ph['prefill'].get('int4_matmul')}/{ph['decode'].get('int4_matmul')}")
-    for r in rows.values():  # the report keeps numbers only
-        r.pop("tokens", None)
-        r.pop("prefill_logits", None)
-    rep = {"rows": rows, "phase_s": time.perf_counter() - t_phase}
+    rep = {"rows": rows, "layers": n, "phase_s": time.perf_counter() - t_phase}
     print(f"dict phase: {rep['phase_s']:.1f} s")
     return rep
 
@@ -4091,9 +4143,12 @@ def dryrun_phase(bg: subprocess.Popen, out_dir: Path, arch: str = "olmoe",
 # C = 2) offloaded at full width through launch.serve.run, 4 x (128 + 16)
 # tokens, gamma, random weights from seed 0, one child process per store
 # (INT4 at full depth, then bf16) so that each build's host memory is its own.
+# Phase 24 serves Phi-3.5-MoE (PHI) the same way. C is each config's cache
+# capacity (paper Table 7: E/4), which run(capacity=0) and bench_serve's
+# --capacity 0 take: Mixtral 2, Phi 4.
 MIXTRAL = "mixtral-8x7b"
-MIXTRAL_SERVE = dict(capacity=2, policy="gamma", batch=4, prompt_len=128, seed=0)
-MIXTRAL_NEW = 16
+OFFLOAD_SERVE = dict(policy="gamma", batch=4, prompt_len=128, seed=0)
+OFFLOAD_NEW = 16
 # host memory the bf16 phase leaves free beside its store: it serves at
 # full depth where MemAvailable at its start holds the 84.0 GiB store plus
 # this, else at the deepest depth that does (2.625 GiB of experts a layer)
@@ -4138,7 +4193,7 @@ MIXTRAL_ROUNDOFF_SPAN = 1 + ACCURACY_RATIO
 # requests in waves of 2 took 40.8 s of a 1124.5 s chip_smoke run on a
 # slow host, H100 80GB HBM3, 700 W; two fewer requests save about 8 s.)
 MIXTRAL_BENCH_REQUESTS = 2
-MIXTRAL_BENCH = ["--dtype", "bfloat16", "--offloaded", "--capacity", "2",
+MIXTRAL_BENCH = ["--dtype", "bfloat16", "--offloaded",
                  "--scheduler", "expert-affinity", "--n-requests",
                  str(MIXTRAL_BENCH_REQUESTS), "--slots", "2", "--prompt-len", "128",
                  "--max-new", "8", "--arrival", "all_at_once"]
@@ -4201,7 +4256,7 @@ def _mixtral_trace_act_bytes(cfg, layers: int) -> dict:
 
     spec = cfg.moe_spec
     (attn,) = {b.attn for b in cfg.block_defs.values()}
-    B, T = PSI_TRAIN_PROMPTS, MIXTRAL_SERVE["prompt_len"]
+    B, T = PSI_TRAIN_PROMPTS, OFFLOAD_SERVE["prompt_len"]
     n, E, d, f = B * T, spec.num_experts, cfg.d_model, spec.d_ff
     return {"logits": n * cfg.vocab * (4 + 2),
             "kv": 2 * 2 * layers * B * (T + PSI_TRACE_NEW) * attn.n_kv_heads
@@ -4212,12 +4267,12 @@ def _mixtral_trace_act_bytes(cfg, layers: int) -> dict:
 
 def mixtral_baselines(store, names, psi_scores=None, arch: str = MIXTRAL,
                       device: str = "cuda", dtype=torch.bfloat16,
-                      batch: int = MIXTRAL_SERVE["batch"],
-                      prompt_len: int = MIXTRAL_SERVE["prompt_len"],
+                      batch: int = OFFLOAD_SERVE["batch"],
+                      prompt_len: int = OFFLOAD_SERVE["prompt_len"],
                       new: int = MIXTRAL_BASELINE_NEW) -> dict:
     """Phase 23(e) on one kept store (``run(keep_store=True)``'s
     ``host_store``, bf16 or INT4): ``arch``'s other weights re-drawn from
-    MIXTRAL_SERVE's seed with the experts on ``meta`` (``init_params``
+    OFFLOAD_SERVE's seed with the experts on ``meta`` (``init_params``
     draws the same stream whether or not a store is given, so these are
     the weights the store was drawn with), then each system of ``names``
     built by ``make_engine(cfg, params, BASELINES[name], capacity=C,
@@ -4239,14 +4294,14 @@ def mixtral_baselines(store, names, psi_scores=None, arch: str = MIXTRAL,
     dev = torch.device(device)
     avail0 = host_available_bytes()
     params = init_params(
-        cfg, generator=torch.Generator(device=dev).manual_seed(MIXTRAL_SERVE["seed"]),
+        cfg, generator=torch.Generator(device=dev).manual_seed(OFFLOAD_SERVE["seed"]),
         dtype=dtype, device=dev, expert_device="meta")
     prompts = make_prompts(cfg.vocab, batch, prompt_len)
     rows, tokens, logits = {}, {}, {}
     for name in names:
         spec = BASELINES[name]
         t = time.perf_counter()
-        eng = make_engine(cfg, params, spec, capacity=MIXTRAL_SERVE["capacity"],
+        eng = make_engine(cfg, params, spec, capacity=cfg.melinoe_cache_capacity(),
                           hw=HardwareProfile(), device=dev, host_store=store)
         if spec.use_predictor:
             eng.prefetch(psi_scores)
@@ -4283,31 +4338,32 @@ def _child_start(device: str) -> torch.device:
     return dev
 
 
-def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
-                   device: str, fp32_layers: int) -> None:
-    """One store of phase 23 in a process of its own: ``launch.serve.run``
-    of ``arch`` cut to ``layers`` with ``kind`` ("int4" or "bf16")
-    experts, counters from 0, then the plain run on the same store
-    (``max_new`` 1); for "int4" also the plain run in fp32 activations on
-    the same codes, and the fp32 kernel-vs-plain prefill at full width on
-    ``fp32_layers`` layers; for "bf16" the batch served again with Psi on
-    the same store (``run(predictor=True, host_store=)``, counters from 0).
-    Then (e), ``mixtral_baselines`` on the same store: quant_cache for
-    "int4", the six bf16 systems for "bf16". Writes the reports, launches,
-    logits and the seconds of each step to ``out`` (``torch.save``)."""
+def _offload_child(rank: int, kind: str, layers: int, out: str, arch: str,
+                   device: str, fp32_layers: int, extras: bool = True) -> None:
+    """One store of phase 23 or 24 in a process of its own:
+    ``launch.serve.run`` of ``arch`` cut to ``layers`` with ``kind``
+    ("int4" or "bf16") experts at the config's C, counters from 0, then the
+    plain run on the same store (``max_new`` 1); for "int4" also the plain
+    run in fp32 activations on the same codes, and the fp32 kernel-vs-plain
+    prefill at full width on ``fp32_layers`` layers. With ``extras`` (phase
+    23): for "bf16" the batch served again with Psi on the same store
+    (``run(predictor=True, host_store=)``, counters from 0); then (e),
+    ``mixtral_baselines`` on the same store: quant_cache for "int4", the six
+    bf16 systems for "bf16". Writes the reports, launches, logits and the
+    seconds of each step to ``out`` (``torch.save``)."""
     t0 = time.perf_counter()
     dev = _child_start(device)
     from repro_torch.kernels import dispatch
     from repro_torch.launch.serve import max_rss_bytes, run
 
-    kw = dict(MIXTRAL_SERVE, dtype=torch.bfloat16, device=device)
+    kw = dict(OFFLOAD_SERVE, dtype=torch.bfloat16, device=device)
     q = kind == "int4"
     name = _cut_arch(arch, layers)
     secs = {"start": time.perf_counter() - t0}
     baseline = max_rss_bytes()
     dispatch.reset_launches()
     t = time.perf_counter()
-    rep = run(name, max_new=MIXTRAL_NEW, quantized=q, keep_store=True, **kw)
+    rep = run(name, max_new=OFFLOAD_NEW, quantized=q, keep_store=True, **kw)
     secs["serve"] = time.perf_counter() - t
     launches = dict(dispatch.LAUNCHES)
     routes = {op: dict(dispatch.ROUTE_LAUNCHES[op]) for op in FAST_ROUTES}
@@ -4326,17 +4382,17 @@ def _mixtral_child(rank: int, kind: str, layers: int, out: str, arch: str,
         secs["plain_fp32"] = time.perf_counter() - t
         del ref32
         gc.collect()
-        # (e) quant_cache on this child's INT4 store
-        res["baselines"] = mixtral_baselines(store, MIXTRAL_INT4_SYSTEMS, arch=name,
-                                             device=device)
-        secs["baselines"] = res["baselines"]["secs"]
-    else:  # Psi, traced from this store (no second store is built)
+        if extras:  # (e) quant_cache on this child's INT4 store
+            res["baselines"] = mixtral_baselines(store, MIXTRAL_INT4_SYSTEMS, arch=name,
+                                                 device=device)
+            secs["baselines"] = res["baselines"]["secs"]
+    elif extras:  # Psi, traced from this store (no second store is built)
         gc.collect()  # the earlier runs' engines and their slabs
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         dispatch.reset_launches()
         t = time.perf_counter()
-        psi = run(name, max_new=MIXTRAL_NEW, predictor=True, n_train_prompts=PSI_TRAIN_PROMPTS,
+        psi = run(name, max_new=OFFLOAD_NEW, predictor=True, n_train_prompts=PSI_TRAIN_PROMPTS,
                   host_store=store, **kw)
         secs["predictor"] = time.perf_counter() - t
         res["predictor"] = {
@@ -4466,7 +4522,7 @@ def _mixtral_ckpt(dev, device: str, arch: str, layers: int) -> dict:
     cfg = get_config(name)
     dt = torch.bfloat16
     secs = {}
-    prompts = serve.make_prompts(cfg.vocab, MIXTRAL_SERVE["batch"], MIXTRAL_SERVE["prompt_len"])
+    prompts = serve.make_prompts(cfg.vocab, OFFLOAD_SERVE["batch"], OFFLOAD_SERVE["prompt_len"])
 
     def requests():
         return [ServeRequest(rid=i, prompt=p, max_new_tokens=1) for i, p in enumerate(prompts)]
@@ -4489,9 +4545,9 @@ def _mixtral_ckpt(dev, device: str, arch: str, layers: int) -> dict:
            "scores_max_abs": max(float(np.abs(g - w).max()) for g, w in zip(got, want)),
            "scores_shape": [tuple(g.shape) for g in got]}
     # Psi's routing trace, the whole tree against the store's staged layers
-    B = MIXTRAL_SERVE["batch"]
+    B = OFFLOAD_SERVE["batch"]
     train = serve.make_prompts(cfg.vocab, B + PSI_TRAIN_PROMPTS,
-                               MIXTRAL_SERVE["prompt_len"])[B:]
+                               OFFLOAD_SERVE["prompt_len"])[B:]
     rt = Runtime(device=dev, zero_drop=True)
     t = time.perf_counter()
     wt, wp = routing_trace(cfg, whole, train, max_new=PSI_TRACE_NEW, rt=rt)
@@ -4506,7 +4562,7 @@ def _mixtral_ckpt(dev, device: str, arch: str, layers: int) -> dict:
                trace_shape=tuple(sp.shape))
     del params, store, got, wp, sp
     gc.collect()
-    kw = dict(MIXTRAL_SERVE, dtype=dt, device=device)
+    kw = dict(OFFLOAD_SERVE, dtype=dt, device=device)
     with tempfile.TemporaryDirectory() as d:
         usage = shutil.disk_usage(d)
         print(f"mixtral checkpoint: {d} holds {usage.free / 2**30:.1f} GiB free of "
@@ -4551,21 +4607,24 @@ def _mixtral_ckpt(dev, device: str, arch: str, layers: int) -> dict:
     return res
 
 
-_MIXTRAL_CHILDREN = {"int4": _mixtral_child, "bf16": _mixtral_child,
-                     "bench": _mixtral_bench_child}
-
-
-def _mixtral_spawn(kind: str, layers: int, d: str, arch: str, device: str,
-                   fp32_layers: int, deadline: float) -> dict:
-    out = str(Path(d, f"mixtral-{kind}.pt"))
+def _offload_spawn(kind: str, layers: int, d: str, arch: str, device: str,
+                   fp32_layers: int, deadline: float, extras: bool = True) -> dict:
+    """Runs one child of phase 23 or 24 (``_offload_child``, or for
+    "bench" ``_mixtral_bench_child``) in a spawned process, waits for it
+    until ``deadline`` (``time.perf_counter``), kills it past that, and
+    returns what it wrote."""
+    out = str(Path(d, f"{arch}-{kind}.pt"))
+    fn = _mixtral_bench_child if kind == "bench" else functools.partial(
+        _offload_child, extras=extras)
     ctx = torch.multiprocessing.start_processes(
-        _MIXTRAL_CHILDREN[kind], args=(kind, layers, out, arch, device, fp32_layers),
+        fn, args=(kind, layers, out, arch, device, fp32_layers),
         nprocs=1, join=False, start_method="spawn")
     t0 = time.perf_counter()
     try:
         while not ctx.join(timeout=1.0):
             if time.perf_counter() > deadline:
-                raise TimeoutError(f"phase 23: the children took over {MIXTRAL_LIMIT_S} s")
+                raise TimeoutError(f"{arch} {kind} child: still running at the phase's "
+                                   "deadline")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -4591,68 +4650,103 @@ def _settled_available_gib(limit_s: float = 30.0) -> float:
     return prev
 
 
+def _offload_depth(label: str, what: str, avail: float, layers: int, layer_gib: float) -> int:
+    """The depth a bf16 store of ``layer_gib`` GiB a layer may take: all
+    ``layers`` where ``avail`` GiB of MemAvailable holds them plus
+    MIXTRAL_HOST_HEADROOM_GIB, else the deepest that does (printed as a
+    cut)."""
+    if avail >= layers * layer_gib + MIXTRAL_HOST_HEADROOM_GIB:
+        print(f"{label} {what}: host memory available {avail:.1f} GiB: {layers} layers")
+        return layers
+    cut = int((avail - MIXTRAL_HOST_HEADROOM_GIB) // layer_gib)
+    print(f"{label} {what}: host memory available {avail:.1f} GiB < {layers * layer_gib:.1f} "
+          f"GiB of experts + {MIXTRAL_HOST_HEADROOM_GIB} GiB: CUT to {cut} of {layers} layers")
+    if cut < 1:
+        raise AssertionError(f"{label} {what}: {avail:.1f} GiB of host memory holds no layer")
+    return cut
+
+
+def _offload_pair(label: str, arch: str, d: str, device: str, fp32_layers: int,
+                  deadline: float, extras: bool) -> dict:
+    """Phase 23's or 24's first two children: INT4 at full depth, then,
+    once the host's MemAvailable has settled, bf16 at the depth it allows
+    (``_offload_depth``). Returns both children's results by kind."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    spec = cfg.moe_spec
+    layer_gib = spec.num_experts * 3 * cfg.d_model * spec.d_ff * 2 / 2**30
+    print(f"{label} phase: host memory available {_host_available_gib():.1f} GiB")
+    rows = {"int4": _offload_spawn("int4", cfg.n_layers, d, arch, device, fp32_layers,
+                                   deadline, extras)}
+    layers = _offload_depth(label, "bf16", _settled_available_gib(), cfg.n_layers, layer_gib)
+    rows["bf16"] = _offload_spawn("bf16", layers, d, arch, device, fp32_layers, deadline,
+                                  extras)
+    return rows
+
+
 def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
                   fp32_layers: int = MIXTRAL_FP32_LAYERS) -> dict:
     """Phase 23 (see MIXTRAL): full-width Mixtral-8x7B offloaded, INT4 at
     full depth, then bf16 at the depth the host's memory allows; each
-    store drawn into by ``launch.serve.run`` in a child process; then (c)
-    ``bench_serve --offloaded`` at the bf16 row's depth and (d) a
-    checkpoint at MIXTRAL_CKPT_LAYERS layers, together in a third child;
-    (e) the comparison systems inside the first two children
-    (``mixtral_baselines``, gated by ``_mixtral_baselines_rows``). Every row
-    is printed first, then gated: launch totals (``flash_attn`` one "tc" a
-    layer in the prefill; ``moe_gmm`` and ``int4_matmul`` positive multiples
-    of 3, ``moe_gmm`` "tc" in the prefill and "stream" in decode,
-    ``int4_matmul`` by INT4_PHASE_ROUTES), the prefill logits (see
-    MIXTRAL_ROUNDOFF_SPAN), the fp32 check on ``fp32_layers`` layers
-    (FP32_LOGITS_REL_TOL), and the build's host memory against the store
-    (MIXTRAL_RSS_MARGIN); (c) and (d) as ``_mixtral_bench_row`` and
-    ``_mixtral_ckpt_row`` gate them. ``arch``/``device``: a smaller model or the CPU,
-    to rehearse the phase's logic."""
+    store drawn into by ``launch.serve.run`` in a child process
+    (``_offload_pair``); then (c) ``bench_serve --offloaded`` at the bf16
+    row's depth and (d) a checkpoint at MIXTRAL_CKPT_LAYERS layers,
+    together in a third child; (e) the comparison systems inside the first
+    two children (``mixtral_baselines``, gated by
+    ``_mixtral_baselines_rows``). Every row is printed first, then gated:
+    (a) as ``_offload_rows`` gates it, (b) to (e) as ``_mixtral_psi_row``,
+    ``_mixtral_bench_row``, ``_mixtral_ckpt_row`` and
+    ``_mixtral_baselines_rows`` do. ``arch``/``device``: a smaller model or
+    the CPU, to rehearse the phase's logic."""
     from repro_torch.configs import get_config
 
     t_phase = time.perf_counter()
     deadline = t_phase + MIXTRAL_LIMIT_S
     cfg = get_config(arch)
     spec = cfg.moe_spec
-    full = cfg.n_layers
     layer_gib = spec.num_experts * 3 * cfg.d_model * spec.d_ff * 2 / 2**30
-    rows = {}
     with tempfile.TemporaryDirectory() as d:
-        print(f"mixtral phase: host memory available {_host_available_gib():.1f} GiB")
-        rows["int4"] = _mixtral_spawn("int4", full, d, arch, device, fp32_layers, deadline)
-        avail = _settled_available_gib()
-        layers = full
-        if not avail >= full * layer_gib + MIXTRAL_HOST_HEADROOM_GIB:
-            layers = int((avail - MIXTRAL_HOST_HEADROOM_GIB) // layer_gib)
-            print(f"mixtral bf16: host memory available {avail:.1f} GiB < "
-                  f"{full * layer_gib:.1f} GiB of experts + {MIXTRAL_HOST_HEADROOM_GIB} "
-                  f"GiB: CUT to {layers} of {full} layers")
-            if layers < 1:
-                raise AssertionError(f"mixtral bf16: {avail:.1f} GiB of host memory "
-                                     "holds no layer")
-        else:
-            print(f"mixtral bf16: host memory available {avail:.1f} GiB: full depth, "
-                  f"{full} layers")
-        rows["bf16"] = _mixtral_spawn("bf16", layers, d, arch, device, fp32_layers,
-                                      deadline)
+        rows = _offload_pair("mixtral", arch, d, device, fp32_layers, deadline, extras=True)
         # (c) the wave server from the command line, at the bf16 row's depth
-        avail = _settled_available_gib()
-        bench_layers = layers
-        if not avail >= layers * layer_gib + MIXTRAL_HOST_HEADROOM_GIB:
-            bench_layers = int((avail - MIXTRAL_HOST_HEADROOM_GIB) // layer_gib)
-            print(f"mixtral bench_serve: host memory available {avail:.1f} GiB: CUT to "
-                  f"{bench_layers} of the bf16 row's {layers} layers")
-        else:
-            print(f"mixtral bench_serve: host memory available {avail:.1f} GiB: "
-                  f"{layers} layers, as the bf16 row")
+        bench_layers = _offload_depth("mixtral", "bench_serve", _settled_available_gib(),
+                                      rows["bf16"]["layers"], layer_gib)
         # then (d), a checkpoint of Mixtral cut to MIXTRAL_CKPT_LAYERS layers,
         # in the same child (which waits for MemAvailable to settle before
         # each of (d)'s builds)
-        both = _mixtral_spawn("bench", bench_layers, d, arch, device, fp32_layers, deadline)
+        both = _offload_spawn("bench", bench_layers, d, arch, device, fp32_layers, deadline)
         bench, ckpt = both["bench"], both["ckpt"]
     print(f"mixtral children: seconds from spawn to exit "
           f"{ {k: round(r['spawn_s'], 1) for k, r in (*rows.items(), ('bench', both))} }")
+    bad = []
+    out, roundoff = _offload_rows("mixtral", rows, cfg, device, fp32_layers, bad)
+    out["predictor"] = _mixtral_psi_row(rows["bf16"], cfg, device, bad)
+    out["bench"] = _mixtral_bench_row(bench, cfg, device, bad)
+    out["ckpt"] = _mixtral_ckpt_row(ckpt, cfg, bad)
+    out["baselines"] = _mixtral_baselines_rows(rows["bf16"], rows["int4"], cfg, device, bad,
+                                               roundoff)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"mixtral phase: {out['phase_s']:.1f} s")
+    if bad:
+        raise AssertionError("mixtral phase: " + "; ".join(bad))
+    return out
+
+
+def _offload_rows(label: str, rows: dict, cfg, device: str, fp32_layers: int, bad: list,
+                  peak_gate: bool = False) -> tuple:
+    """The rows of phase 23(a) or 24 (``rows``: ``_offload_child``'s INT4
+    and bf16 results; ``cfg`` the full config), printed, then gated into
+    ``bad``: launch totals (``flash_attn`` one "tc" a layer in the prefill;
+    ``moe_gmm`` and ``int4_matmul`` positive multiples of 3, ``moe_gmm``
+    "tc" in the prefill and "stream" in decode, ``int4_matmul`` by
+    INT4_PHASE_ROUTES), the prefill logits (see MIXTRAL_ROUNDOFF_SPAN), the
+    fp32 check on ``fp32_layers`` layers (FP32_LOGITS_REL_TOL), the build's
+    host memory against the store (MIXTRAL_RSS_MARGIN) and, with
+    ``peak_gate`` (phase 24), the peak device memory within the non-expert
+    weights + the slabs + one layer's overflow group (its E - C experts) +
+    OFFLOAD_ACT_BYTES. Returns the rows by kind (and the logits checks) and
+    the plain path's bf16 round-off r."""
+    C = cfg.melinoe_cache_capacity()
     i4 = rows["int4"]
     fp32_ref = i4["plain_fp32_logits"]
     roundoff = _rel(i4["plain_logits"], fp32_ref)
@@ -4660,11 +4754,11 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
     checks = {"fp32_short_kernel_vs_plain": _rel(k32, p32),
               "int4_plain_bf16_vs_fp32": roundoff,
               "int4_kernel_bf16_vs_fp32": None}
-    out, bad = {}, []
+    out = {}
     gib = lambda b: f"{b / 2**30:.2f} GiB" if b is not None else "n/a"  # noqa: E731
     for kind, r in rows.items():
         rep, q, n = r["rep"], kind == "int4", r["layers"]
-        path = f"mixtral-{kind}"
+        path = f"{label}-{kind}"
         PATH_LAUNCHES[path] = {"moe_gmm": None, "flash_attn": n,
                                "int4_matmul": None if q else 0}
         by_phase = rep["route_launches"]
@@ -4676,8 +4770,11 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
         rss = rep["max_rss_after_build"] - r["baseline_rss"]
         drop = rep["host_available_before_build"] - rep["host_available_after_build"]
         steps = max(rep["max_new"] - 1, 1)
+        size = _offload_bytes(cfg, n)
+        peak_bound = size["nonexpert"] + rep["slab_bytes"] + size["overflow"] \
+            + OFFLOAD_ACT_BYTES
         row = {k: rep[k] for k in (
-            "transfers", "transfer_bytes", "hit_rate", "modeled_time_s",
+            "capacity", "transfers", "transfer_bytes", "hit_rate", "modeled_time_s",
             "modeled_time_overlapped_s", "decode_tok_s", "prefill_s", "quantize_s",
             "build_s", "max_memory_allocated", "slab_bytes", "host_store_bytes",
             "host_available_before_build", "host_available_after_build", "expert_copies")}
@@ -4685,10 +4782,12 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
                    baseline_rss_bytes=r["baseline_rss"], host_available_drop_bytes=drop,
                    rss_margin=MIXTRAL_RSS_MARGIN, secs=r["secs"],
                    copies_per_decode_step=rep["expert_copies"]["decode"] / steps,
+                   memory_bound_bytes=peak_bound, nonexpert_bytes=size["nonexpert"],
+                   whole_model_bytes=size["whole"],
                    launches_total=r["launches"], route_launches=r["routes"],
                    route_launches_by_phase=by_phase)
-        print(f"{path} ({n} layers): transfers {row['transfers']}, hit rate "
-              f"{row['hit_rate']:.3f}, modeled {row['modeled_time_s']:.3f} s serial / "
+        print(f"{path} ({n} layers, C = {rep['capacity']}): transfers {row['transfers']}, "
+              f"hit rate {row['hit_rate']:.3f}, modeled {row['modeled_time_s']:.3f} s serial / "
               f"{row['modeled_time_overlapped_s']:.3f} s overlapped; prefill "
               f"{row['prefill_s']:.3f} s, decode {row['decode_tok_s']:.2f} tok/s, "
               f"{row['copies_per_decode_step']:.1f} moe.fetch copies a decode step; store "
@@ -4699,9 +4798,9 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
               f"high-water +{gib(rss)} over the child's {gib(r['baseline_rss'])} (limits "
               f"store + {gib(MIXTRAL_RSS_MARGIN)}); peak "
               f"device {gib(row['max_memory_allocated'])} beside slabs "
-              f"{gib(row['slab_bytes'])}; logits vs plain rel {rel:.4g} (limit "
-              f"{MIXTRAL_ROUNDOFF_SPAN} x {roundoff:.4g}), top-1 {top1:.2f}; child seconds "
-              f"{ {k: round(v, 1) for k, v in r['secs'].items()} }")
+              f"{gib(row['slab_bytes'])} (bound {gib(peak_bound)}); logits vs plain rel "
+              f"{rel:.4g} (limit {MIXTRAL_ROUNDOFF_SPAN} x {roundoff:.4g}), top-1 {top1:.2f}; "
+              f"child seconds { {k: round(v, 1) for k, v in r['secs'].items()} }")
         print(f"{path}: launches {r['launches']}, by phase {by_phase}")
         if device == "cuda":
             try:
@@ -4720,9 +4819,12 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
                          for ph, v in i4_phase.items()):
                 bad.append(f"{path}: int4_matmul by phase {i4_phase}, want "
                            f"{INT4_PHASE_ROUTES}, multiples of 3")
-        if (tokens.shape != (4, MIXTRAL_NEW) or logits.shape != (4, cfg.vocab)
+        if (tokens.shape != (OFFLOAD_SERVE["batch"], OFFLOAD_NEW)
+                or logits.shape != (OFFLOAD_SERVE["batch"], cfg.vocab)
                 or not torch.isfinite(logits).all()):
             bad.append(f"{path}: tokens {tokens.shape} logits {logits.shape}")
+        if rep["capacity"] != C:
+            bad.append(f"{path}: served at C = {rep['capacity']}, want the config's {C}")
         for what, b in (("resident-set high-water mark", rss), ("MemAvailable drop", drop)):
             if not b <= rep["host_store_bytes"] + MIXTRAL_RSS_MARGIN:
                 bad.append(f"{path}: the build's {what} {b} B, over the store's "
@@ -4730,49 +4832,48 @@ def mixtral_phase(arch: str = MIXTRAL, device: str = "cuda",
         if not (math.isfinite(rel) and rel <= MIXTRAL_ROUNDOFF_SPAN * roundoff):
             bad.append(f"{path}: prefill logits kernel vs plain rel {rel}, over "
                        f"{MIXTRAL_ROUNDOFF_SPAN} x the plain path's round-off {roundoff}")
+        peak = row["max_memory_allocated"]
+        if peak_gate and peak is not None and not peak <= min(peak_bound, size["whole"]):
+            bad.append(f"{path}: peak device memory {peak} B, over the non-expert weights + "
+                       f"slabs + one layer's overflow group + {OFFLOAD_ACT_BYTES} B = "
+                       f"{peak_bound} B (whole model {size['whole']} B)")
         out[kind] = row
-    print(f"mixtral prefill logits: {checks} (fp32 on {fp32_layers} layers tol "
+    print(f"{label} prefill logits: {checks} (fp32 on {fp32_layers} layers tol "
           f"{FP32_LOGITS_REL_TOL}; INT4 kernel vs the fp32 plain run tol {ACCURACY_RATIO} x "
           f"the plain bf16 run's)")
     if not checks["fp32_short_kernel_vs_plain"] <= FP32_LOGITS_REL_TOL:
-        bad.append(f"mixtral: fp32 prefill logits disagree: {checks}")
+        bad.append(f"{label}: fp32 prefill logits disagree: {checks}")
     if not checks["int4_kernel_bf16_vs_fp32"] <= ACCURACY_RATIO * roundoff:
-        bad.append(f"mixtral-int4: the kernel run lies farther from the fp32 plain run "
+        bad.append(f"{label}-int4: the kernel run lies farther from the fp32 plain run "
                    f"than {ACCURACY_RATIO} x the plain bf16 run: {checks}")
     out["checks"] = checks
-    out["predictor"] = _mixtral_psi_row(rows["bf16"], cfg, device, bad)
-    out["bench"] = _mixtral_bench_row(bench, cfg, device, bad)
-    out["ckpt"] = _mixtral_ckpt_row(ckpt, cfg, bad)
-    out["baselines"] = _mixtral_baselines_rows(rows["bf16"], rows["int4"], cfg, device, bad,
-                                               roundoff)
-    out["phase_s"] = time.perf_counter() - t_phase
-    print(f"mixtral phase: {out['phase_s']:.1f} s")
-    if bad:
-        raise AssertionError("mixtral phase: " + "; ".join(bad))
-    return out
+    return out, roundoff
 
 
-def _mixtral_bytes(cfg, layers: int) -> dict:
+def _offload_bytes(cfg, layers: int) -> dict:
     """Bytes of ``cfg`` cut to ``layers`` in bf16: one MoE layer's experts,
-    the non-expert weights (the router fp32), the whole model's, and the
-    slabs at MIXTRAL_SERVE's capacity."""
+    the non-expert weights (the router fp32), the whole model's, the slabs
+    at the config's C and one layer's overflow group (its E - C other
+    experts)."""
     from repro_torch.models.model import param_shapes
     from repro_torch.training.checkpoint import tree_leaves
 
     spec = cfg.moe_spec
+    C = cfg.melinoe_cache_capacity()
     layer = spec.num_experts * 3 * cfg.d_model * spec.d_ff * 2
     cut = dataclasses.replace(cfg, layout=(dataclasses.replace(
         cfg.layout[0], repeats=layers // len(cfg.layout[0].pattern)),))
     total = sum(t.numel() * t.element_size()
                 for t in tree_leaves(param_shapes(cut, torch.bfloat16)))
     return {"layer": layer, "nonexpert": total - layers * layer, "whole": total,
-            "slabs": layers * MIXTRAL_SERVE["capacity"] * layer // spec.num_experts}
+            "slabs": layers * C * layer // spec.num_experts,
+            "overflow": (spec.num_experts - C) * layer // spec.num_experts}
 
 
 def _mixtral_bench_row(r: dict, cfg, device: str, bad: list) -> dict:
     """Phase 23 (c)'s row, printed, then gated into ``bad``."""
     n, b, summ = r["layers"], r["build"], r["summary"]
-    size = _mixtral_bytes(cfg, n)
+    size = _offload_bytes(cfg, n)
     bound = size["nonexpert"] + size["slabs"] + size["layer"] + MIXTRAL_BENCH_ACT_BYTES
     drop = b["host_available_before_build"] - b["host_available_after_build"] \
         if b["host_available_before_build"] is not None else None
@@ -4828,7 +4929,7 @@ def _mixtral_psi_row(r: dict, cfg, device: str, bad: list) -> dict:
     rep = p["rep"]
     cut = dataclasses.replace(cfg, layout=(dataclasses.replace(
         cfg.layout[0], repeats=n // len(cfg.layout[0].pattern)),))
-    size = _mixtral_bytes(cfg, n)
+    size = _offload_bytes(cfg, n)
     act = _mixtral_trace_act_bytes(cfg, n)
     bound = size["nonexpert"] + size["layer"] + sum(act.values())
     staged = PSI_TRACE_NEW * n * size["layer"]
@@ -4852,9 +4953,10 @@ def _mixtral_psi_row(r: dict, cfg, device: str, bad: list) -> dict:
     print("mixtral-bf16 with Psi:", json.dumps(row))
     if not (all(math.isfinite(x) for x in kl) and kl[-1] < kl[0]):
         bad.append(f"mixtral Psi: KL did not fall: {kl}")
-    if rep["prefetch_transfers"] != MIXTRAL_SERVE["capacity"] * n:
+    C = cfg.melinoe_cache_capacity()
+    if rep["prefetch_transfers"] != C * n:
         bad.append(f"mixtral Psi: {rep['prefetch_transfers']} prefetch transfers, want "
-                   f"C x layers = {MIXTRAL_SERVE['capacity'] * n}")
+                   f"C x layers = {C * n}")
     if not p["tokens_equal"]:
         bad.append("mixtral Psi: tokens differ from the run without Psi")
     if drop is not None and not drop <= MIXTRAL_RSS_MARGIN:
@@ -4872,7 +4974,7 @@ def _mixtral_psi_row(r: dict, cfg, device: str, bad: list) -> dict:
 def _mixtral_ckpt_row(r: dict, cfg, bad: list) -> dict:
     """Phase 23 (d)'s row, printed, then gated into ``bad``."""
     n = r["layers"]
-    size = _mixtral_bytes(cfg, n)
+    size = _offload_bytes(cfg, n)
     ck, sd, b = r["run_ckpt"], r["run_seed"], r["bench_build"]
     drops = {"run_ckpt": ck["host_available_before_build"] - ck["host_available_after_build"]
              if ck["host_available_before_build"] is not None else None,
@@ -4949,12 +5051,12 @@ def _mixtral_baselines_rows(bf16: dict, int4: dict, cfg, device: str, bad: list,
     children, full config ``cfg``), printed with the Fig.-3 table, then
     gated into ``bad`` (see the module docstring); ``roundoff``: the INT4
     child's plain bf16 round-off r."""
-    spec, C = cfg.moe_spec, MIXTRAL_SERVE["capacity"]
+    spec, C = cfg.moe_spec, cfg.melinoe_cache_capacity()
     parts = {"bf16": bf16["baselines"], "int4": int4["baselines"]}
     rows, drops = {}, {}
     for kind, b in parts.items():
         n = b["layers"]
-        size = _mixtral_bytes(cfg, n)
+        size = _offload_bytes(cfg, n)
         before = b["host_available_before"]
         drops[kind] = None if before is None else before - b["host_available_after"]
         print(f"mixtral baselines, {kind} child: {n} of {cfg.n_layers} layers, {b['batch']} x "
@@ -5057,6 +5159,57 @@ def _mixtral_baselines_rows(bf16: dict, int4: dict, cfg, device: str, bad: list,
             "route_launches": {k: r["route_launches"] for k, r in rows.items()}}
 
 
+# Phase 24: Phi-3.5-MoE (paper Table 6: 32 layers, d 4096, 32 q / 8 kv heads
+# of 128, 16 experts top-2, d_ff 6400, vocab 32,064; Table 7: C = 4), the
+# paper's third backbone, offloaded at full width through launch.serve.run
+# as phase 23(a) serves Mixtral (``_offload_pair``, ``_offload_rows``): INT4
+# at full depth (a 30.2 GB store), then bf16 (75.0 GiB) at the depth the
+# host's MemAvailable allows, each store drawn one expert matrix at a time
+# in a child process of its own, phase 23's traffic (4 x (128 + 16) tokens,
+# gamma, seed 0), so that the two backbones' rows read side by side. At
+# 16 experts top-2 and C = 4 the slab holds a quarter of the experts, as
+# Mixtral's does, but a prefill's overflow group takes up to 12 experts a
+# layer and its row count per expert is about 64 (4 x 128 x 2 / 16). Its
+# rows are gated as phase 23's, and on the peak device memory: the model
+# (83.75 GB) does not fit the card, so what it holds there is bounded by
+# the non-expert weights, the slabs, one layer's overflow group and
+# OFFLOAD_ACT_BYTES.
+PHI = "phi35-moe"
+# activations, KV caches and logits of the batch beside the weights a row
+# must hold (a 512-token prefill's are tens of MB)
+OFFLOAD_ACT_BYTES = 1 << 30
+# the two children (41.9 and 40.1 s from spawn to exit, the phase 90.3 s
+# with the settling of MemAvailable, on an H100 80GB HBM3 at 700 W); a guard
+# against a hang, inside the whole run's 1200 s
+PHI_LIMIT_S = 400
+
+
+def phi_phase(arch: str = PHI, device: str = "cuda",
+              fp32_layers: int = MIXTRAL_FP32_LAYERS) -> dict:
+    """Phase 24 (see PHI): full-width Phi-3.5-MoE offloaded, INT4 at full
+    depth, then bf16 at the depth the host's memory allows, each in a child
+    process (``_offload_pair`` without phase 23's extras); the rows printed,
+    then gated by ``_offload_rows`` with its peak-memory gate.
+    ``arch``/``device``: a smaller model or the CPU, to rehearse the
+    phase's logic."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    with tempfile.TemporaryDirectory() as d:
+        rows = _offload_pair("phi", arch, d, device, fp32_layers, t_phase + PHI_LIMIT_S,
+                             extras=False)
+    print(f"phi children: seconds from spawn to exit "
+          f"{ {k: round(r['spawn_s'], 1) for k, r in rows.items()} }")
+    bad = []
+    out, _ = _offload_rows("phi", rows, cfg, device, fp32_layers, bad, peak_gate=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phi phase: {out['phase_s']:.1f} s")
+    if bad:
+        raise AssertionError("phi phase: " + "; ".join(bad))
+    return out
+
+
 def kernel_entry(name, source, replaces, cases, main_case, launches, fma_source=None):
     """One line entry: the main-path case's numbers, the worst error over
     every case, and every case beside it. ``source`` is the kernel the
@@ -5107,11 +5260,16 @@ def main() -> int:
     # Mixtral-8x7B's shapes, from a generator of their own (the cases above
     # draw what they drew before them)
     mgen = torch.Generator(device="cuda").manual_seed(2)
-    g_cases += mixtral_gmm_cases(mgen)
+    g_cases += offload_gmm_cases(mgen, MIXTRAL)
     f_cases += flash_cases(mgen, MIXTRAL_FLASH_SHAPES)
-    i_cases += int4_cases(mgen, MIXTRAL_INT4_SHAPES)
-    g_cases += mixtral_gmm_cases(torch.Generator(device="cuda").manual_seed(3),
+    i_cases += int4_cases(mgen, offload_int4_shapes(MIXTRAL))
+    g_cases += offload_gmm_cases(torch.Generator(device="cuda").manual_seed(3), MIXTRAL,
                                  MIXTRAL_BASELINE_GMM_SHAPES)
+    # Phi-3.5-MoE's (phase 24; its flash_attn shape is Mixtral's), from a
+    # generator of their own
+    pgen = torch.Generator(device="cuda").manual_seed(4)
+    g_cases += offload_gmm_cases(pgen, PHI)
+    i_cases += int4_cases(pgen, offload_int4_shapes(PHI))
     for c in g_cases + f_cases + i_cases + s_cases:
         print(f"  {c['case']}: route {c.get('route', 'cuda')} err {c['max_abs_err']:.3g} "
               f"kernel {c['ms']:.4f} ms"
@@ -5140,7 +5298,6 @@ def main() -> int:
     print("serve olmoe:", json.dumps({k: v for k, v in rep.items()
                                       if k not in ("tokens", "prefill_logits")}))
     print(f"launches on the main path: {launches}")
-    slab_rows = {"slab-bf16": _slab_row(rep)}
     main_stats = {k: rep[k] for k in ("transfers", "prefetch_transfers", "hit_rate",
                                       "modeled_time_s", "decode_tok_s", "prefill_s")}
     ops_main = dict(main_stats, tokens=tokens, launches=launches, routes=routes)
@@ -5170,7 +5327,6 @@ def main() -> int:
         {k: v for k, v in qrep.items()
          if k not in ("tokens", "prefill_logits", "quantized_experts", "host_store")}))
     print(f"launches on the INT4 path: {q_launches}")
-    slab_rows["slab-int4"] = _slab_row(qrep)
     ops_int4 = {"tokens": qrep["tokens"], "transfers": qrep["transfers"],
                 "decode_tok_s": qrep["decode_tok_s"], "launches": q_launches,
                 "routes": q_routes}
@@ -5238,7 +5394,7 @@ def main() -> int:
     f_rep = fleet_phase()
 
     # ---- the per-expert engine beside the slab engine; expert parallelism
-    dc_rep = dict_phase(slab_rows)
+    dc_rep = dict_phase()
     ep_rep = ep_phase()
 
     # ---- the dry run: its one-card prediction against the card; the production meshes
@@ -5246,6 +5402,9 @@ def main() -> int:
 
     # ---- Mixtral-8x7B offloaded at full width: INT4 at full depth, then bf16
     mx_rep = mixtral_phase()
+
+    # ---- Phi-3.5-MoE offloaded at full width: INT4 at full depth, then bf16
+    phi_rep = phi_phase()
     ep_paths = {}
     for r in ep_rep["ranks"]:
         gmm = r["moe"]["bfloat16"]["moe_gmm_routes"]
@@ -5304,7 +5463,8 @@ def main() -> int:
              **{f"mixtral-{n}": mx_rep[n]["launches_total"]
                 for n in ("int4", "bf16", "predictor", "bench")},
              **{f"mixtral-baseline-{n}": lt
-                for n, lt in mx_rep["baselines"]["launches_total"].items()}}
+                for n, lt in mx_rep["baselines"]["launches_total"].items()},
+             **{f"phi-{n}": phi_rep[n]["launches_total"] for n in ("int4", "bf16")}}
     routes = {"bf16": routes, "int4": q_routes, "zamba2-7b": z_rep["route_launches"],
               "mamba2-130m": m_rep["route_launches"],
               "continuous-olmoe": c_rep["route_launches"],
@@ -5329,7 +5489,8 @@ def main() -> int:
              **{f"mixtral-{n}": mx_rep[n]["route_launches"]
                 for n in ("int4", "bf16", "predictor", "bench")},
              **{f"mixtral-baseline-{n}": rl
-                for n, rl in mx_rep["baselines"]["route_launches"].items()}}
+                for n, rl in mx_rep["baselines"]["route_launches"].items()},
+             **{f"phi-{n}": phi_rep[n]["route_launches"] for n in ("int4", "bf16")}}
     for k in kernels:  # launches of each path, each counted from 0
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
         if k["name"] in FAST_ROUTES:

@@ -15,9 +15,10 @@ this tree (ROADMAP, Queue 3).
 The test files ``tests/test_torch_engine_int4.py`` (granite smoke),
 ``tests/test_torch_engine_int4_olmoe.py`` and
 ``tests/test_torch_engine_int4_olmoe_gamma.py`` (olmoe-mini cut to 2
-layers, lfu and gamma) and ``tests/test_torch_engine_int4_paper.py``
-(mixtral-8x7b and phi35-moe smoke) import the checks below and define the ``models``
-fixture for their config (one file per config, and per policy for
+layers, lfu and gamma), ``tests/test_torch_engine_int4_paper.py``
+(mixtral-8x7b and phi35-moe smoke) and
+``tests/test_torch_phi35_offloaded.py`` (phi35-moe smoke at 16 experts)
+import the checks below and define the ``models`` fixture for their config (one file per config, and per policy for
 olmoe-mini, puts each file's JAX quantization and compile time on its
 own worker).
 """
@@ -40,6 +41,7 @@ from repro_torch.bridge import params_from_jax, quantized_experts_from_jax  # no
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.offload_engine import HardwareProfile, OffloadedMoEEngine  # noqa: E402
 from _torch_mixtral8 import SMOKE as MIXTRAL_SMOKE, eight_experts  # noqa: E402
+from _torch_phi16 import SMOKE as PHI_SMOKE, sixteen_experts  # noqa: E402
 
 HW = HardwareProfile(**{f.name: getattr(PCIE5_H100, f.name)
                         for f in dataclasses.fields(HardwareProfile)})
@@ -57,6 +59,8 @@ ARCHS = {  # id -> (config name, reduction applied to both packages' configs)
     "phi35-smoke": ("phi35-moe-smoke", lambda c: c),
     # Mixtral's expert ratios (8 experts, top-2; tests/_torch_mixtral8.py)
     "mixtral8-smoke": (MIXTRAL_SMOKE, eight_experts),
+    # Phi's (16 experts, top-2; tests/_torch_phi16.py)
+    "phi16-smoke": (PHI_SMOKE, sixteen_experts),
 }
 
 # The JAX engine quantizes every expert eagerly in its constructor, one
